@@ -11,18 +11,30 @@ without a result line:
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build every kernel of ``paddlerec_tpu_torch/csrc`` with ``nvcc``;
-3. kernel K1 (``gather_pool``) against its plain PyTorch version on the
-   card, on every case below, with the tolerance stated beside it;
-4. the main path at the full width of ``configs/rank/deepfm/config.yaml``
+3. kernels K1 (``gather_pool``) and K1b (``gather_pool_bwd``, its gradient)
+   against their plain PyTorch versions on the card, on every case below,
+   with the tolerance stated beside it, and ``backward()`` through the
+   ``autograd.Function`` against autograd through the plain version;
+4. the serving path at the full width of ``configs/rank/deepfm/config.yaml``
    (vocab 1,000,001, 26 slots, tower [512, 256, 128, 32]): export a seeded
    artifact, write Criteo slot text, ``run_predict`` on the card at batch
    512 and 8192, and hold the predictions against the port's own CPU run of
    the same artifact and rows (atol 1e-5);
 5. serve: ``RecService`` on 127.0.0.1, three ``RecClient`` requests whose
    answers must match ``run_predict`` for the same rows (atol 1e-5);
-6. time K1 at the main path's shapes with CUDA events, beside its plain
-   version, ``embedding_bag`` (the one-call PyTorch yardstick, which the
-   port never calls) and the memory bound.
+6. the training path at the same width, Adam: the first 5 steps against the
+   port's own CPU run from the same parameters and batches (loss atol
+   1e-5); ``Trainer.train()`` over slotbin files through the staged
+   superbatch feed with ``wire_format: compact`` at batch 8192 (48 steps)
+   and 512 (192 steps), two epochs each, one K1 and one K1b launch per step,
+   the loss finite and falling; ``Trainer.evaluate()`` from the saved
+   checkpoint; a short run with the bfloat16 table;
+7. time K1 and K1b at the main path's shapes with CUDA events, beside their
+   plain versions, the one-call PyTorch yardsticks (``embedding_bag``,
+   ``embedding_dense_backward``, which the port never calls) and the memory
+   bound;
+8. ``torch.profiler`` over 20 forwards and over 20 train steps at each
+   batch size.
 
 Standard output: the ``nvidia-smi`` line, one JSON line per phase's result
 (each tagged with the card), the ``{"kernels": [...]}`` line, and last
@@ -36,6 +48,7 @@ import json
 import logging
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -51,7 +64,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 SM_CYCLES_PER_S = 1.98e9  # H100 SXM boost clock: sizes the spin in time_ms
 BATCHES = (512, 8192)  # serving batch; config_bigdata.yaml's infer batch
-ROWS = 3 * 8192 + 1000  # 3 full batches of 8192 and a padded tail
+ROWS = 8192 + 1000  # a full batch of 8192 and a padded tail
+TRAIN_STEPS = {8192: 24, 512: 96}  # steps per epoch; two epochs are trained
 SLOTS = 26
 
 
@@ -100,16 +114,23 @@ def check_k1(gp, seed: int, card: str) -> float:
          ids(999, 3, 1000), None, (1e-5, 1e-6)),
         ("f32 D16 L1 misaligned", packed.reshape(-1)[1:16001].view(1000, 16),
          ids(999, 1, 1000), None, "bitwise"),
-        ("bf16 D16 L1", view16.to(torch.bfloat16), ids(8192, 1, view16.shape[0]),
-         None, "bitwise"),
+        # the bf16 table's training and evaluation lookups
+        ("bf16 D16 L1 B512", view16.to(torch.bfloat16),
+         ids(512 * SLOTS, 1, view16.shape[0]), None, "bitwise"),
+        ("bf16 D16 L1 B8192", view16.to(torch.bfloat16),
+         ids(8192 * SLOTS, 1, view16.shape[0]), None, "bitwise"),
         ("bf16 D16 L8 mask", view16.to(torch.bfloat16), ids(8192, 8, view16.shape[0]),
          mask01(8192, 8), (1e-2, 1e-5)),
+        ("bf16 D16 L8 mask →f32", view16.to(torch.bfloat16),
+         ids(8192, 8, view16.shape[0]), mask01(8192, 8), (1e-6, 1e-6)),
     ]
     results, main_err = [], 0.0
     for name, table, idx, mask, tol in cases:
-        out = gp.gather_pool(table, idx, mask)
+        # "→f32": the float32 sum of bf16 rows, written unrounded
+        out_dtype = torch.float32 if name.endswith("→f32") else None
+        out = gp.gather_pool(table, idx, mask, out_dtype)
         torch.cuda.synchronize()
-        ref = gp.gather_pool_plain(table, idx, mask)
+        ref = gp.gather_pool_plain(table, idx, mask, out_dtype)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         if tol == "bitwise":
@@ -125,9 +146,123 @@ def check_k1(gp, seed: int, card: str) -> float:
         })
         if not ok:
             raise AssertionError(f"K1 disagrees with its plain version: {results[-1]}")
-        if name.startswith("f32 D16 L1"):
+        if name.endswith(("D16 L1 B512", "D16 L1 B8192")):
             main_err = max(main_err, err)
     emit({"k1_checks": results, "card": card})
+    return main_err
+
+
+def check_k1b(gp, seed: int, card: str) -> float:
+    """Phase 3, K1b.  Returns the largest error on the main path's shapes."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    view_rows = 125001 * 8  # DeepFM's table through its (R*8, 16) view
+
+    def grad(n, dim, dtype=torch.float32):
+        return torch.randn(n, dim, device="cuda", generator=g).to(dtype)
+
+    def ids(n, pool, rows):
+        return torch.randint(0, rows, (n, pool), device="cuda", generator=g,
+                             dtype=torch.int32)
+
+    def skewed(n, pool, rows):
+        # Zipf-like: a tenth of the ids hit row 0, a fifth the first 64 rows
+        u = torch.rand(n, pool, device="cuda", generator=g)
+        return (u.pow(6) * rows).to(torch.int32)
+
+    def mask01(n, pool):
+        return (torch.rand(n, pool, device="cuda", generator=g) < 0.7).float()
+
+    bf16 = torch.bfloat16
+    n_small, n_big = 512 * SLOTS, 8192 * SLOTS
+    # tolerance: "bitwise", "zero", or (rtol, atol).  Atomic float adds
+    # arrive in an order of their own, so a row that takes three or more
+    # adds differs from the plain version's sum in its last bits; the
+    # error grows with the root of the number of adds.  A bf16 result is
+    # one f32 sum rounded once on both sides (rtol 1e-2 = one bf16 ulp).
+    cases = [
+        ("f32 D16 L1 B512", grad(n_small, 16), ids(n_small, 1, view_rows), None,
+         view_rows, None, (1e-5, 1e-6)),
+        ("f32 D16 L1 B8192", grad(n_big, 16), ids(n_big, 1, view_rows), None,
+         view_rows, None, (1e-5, 1e-6)),
+        ("bf16 D16 L1 B512", grad(n_small, 16, bf16), ids(n_small, 1, view_rows), None,
+         view_rows, None, (1e-2, 1e-6)),
+        ("bf16 D16 L1 B8192", grad(n_big, 16, bf16), ids(n_big, 1, view_rows), None,
+         view_rows, None, (1e-2, 1e-6)),
+        ("f32 D128 L3 mask", grad(4096, 128), ids(4096, 3, 125001),
+         mask01(4096, 3), 125001, None, (1e-5, 1e-6)),
+        ("f32 D128 L8 mask", grad(4096, 128), ids(4096, 8, 125001),
+         mask01(4096, 8), 125001, None, (1e-5, 1e-6)),
+        ("f32 N13313 L200", grad(13313, 16), ids(13313, 200, view_rows),
+         mask01(13313, 200), view_rows, None, (1e-5, 1e-5)),
+        ("f32 D10 L3 scalar path", grad(999, 10), ids(999, 3, 1000), None,
+         1000, None, (1e-5, 1e-5)),
+        ("f32 D16 L1 unique ids", grad(8192, 16),
+         torch.randperm(view_rows, device="cuda", generator=g)[:8192]
+         .to(torch.int32)[:, None], None, view_rows, None, "bitwise"),
+        # row 0 takes ~21,000 adds of size ~1: a sum of size ~150, whose
+        # f32 ulp is 1.5e-5, reached in another order
+        ("f32 D16 L1 B8192 skewed ids", grad(n_big, 16), skewed(n_big, 1, view_rows),
+         None, view_rows, None, (1e-4, 2e-3)),
+        ("bf16 D16 L1 B8192 skewed ids", grad(n_big, 16, bf16),
+         skewed(n_big, 1, view_rows), None, view_rows, None, (1e-2, 2e-3)),
+        ("f32 g into a bf16 table, L8 mask", grad(8192, 16), ids(8192, 8, view_rows),
+         mask01(8192, 8), view_rows, bf16, (1e-2, 1e-6)),
+        ("f32 zero mask", grad(1024, 128), ids(1024, 8, 125001),
+         torch.zeros(1024, 8, device="cuda"), 125001, None, "zero"),
+        ("f32 ids out of range are dropped", grad(4096, 16),
+         ids(4096, 2, 1200) - 100, None, 1000, None, (1e-5, 1e-5)),
+    ]
+    results, main_err = [], 0.0
+    for name, grad_out, idx, mask, rows, dtype, tol in cases:
+        out = gp.gather_pool_bwd(grad_out, idx, mask, rows, dtype)
+        torch.cuda.synchronize()
+        ref = gp.gather_pool_bwd_plain(grad_out, idx, mask, rows, dtype)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        if out.dtype != ref.dtype or out.shape != ref.shape:
+            ok = False
+        elif tol == "bitwise":
+            ok = torch.equal(out, ref)
+        elif tol == "zero":
+            ok = float(out.abs().max()) == 0.0
+        else:
+            ok = torch.allclose(out.float(), ref.float(), rtol=tol[0], atol=tol[1])
+        results.append({
+            "case": name, "n": idx.shape[0], "pool": idx.shape[1],
+            "dim": grad_out.shape[1], "rows": rows, "max_abs_err": err, "ok": ok,
+            "tolerance": tol if isinstance(tol, str) else {"rtol": tol[0], "atol": tol[1]},
+        })
+        if not ok:
+            raise AssertionError(f"K1b disagrees with its plain version: {results[-1]}")
+        if name.endswith(("D16 L1 B512", "D16 L1 B8192")):
+            main_err = max(main_err, err)
+    emit({"k1b_checks": results, "card": card})
+
+    # backward() through the autograd.Function (K1, then K1b) against
+    # autograd through the plain version, on the card
+    auto = []
+    for dtype, tol in ((torch.float32, (1e-5, 1e-5)), (bf16, (2e-2, 2e-2))):
+        table = torch.randn(5000, 16, device="cuda", generator=g).to(dtype)
+        idx, mask = ids(3000, 4, 5000), mask01(3000, 4)
+        weight = torch.randn(3000, 16, device="cuda", generator=g)
+        grads = []
+        for fn in (gp.gather_pool, gp.gather_pool_plain):
+            t = table.clone().requires_grad_()
+            fwd, bwd = gp.gather_pool.launches, gp.gather_pool_bwd.launches
+            (fn(t, idx, mask, torch.float32) * weight).sum().backward()
+            launched = (gp.gather_pool.launches - fwd, gp.gather_pool_bwd.launches - bwd)
+            if launched != ((1, 1) if fn is gp.gather_pool else (0, 0)):
+                raise AssertionError(f"{fn.__name__}: launches {launched}")
+            grads.append(t.grad.float())
+        torch.cuda.synchronize()
+        err = float((grads[0] - grads[1]).abs().max())
+        # bf16: the plain path's index_select backward adds in bf16, K1b in
+        # f32 rounded once
+        if not torch.allclose(grads[0], grads[1], rtol=tol[0], atol=tol[1]):
+            raise AssertionError(f"autograd through K1/K1b, {dtype}: max err {err}")
+        auto.append({"dtype": str(dtype), "max_abs_err": err,
+                     "tolerance": {"rtol": tol[0], "atol": tol[1]}})
+    emit({"autograd_checks": auto, "card": card})
     return main_err
 
 
@@ -154,7 +289,7 @@ def time_ms(fn, sets, iters: int, hold_ms: float = 0.0) -> float:
 
 
 def time_k1(gp, table, seed: int, vocab: int) -> list:
-    """Phase 6: K1 on DeepFM's lookup (N = B·26, L = 1, D = 16, f32)."""
+    """Phase 7: K1 on DeepFM's lookup (N = B·26, L = 1, D = 16, f32)."""
     from torch.nn import functional as F
 
     view = table.view(-1, 16)
@@ -186,8 +321,257 @@ def time_k1(gp, table, seed: int, vocab: int) -> list:
     return rows
 
 
+def time_k1b(gp, seed: int, vocab: int, rows: int) -> list:
+    """Phase 7: K1b on the gradient of DeepFM's lookup (N = B·26, L = 1,
+    D = 16, f32, a dense (rows, 16) gradient)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    out = []
+    for batch in BATCHES:
+        n = batch * SLOTS
+        n_sets = max(4, math.ceil(64 * 13312 / n))
+        sets = [torch.randint(0, vocab, (n, 1), device="cuda", generator=g,
+                              dtype=torch.int32) for _ in range(n_sets)]
+        flat = {id(s): s.reshape(-1).long() for s in sets}  # the library's input
+        grad = torch.randn(n, 16, device="cuda", generator=g)
+        iters = 10 * n_sets
+        fns = {
+            "ms": lambda s: gp.gather_pool_bwd(grad, s, None, rows),
+            "plain_ms": lambda s: gp.gather_pool_bwd_plain(grad, s, None, rows),
+            "library_ms": lambda s: torch.ops.aten.embedding_dense_backward(
+                grad, flat[id(s)], rows, -1, False),
+        }
+        call = {k: time_ms(fn, sets, iters) for k, fn in fns.items()}
+        device = {k: time_ms(fn, sets, iters, hold_ms=4 * iters * call[k] + 5)
+                  for k, fn in fns.items()}
+        uniq = sum(int(torch.unique(s).numel()) for s in sets) / n_sets
+        # what the function must move: the dense gradient written once, g
+        # and ids read once.  This design moves more (design_bytes): after
+        # the zero fill each touched row is read and written back by its adds
+        nbytes = rows * 16 * 4 + n * 16 * 4 + n * 4
+        design_bytes = nbytes + 2 * uniq * 16 * 4
+        bound = max(nbytes / HBM_BYTES_PER_S, n * 16 / F32_FLOPS) * 1e3
+        out.append({"batch": batch, "n": n, "pool": 1, "dim": 16, "rows": rows,
+                    "dtype": "float32", **device, "bound_ms": bound,
+                    "bound_by": "bytes", "bytes": nbytes,
+                    "design_bytes": design_bytes, "touched_rows": uniq,
+                    "share_of_bound": bound / device["ms"],
+                    "zero_fill_bytes": rows * 16 * 4,
+                    "call_ms": {k[:-3] if k != "ms" else "kernel": v
+                                for k, v in call.items()}})
+    return out
+
+
+class LossLines(logging.Handler):
+    """Collects the ``loss:`` values of the trainer's log lines."""
+
+    def __init__(self):
+        super().__init__(level=logging.INFO)
+        self.losses = []
+
+    def emit(self, record):
+        found = re.search(r"loss: (-?[0-9.]+|nan|inf)", record.getMessage())
+        if found and record.getMessage().startswith("epoch:"):
+            self.losses.append(float(found.group(1)))
+
+
+def write_train_data(data_dir: str, rows: int, vocab: int, seed: int) -> None:
+    """Criteo-shaped rows with the planted signal of ``write_criteo_sample``,
+    as four slotbin files."""
+    from paddlerec_tpu_torch.data.binary import write_slotbin
+    from paddlerec_tpu_torch.data.synthetic import synthetic_batch
+
+    os.makedirs(data_dir)
+    rng = np.random.RandomState(seed)
+    for i in range(4):
+        part = synthetic_batch(rng, rows // 4, vocab=vocab)
+        write_slotbin(os.path.join(data_dir, f"part-{i}.bin"), part["label"],
+                      part["sparse"].astype(np.int32), part["dense"])
+
+
+def train_config(cfg, work: str, batch: int, **extra):
+    from paddlerec_tpu_torch.core.config import Config
+
+    flat = dict(cfg.to_dict())
+    flat.update({
+        "runner.train_data_dir": os.path.join(work, f"train_{batch}"),
+        "runner.test_data_dir": os.path.join(work, f"train_{batch}"),
+        "runner.model_save_path": os.path.join(work, f"ckpt_{batch}"),
+        "runner.infer_load_path": os.path.join(work, f"ckpt_{batch}"),
+        "runner.train_batch_size": batch, "runner.infer_batch_size": batch,
+        "runner.epochs": 2, "runner.print_interval": 8,
+        "runner.feed_superbatch": 4, "runner.wire_format": "compact",
+    })
+    flat.update(extra)
+    return Config(flat)
+
+
+def first_steps_vs_cpu(gp, cfg, seed: int, steps: int = 5) -> dict:
+    """The first ``steps`` train steps on the card against the port's own
+    CPU run from the same parameters and the same batches (f32)."""
+    from paddlerec_tpu_torch.core.device import to_tensors
+    from paddlerec_tpu_torch.train.trainer import Trainer
+
+    host = Trainer(cfg, device="cpu")
+    host.init_state(seed=seed)
+    card = Trainer(cfg)
+    card.init_state(seed=seed)
+    card.state.module.load_state_dict(host.state.module.state_dict())
+    batch = int(cfg.runner("train_batch_size"))
+    dataset = card.make_dataset(cfg.runner("train_data_dir"), batch)
+    batches = [b for b, _ in zip(dataset, range(steps))]
+    gp.gather_pool.launches = gp.gather_pool_bwd.launches = 0
+    losses = {}
+    for name, trainer in (("cuda", card), ("cpu", host)):
+        ms, losses[name] = trainer._init_metric_state(), []
+        for b in batches:
+            ms, loss = trainer.train_step(to_tensors(b, trainer.device), ms)
+            losses[name].append(float(loss))
+    launches = (gp.gather_pool.launches, gp.gather_pool_bwd.launches)
+    if launches != (steps, steps):
+        raise AssertionError(f"{steps} steps on the card launched K1, K1b {launches}")
+    err = float(np.abs(np.array(losses["cuda"]) - np.array(losses["cpu"])).max())
+    table_err = float((card.state.module.embedding.embedding.detach().cpu()
+                       - host.state.module.embedding.embedding.detach()).abs().max())
+    if not np.all(np.isfinite(losses["cuda"])) or err > 1e-5:
+        raise AssertionError(f"card and CPU losses differ by {err}: {losses}")
+    return {"batch_size": batch, "steps": steps, "loss_cuda": losses["cuda"],
+            "max_abs_err_loss_vs_cpu": err, "max_abs_err_table_vs_cpu": table_err,
+            "k1_launches": launches[0], "k1b_launches": launches[1]}
+
+
+def run_training(gp, cfg, seed: int, check_fall: bool = True) -> dict:
+    """``Trainer.train()`` then ``evaluate()`` through the normal entry
+    points; the kernels' counts are read around each."""
+    from paddlerec_tpu_torch.train.trainer import Trainer, logger
+
+    batch = int(cfg.runner("train_batch_size"))
+    epochs = int(cfg.runner("epochs"))
+    trainer = Trainer(cfg)
+    trainer.init_state(seed=seed)
+    lines = LossLines()
+    logger.addHandler(lines)
+    gp.gather_pool.launches = gp.gather_pool_bwd.launches = 0
+    try:
+        t0 = time.perf_counter()
+        metrics = trainer.train()
+        seconds = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(lines)
+    steps = trainer.state.step
+    launches = (gp.gather_pool.launches, gp.gather_pool_bwd.launches)
+    if launches != (steps, steps) or steps < 8:
+        raise AssertionError(f"{steps} train steps launched K1, K1b {launches}")
+    losses = lines.losses
+    if len(losses) < 2 or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"batch {batch}: losses {losses}")
+    half = len(losses) // 2
+    if check_fall and not np.mean(losses[half:]) < np.mean(losses[:half]):
+        raise AssertionError(f"batch {batch}: the loss did not fall: {losses}")
+    examples = steps * batch
+    gp.gather_pool.launches = gp.gather_pool_bwd.launches = 0
+    evaluated = trainer.evaluate(epoch_tag=epochs - 1)
+    eval_launches = (gp.gather_pool.launches, gp.gather_pool_bwd.launches)
+    eval_batches = math.ceil(evaluated["total_ins"] / batch)
+    if eval_launches != (eval_batches, 0):
+        raise AssertionError(f"evaluate launched K1, K1b {eval_launches}")
+    if not (np.isfinite(evaluated["auc"]) and evaluated["auc"] > 0.5):
+        raise AssertionError(f"evaluate: {evaluated}")
+    return {
+        "batch_size": batch, "steps": steps, "epochs": epochs,
+        "table_dtype": str(trainer.state.module.embedding.embedding.dtype),
+        "logged_losses": losses,
+        "train_seconds_with_checkpoints": seconds,
+        "last_epoch_seconds": metrics["epoch_time"],
+        "last_epoch_examples_per_s": metrics["ips"],
+        "last_epoch_steps_per_s": metrics["ips"] / batch,
+        "examples": examples, "train_auc_last_epoch": metrics["auc"],
+        "k1_launches": launches[0], "k1b_launches": launches[1],
+        "eval": {"auc": evaluated["auc"], "total_ins": evaluated["total_ins"],
+                 "examples_per_s": evaluated["ips"], "k1_launches": eval_launches[0]},
+    }
+
+
+def profile_train(cfg, batch_size: int, seed: int, iters: int = 20) -> dict:
+    """Phase 8: ``torch.profiler`` over ``iters`` train steps on one device
+    batch: wall and device time per step, the card's idle share (profiler
+    on), kernels per step and the largest device items."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddlerec_tpu_torch.core.device import to_tensors
+    from paddlerec_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg)
+    trainer.init_state(seed=seed)
+    batch = to_tensors(trainer.model_def.example_batch(batch_size), trainer.device)
+    ms = trainer._init_metric_state()
+    for _ in range(3):
+        ms, _ = trainer.train_step(batch, ms)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            ms, loss = trainer.train_step(batch, ms)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    # the same steps with the profiler off: the wall time a user sees
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        ms, loss = trainer.train_step(batch, ms)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    # the step's parts, each looped alone and ended by a synchronise: wall
+    # time per call, which is the host's where the card waits for it
+    module, model_def = trainer.state.module, trainer.model_def
+
+    def forward_backward():
+        module.zero_grad(set_to_none=True)
+        loss, aux = model_def.train_forward(module, batch)
+        loss.backward()
+        return aux
+
+    def looped(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            result = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters, result
+
+    parts = {}
+    parts["forward"], _ = looped(lambda: model_def.train_forward(module, batch))
+    parts["forward_backward"], aux = looped(forward_backward)
+    parts["optimizer"], _ = looped(trainer.state.apply_gradients)
+    parts["metrics"], _ = looped(lambda: model_def.update_metric_state(ms, aux))
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:12]
+    return {
+        "batch_size": batch_size, "steps": iters,
+        "wall_ms_per_step": wall_ms,
+        "wall_ms_per_step_profiler_off": plain_wall_ms,
+        "device_ms_per_step": device_ms if kernels else "not measured",
+        "device_idle_share": 1 - device_ms / wall_ms if kernels else "not measured",
+        "device_idle_share_profiler_off":
+            1 - device_ms / plain_wall_ms if kernels else "not measured",
+        "kernels_per_step": sum(e.count for e in kernels) / iters,
+        "wall_ms_per_part": parts,
+        "final_loss": float(loss),
+        "top_kernels": [{"name": e.key[:90],
+                         "ms_per_step": e.self_device_time_total / 1e3 / iters,
+                         "calls_per_step": e.count / iters} for e in top],
+        # where the host spends the step (self time of the ops it calls,
+        # profiler on; Python between the ops is not in this list)
+        "top_host_ops": [{"name": e.key[:60],
+                          "self_cpu_ms_per_step": e.self_cpu_time_total / 1e3 / iters,
+                          "calls_per_step": e.count / iters} for e in host],
+    }
+
+
 def profile_forward(model_def, module, batch_size: int, iters: int = 20) -> dict:
-    """Phase 7: ``torch.profiler`` over ``iters`` DeepFM forwards at one
+    """Phase 8: ``torch.profiler`` over ``iters`` DeepFM forwards at one
     batch size: device time per forward, the card's idle share of the wall
     time (profiler on), and the kernels that take the most device time."""
     from torch.autograd import DeviceType
@@ -248,6 +632,7 @@ def main(argv=None) -> int:
           "seconds": time.perf_counter() - t0, "card": card})
 
     main_err = check_k1(gp, args.seed, card)  # phase 3
+    bwd_err = check_k1b(gp, args.seed, card)
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:  # phase 4
@@ -303,32 +688,65 @@ def main(argv=None) -> int:
                         "max_abs_err_vs_predict": serve_err,
                         "k1_launches": launches["serve"]}, "card": card})
 
-        cases = time_k1(gp, service.module.embedding.embedding.detach(),
-                        args.seed, vocab)  # phase 6
-        for batch in BATCHES:  # phase 7
+        train_cfgs, train_runs = {}, {}  # phase 6
+        for batch in reversed(BATCHES):
+            write_train_data(os.path.join(work, f"train_{batch}"),
+                             TRAIN_STEPS[batch] * batch, vocab, args.seed + batch)
+            train_cfgs[batch] = train_config(cfg, work, batch)
+        first = first_steps_vs_cpu(gp, train_cfgs[BATCHES[-1]], args.seed)
+        emit({"train_first_steps_vs_cpu": first, "card": card})
+        for batch in reversed(BATCHES):
+            train_runs[batch] = run_training(gp, train_cfgs[batch], args.seed)
+            emit({"train": train_runs[batch], "card": card})
+        bf16_cfg = train_config(
+            cfg, work, BATCHES[-1], **{
+                "hyper_parameters.sparse_feature_dtype": "bfloat16",
+                "runner.epochs": 1,
+                "runner.model_save_path": os.path.join(work, "ckpt_bf16"),
+                "runner.infer_load_path": os.path.join(work, "ckpt_bf16")})
+        train_runs["bf16"] = run_training(gp, bf16_cfg, args.seed, check_fall=False)
+        emit({"train": train_runs["bf16"], "card": card})
+
+        table = service.module.embedding.embedding.detach()  # phase 7
+        cases = time_k1(gp, table, args.seed, vocab)
+        bwd_cases = time_k1b(gp, args.seed, vocab, table.view(-1, 16).shape[0])
+        for batch in BATCHES:  # phase 8
             emit({"profile": profile_forward(service.model_def, service.module, batch),
+                  "card": card})
+        for batch in BATCHES:
+            emit({"profile_train": profile_train(train_cfgs[batch], batch, args.seed),
                   "card": card})
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for case, batch in zip(cases, BATCHES):
         case["launches"] = launches[batch]
-    top = cases[0]
-    emit({"kernels": [{
-        "name": "gather_pool",
-        "route": "cuda",
-        "source": "paddlerec_tpu_torch/csrc/gather_pool.cu",
-        "replaces": "paddlerec_tpu/ops/pallas_embedding.py:37",
-        "launches": sum(launches.values()),
-        "max_abs_err": main_err,
-        "ms": top["ms"],
-        "kernel_ms": top["ms"],
-        "plain_ms": top["plain_ms"],
-        "bound_ms": top["bound_ms"],
-        "bound_by": top["bound_by"],
-        "library_ms": top["library_ms"],
-        "card": card,
-        "cases": cases,
-    }]})
+    for case, batch in zip(bwd_cases, BATCHES):
+        case["launches"] = train_runs[batch]["k1b_launches"]
+    k1_launches = sum(launches.values()) + first["k1_launches"] + sum(
+        r["k1_launches"] + r["eval"]["k1_launches"] for r in train_runs.values())
+    k1b_launches = first["k1b_launches"] + sum(
+        r["k1b_launches"] for r in train_runs.values())
+    if k1_launches < 1 or k1b_launches < 1:
+        raise AssertionError("the main path launched a kernel no time")
+    kernels = []
+    for name, source, replaces, count, err, timed in (
+        ("gather_pool", "paddlerec_tpu_torch/csrc/gather_pool.cu",
+         "paddlerec_tpu/ops/pallas_embedding.py:37", k1_launches, main_err, cases),
+        # the JAX package has no kernel for the gradient: K1b takes the
+        # place of the XLA scatter-add of _packed_lookup_bwd
+        ("gather_pool_bwd", "paddlerec_tpu_torch/csrc/gather_pool_bwd.cu",
+         "paddlerec_tpu/ops/packed_embedding.py:94", k1b_launches, bwd_err, bwd_cases),
+    ):
+        # the headline numbers are those of the training batch, 8192
+        top = timed[-1]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": count, "max_abs_err": err, "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "card": card, "cases": timed,
+        })
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,6 +5,10 @@ key ``tower.fc_0.weight``, and every other leaf keeps its name with ``/``
 read as ``.``.  A flax ``Dense`` kernel is ``(in, out)`` and an
 ``nn.Linear`` weight ``(out, in)``, so kernels are transposed.  Values are
 copied bit for bit both ways, bfloat16 included.
+
+Optax's Adam moments (``ScaleByAdamState.mu`` / ``.nu``) are trees of the
+parameters' shape, so the same mapping carries them into the port's
+optimizer state (``train/optimizers.py``) and back.
 """
 
 from __future__ import annotations
@@ -71,3 +75,39 @@ def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[leaf] = value
     return tree
+
+
+def _find_adam_state(opt_state: Any):
+    """The ``ScaleByAdamState`` inside an optax state (a nest of tuples)."""
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for item in opt_state:
+            found = _find_adam_state(item)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state: Any) -> Dict[str, Any]:
+    """Optax state of ``optax.adam`` (alone or chained after a clip) → the
+    port's Adam state ``{"count", "mu", "nu"}`` on the CPU."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the optax state")
+    return {
+        "count": int(np.asarray(adam.count)),
+        "mu": from_jax_params(adam.mu),
+        "nu": from_jax_params(adam.nu),
+    }
+
+
+def adam_state_to_optax(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's Adam state → ``{"count", "mu", "nu"}`` with ``mu`` and
+    ``nu`` as flax-named trees of numpy arrays, to fill an optax
+    ``ScaleByAdamState`` from."""
+    return {
+        "count": np.asarray(state["count"], np.int32),
+        "mu": to_jax_params(state["mu"]),
+        "nu": to_jax_params(state["nu"]),
+    }

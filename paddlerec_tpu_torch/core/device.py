@@ -26,6 +26,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def full_float32_matmul() -> None:
+    """Full float32 products and convolutions on the card: the parity
+    tolerances against the JAX package assume it (TF32 keeps ~3 digits)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def to_tensors(batch: Dict[str, np.ndarray],
                device: torch.device) -> Dict[str, torch.Tensor]:
     """Host batch → tensors on ``device``.  float64 becomes float32, as
@@ -35,5 +42,8 @@ def to_tensors(batch: Dict[str, np.ndarray],
         a = np.asarray(v)
         if a.dtype == np.float64:
             a = a.astype(np.float32)
-        out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:  # a read-only mmap view: torch wants its own
+            a = a.copy()
+        out[k] = torch.from_numpy(a).to(device)
     return out

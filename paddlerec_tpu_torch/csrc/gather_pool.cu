@@ -7,8 +7,10 @@
 //
 // table (R, D) float32 or bfloat16, row-major; ids (N, L) int32; mask (N, L)
 // float32, or null for weight 1 (no mask is read); out (N, D) in the table's
-// dtype.  Any N, L and D: the TPU kernel's N % 8 == 0 and L <= 128 limits
-// came from its tiling and do not apply here.
+// dtype, or float32 from a bfloat16 table (the f32 sum written unrounded:
+// what bf16 rows times a float32 mask promote to in the JAX package).  Any
+// N, L and D: the TPU kernel's N % 8 == 0 and L <= 128 limits came from its
+// tiling and do not apply here.
 //
 // What bounds it on the card: memory.  Each gathered element costs one
 // multiply-add; the bytes are N*L*D*es of table rows, N*L*4 of ids (plus
@@ -22,7 +24,7 @@
 // neighbouring chunks and then rows, so a warp reads whole table rows.  The
 // loop over L runs inside the thread and sums in f32 registers (products and
 // sums rounded one by one, no fused multiply-add, as the plain version does);
-// the row is written once in the table's dtype.  Every output element has one
+// the row is written once in the output dtype.  Every output element has one
 // owner: no shared memory, no atomics.  Rows whose byte width is not a
 // multiple of 16, or pointers not 16-byte aligned, take a scalar load path.
 //
@@ -81,11 +83,26 @@ struct Lanes<__nv_bfloat16> {
   }
 };
 
-template <typename T, bool kVec>
+// Writes the V lanes a thread owns (V is the table dtype's lane count) in the
+// output dtype O: O = T, or float from a bfloat16 table (two 16-byte stores).
+template <typename T, typename O>
+struct Store {
+  __device__ static void vec(O* p, const float* v) { Lanes<T>::store16(p, v); }
+};
+
+template <>
+struct Store<__nv_bfloat16, float> {
+  __device__ static void vec(float* p, const float* v) {
+    Lanes<float>::store16(p, v);
+    Lanes<float>::store16(p + 4, v + 4);
+  }
+};
+
+template <typename T, typename O, bool kVec>
 __global__ void __launch_bounds__(256)
 gather_pool_kernel(const T* __restrict__ table, int64_t rows, int64_t dim,
                    const int32_t* __restrict__ ids, const float* __restrict__ mask,
-                   int64_t n, int64_t pool, T* __restrict__ out) {
+                   int64_t n, int64_t pool, O* __restrict__ out) {
   constexpr int V = Lanes<T>::kWidth;
   const int64_t chunks = (dim + V - 1) / V;
   const int64_t total = n * chunks;
@@ -118,19 +135,19 @@ gather_pool_kernel(const T* __restrict__ table, int64_t rows, int64_t dim,
         for (int k = 0; k < V; ++k) acc[k] = __fadd_rn(acc[k], v[k]);
       }
     }
-    T* dst = out + r * dim + col;
+    O* dst = out + r * dim + col;
     if (kVec) {
-      Lanes<T>::store16(dst, acc);
+      Store<T, O>::vec(dst, acc);
     } else {
 #pragma unroll
       for (int k = 0; k < V; ++k) {
-        if (k < width) dst[k] = Lanes<T>::from_float(acc[k]);
+        if (k < width) dst[k] = Lanes<O>::from_float(acc[k]);
       }
     }
   }
 }
 
-template <typename T>
+template <typename T, typename O>
 void launch(const void* table, int64_t rows, int64_t dim, const int32_t* ids,
             const float* mask, int64_t n, int64_t pool, void* out,
             cudaStream_t stream) {
@@ -142,27 +159,30 @@ void launch(const void* table, int64_t rows, int64_t dim, const int32_t* ids,
                    reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const T* t = static_cast<const T*>(table);
-  T* o = static_cast<T*>(out);
+  O* o = static_cast<O*>(out);
   if (vec) {
-    gather_pool_kernel<T, true><<<blocks, kThreads, 0, stream>>>(t, rows, dim, ids, mask, n, pool, o);
+    gather_pool_kernel<T, O, true><<<blocks, kThreads, 0, stream>>>(t, rows, dim, ids, mask, n, pool, o);
   } else {
-    gather_pool_kernel<T, false><<<blocks, kThreads, 0, stream>>>(t, rows, dim, ids, mask, n, pool, o);
+    gather_pool_kernel<T, O, false><<<blocks, kThreads, 0, stream>>>(t, rows, dim, ids, mask, n, pool, o);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 = success).  Launches on `stream` and allocates nothing.
+// dtype, out_dtype: 0 = float32, 1 = bfloat16; out_dtype is the table's, or
+// float32 from a bfloat16 table.  Returns cudaGetLastError() after the launch
+// (0 = success).  Launches on `stream` and allocates nothing.
 extern "C" int pr_gather_pool(const void* table, int dtype, int64_t rows, int64_t dim,
                               const int32_t* ids, const float* mask, int64_t n,
-                              int64_t pool, void* out, void* stream) {
+                              int64_t pool, void* out, int out_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || dim <= 0 || n <= 0 || pool <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) {
-    launch<float>(table, rows, dim, ids, mask, n, pool, out, s);
-  } else if (dtype == 1) {
-    launch<__nv_bfloat16>(table, rows, dim, ids, mask, n, pool, out, s);
+  if (dtype == 0 && out_dtype == 0) {
+    launch<float, float>(table, rows, dim, ids, mask, n, pool, out, s);
+  } else if (dtype == 1 && out_dtype == 1) {
+    launch<__nv_bfloat16, __nv_bfloat16>(table, rows, dim, ids, mask, n, pool, out, s);
+  } else if (dtype == 1 && out_dtype == 0) {
+    launch<__nv_bfloat16, float>(table, rows, dim, ids, mask, n, pool, out, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,7 +1,8 @@
 """Host-side reader for slot:feasign text data.
 
 A copy of the framework-free part of ``paddlerec_tpu/data/slot_reader.py``
-(``list_data_files``, ``parse_slot_lines``, ``SlotDataset``): fixed-shape
+(``list_data_files``, ``parse_slot_lines``, ``SlotDataset``,
+``PrefetchIterator``): fixed-shape
 numpy batches, the tail batch padded and marked by a ``mask``, and
 ``(B, S, 1)`` ids squeezed to ``(B, S)``.  The caller moves batches to its
 device (``core.device.to_tensors``).
@@ -16,6 +17,8 @@ from __future__ import annotations
 
 import glob
 import os
+import queue
+import threading
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -195,3 +198,36 @@ class SlotDataset:
             yield emit(pop_batch(self.batch_size), None)
         if buffered and not self.drop_last:
             yield emit(pop_batch(buffered), self.batch_size)
+
+
+class PrefetchIterator:
+    """Runs an iterator in a background thread with a bounded queue."""
+
+    _DONE = object()
+
+    def __init__(self, iterable, depth: int = 4):
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._err: Optional[BaseException] = None
+
+        def run():
+            try:
+                for item in iterable:
+                    self._q.put(item)
+            except BaseException as e:  # surfaced on the consumer thread
+                self._err = e
+            finally:
+                self._q.put(self._DONE)
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._DONE:
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        return item

@@ -3,8 +3,9 @@
 The local packed path of ``paddlerec_tpu/ops/embedding.py`` ``SlotEmbedding``:
 one ``(R, 128)`` packed table (parameter ``embedding``) shared by every
 slot, ids hashed ``ids % vocab``, one id per slot or a pooled multi-hot
-slot.  Every lookup is one launch of kernel K1 on the table's logical view.
-The row-sharded (all_to_all) and sparse-update paths are not ported yet.
+slot.  Every lookup is one launch of kernel K1 on the table's logical view,
+and its gradient one launch of K1b.  The row-sharded (all_to_all) and
+sparse-update paths are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,8 +23,10 @@ from paddlerec_tpu_torch.ops.packed_embedding import (
 
 class SlotEmbedding(nn.Module):
     """Input ids: (B, S) one id per slot, or (B, S, L) multi-hot with an
-    optional (B, S, L) mask; output: (B, S, E) per-slot vectors in the table
-    dtype.
+    optional (B, S, L) mask; output: (B, S, E) per-slot vectors.  The output
+    dtype follows the JAX module: the table dtype, except that pooling with a
+    mask promotes to the mask's dtype (a bfloat16 table and a float32 mask
+    give the float32 sum, unrounded).
 
     Attributes:
       vocab_size: number of rows (sparse_feature_number).
@@ -58,14 +61,19 @@ class SlotEmbedding(nn.Module):
         if ids.dim() == 2:  # (B, S) → (B, S, E)
             return packed_lookup(self.embedding, ids, e)
         b, s, pool = ids.shape
-        flat_mask = None if mask is None else mask.reshape(b * s, pool)
+        flat_mask, out_dtype = None, None
+        if mask is not None:
+            flat_mask = mask.reshape(b * s, pool)
+            out_dtype = torch.promote_types(self.embedding.dtype, mask.dtype)
         pooled = gather_pool(
-            logical_view(self.embedding, e), ids.reshape(b * s, pool), flat_mask
+            logical_view(self.embedding, e), ids.reshape(b * s, pool),
+            flat_mask, out_dtype,
         )[:, :e].reshape(b, s, e)
         if self.combiner == "mean":
             if mask is not None:
                 denom = mask.sum(dim=2, keepdim=True)
             else:
-                denom = torch.full((b, s, 1), float(pool), device=ids.device)
+                denom = torch.full((b, s, 1), float(pool), dtype=pooled.dtype,
+                                   device=ids.device)
             pooled = pooled / torch.clamp(denom, min=1.0)
         return pooled

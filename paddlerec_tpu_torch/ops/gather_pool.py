@@ -1,123 +1,262 @@
-"""K1: fused gather + weighted sum-pool, ``out[n] = Σ_l table[ids[n,l]]·mask[n,l]``.
+"""K1: fused gather + weighted sum-pool, ``out[n] = Σ_l table[ids[n,l]]·mask[n,l]``,
+and K1b, its gradient with respect to the table.
 
-Replaces the TPU kernel ``gather_pool`` / ``_gather_pool_kernel`` of
+K1 replaces the TPU kernel ``gather_pool`` / ``_gather_pool_kernel`` of
 ``paddlerec_tpu/ops/pallas_embedding.py`` (lines 37-106; oracle
 ``gather_pool_reference`` at 109-112).  On the card it is the main path's
 embedding lookup: DeepFM reads its 26 one-id slots through it (N = B·26,
 L = 1, D = 16 on the packed table's view), and pooled multi-hot slots use
 L > 1 with the mask as weights.
 
-The kernel (``csrc/gather_pool.cu``) is memory-bound: per id it reads one
-row of D·es bytes and 4 bytes of id (4 more of mask), and it writes D·es
-bytes per output row.  The source says how its design follows from that.
+K1b is the weighted scatter-add ``dtable[r] = Σ_{ids[n,l]=r} g[n]·mask[n,l]``.
+The JAX package has no kernel for it (its ``gather_pool`` is forward only;
+the lookup's gradient is XLA's scatter-add in ``_packed_lookup_bwd`` of
+``paddlerec_tpu/ops/packed_embedding.py``, lines 94-120); here it is the
+backward of the ``autograd.Function`` that runs K1 on the card.
 
-``gather_pool`` takes the plain version only for tensors on the CPU.  For a
-CUDA tensor it launches the kernel or raises; ``gather_pool.launches``
-counts the launches.
+Both kernels (``csrc/gather_pool.cu``, ``csrc/gather_pool_bwd.cu``) are
+memory-bound; each source says how its design follows from that.
+
+``gather_pool`` takes the plain version only for tensors on the CPU, where
+autograd derives the gradient.  For a CUDA tensor it launches K1, and K1b in
+the backward pass, or raises; ``gather_pool.launches`` and
+``gather_pool_bwd.launches`` count the launches.
+
+Ids out of range: the forward clips them to ``[0, R-1]``; the backward drops
+them (they add nothing to ``dtable``), negative ids included, on the CPU and
+on the card alike.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from paddlerec_tpu_torch.ops.build import load_library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LIB: Optional[ctypes.CDLL] = None
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+_PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_ARGTYPES = {
+    "gather_pool": ("pr_gather_pool", [
+        _PTR, _INT, _I64, _I64, _PTR, _PTR, _I64, _I64, _PTR, _INT, _PTR]),
+    "gather_pool_bwd": ("pr_gather_pool_bwd", [
+        _PTR, _INT, _PTR, _PTR, _I64, _I64, _I64, _I64, _PTR, _INT, _PTR, _PTR]),
+}
+
+
+def _out_dtype(table: torch.Tensor, out_dtype: Optional[torch.dtype]) -> torch.dtype:
+    if out_dtype is None or out_dtype == table.dtype:
+        return table.dtype
+    if out_dtype == torch.float32 and table.dtype == torch.bfloat16:
+        return out_dtype
+    raise TypeError(
+        f"out_dtype {out_dtype} from a {table.dtype} table: the output is in "
+        f"the table dtype, or float32 from a bfloat16 table"
+    )
 
 
 def gather_pool_plain(table: torch.Tensor, ids: torch.Tensor,
-                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      mask: Optional[torch.Tensor] = None,
+                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain PyTorch version: ``index_select`` (ids clipped to [0, R-1]),
-    multiply by the mask, sum over L in float32, cast to the table dtype."""
+    multiply by the mask, sum over L in float32, cast to the output dtype.
+    Where a gradient is recorded, rows read through a clipped id are
+    detached, so an id outside [0, R) gives the table no gradient."""
+    out_dtype = _out_dtype(table, out_dtype)
     n, pool = ids.shape
-    idx = ids.reshape(-1).long().clamp(0, table.shape[0] - 1)
-    rows = table.index_select(0, idx).reshape(n, pool, -1).float()
+    raw = ids.reshape(-1).long()
+    idx = raw.clamp(0, table.shape[0] - 1)
+    rows = table.index_select(0, idx)
+    if torch.is_grad_enabled() and table.requires_grad:
+        rows = torch.where((raw == idx)[:, None], rows, rows.detach())
+    rows = rows.reshape(n, pool, -1).float()
     if mask is not None:
         rows = rows * mask.float()[..., None]
-    return rows.sum(dim=1).to(table.dtype)
+    return rows.sum(dim=1).to(out_dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = load_library("gather_pool")
-        lib.pr_gather_pool.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.pr_gather_pool.restype = ctypes.c_int
+def gather_pool_bwd_plain(g: torch.Tensor, ids: torch.Tensor,
+                          mask: Optional[torch.Tensor], rows: int,
+                          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain PyTorch version of K1b: g (N, D), ids (N, L), mask (N, L) or
+    None → dtable (rows, D) in ``dtype`` (default: g's).  Zeros plus one
+    ``index_add_`` of ``g[n]·mask[n,l]``, accumulated in float32 and cast
+    once; for a bfloat16 ``dtype`` each contribution is rounded to bfloat16
+    first, as the JAX package casts the incoming gradient to the table dtype
+    before its scatter-add.  Ids outside [0, rows) are dropped."""
+    dtype = g.dtype if dtype is None else dtype
+    n, pool = ids.shape
+    contrib = g.float()[:, None, :].expand(n, pool, g.shape[1])
+    if mask is not None:
+        contrib = contrib * mask.float()[..., None]
+    if dtype == torch.bfloat16:
+        contrib = contrib.to(torch.bfloat16).float()
+    idx = ids.reshape(-1).long()
+    # dropped ids land in one extra row, cut off below (no host sync)
+    idx = torch.where((idx >= 0) & (idx < rows), idx, rows)
+    acc = torch.zeros((rows + 1, g.shape[1]), dtype=torch.float32, device=g.device)
+    acc.index_add_(0, idx, contrib.reshape(n * pool, -1))
+    return acc[:rows].to(dtype)
+
+
+def _lib(stem: str) -> ctypes.CDLL:
+    if stem not in _LIBS:
+        lib = load_library(stem)
+        name, argtypes = _ARGTYPES[stem]
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
         lib.pr_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pr_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        _LIBS[stem] = lib
+    return _LIBS[stem]
+
+
+def _check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: "
+            f"{lib.pr_cuda_error_string(rc).decode()} (cudaError {rc})"
+        )
+
+
+def _check_ids_mask(ids: torch.Tensor, mask: Optional[torch.Tensor],
+                    device: torch.device):
+    if ids.dim() != 2 or ids.dtype != torch.int32:
+        raise TypeError("ids must be an int32 (N, L) tensor")
+    if ids.device != device:
+        raise ValueError(f"ids on {ids.device}, table on {device}")
+    if mask is not None:
+        if mask.shape != ids.shape or mask.device != device:
+            raise ValueError(
+                f"mask {tuple(mask.shape)} on {mask.device} does not match "
+                f"ids {tuple(ids.shape)} on {device}"
+            )
+        mask = mask.detach().to(torch.float32).contiguous()
+    return ids.contiguous(), mask
 
 
 def _gather_pool_cuda(table: torch.Tensor, ids: torch.Tensor,
-                      mask: Optional[torch.Tensor]) -> torch.Tensor:
-    if table.dim() != 2 or not table.is_contiguous():
-        raise ValueError("table must be a contiguous (R, D) tensor")
-    if table.dtype not in _DTYPE_CODE:
-        raise TypeError(f"table dtype {table.dtype} is not float32 or bfloat16")
-    if ids.dim() != 2 or ids.dtype != torch.int32:
-        raise TypeError("ids must be an int32 (N, L) tensor")
-    if ids.device != table.device:
-        raise ValueError(f"ids on {ids.device}, table on {table.device}")
-    if torch.is_grad_enabled() and table.requires_grad:
-        raise NotImplementedError(
-            "gather_pool on CUDA is forward only (its backward is not ported "
-            "yet): call it under torch.inference_mode() or torch.no_grad()"
-        )
+                      mask: Optional[torch.Tensor],
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """Launch K1.  ``ids`` and ``mask`` are already checked."""
     n, pool = ids.shape
     rows, dim = table.shape
-    out = torch.empty((n, dim), dtype=table.dtype, device=table.device)
+    out = torch.empty((n, dim), dtype=out_dtype, device=table.device)
     if n == 0 or dim == 0:
         return out
     if pool == 0:
         return out.zero_()
     if rows == 0:
         raise ValueError("cannot gather from an empty table")
-    ids = ids.contiguous()
-    if mask is not None:
-        if mask.shape != ids.shape or mask.device != table.device:
-            raise ValueError(
-                f"mask {tuple(mask.shape)} on {mask.device} does not match "
-                f"ids {tuple(ids.shape)} on {table.device}"
-            )
-        mask = mask.to(torch.float32).contiguous()
-    lib = _lib()
+    lib = _lib("gather_pool")
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         rc = lib.pr_gather_pool(
             table.data_ptr(), _DTYPE_CODE[table.dtype], rows, dim,
             ids.data_ptr(), None if mask is None else mask.data_ptr(),
-            n, pool, out.data_ptr(), stream,
+            n, pool, out.data_ptr(), _DTYPE_CODE[out_dtype], stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"gather_pool kernel launch failed: "
-            f"{lib.pr_cuda_error_string(rc).decode()} (cudaError {rc})"
-        )
+    _check_launch(lib, rc, "gather_pool")
     gather_pool.launches += 1
     return out
 
 
+def gather_pool_bwd(g: torch.Tensor, ids: torch.Tensor,
+                    mask: Optional[torch.Tensor], rows: int,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """K1b: g (N, D) f32/bf16; ids (N, L) int32; mask (N, L) or None →
+    dtable (rows, D) in ``dtype`` (default: g's; a bf16 g only into a bf16
+    dtable), accumulated in float32.
+    CPU tensors take ``gather_pool_bwd_plain``; CUDA tensors launch the
+    kernel or raise."""
+    dtype = g.dtype if dtype is None else dtype
+    if g.device.type == "cpu":
+        return gather_pool_bwd_plain(g, ids, mask, rows, dtype)
+    if g.device.type != "cuda":
+        raise ValueError(f"gather_pool_bwd runs on cpu or cuda, not {g.device}")
+    if g.dim() != 2:
+        raise ValueError("g must be an (N, D) tensor")
+    if g.dtype not in _DTYPE_CODE or dtype not in _DTYPE_CODE:
+        raise TypeError(f"g {g.dtype} / dtable {dtype}: float32 or bfloat16 only")
+    if g.dtype == torch.bfloat16 and dtype == torch.float32:
+        # the lookup of a float32 table is float32, and so is its gradient
+        raise TypeError("a bfloat16 g into a float32 dtable is not built")
+    ids, mask = _check_ids_mask(ids, mask, g.device)
+    if ids.shape[0] != g.shape[0]:
+        raise ValueError(f"g has {g.shape[0]} rows, ids {ids.shape[0]}")
+    n, pool = ids.shape
+    dim = g.shape[1]
+    dtable = torch.empty((rows, dim), dtype=dtype, device=g.device)
+    if rows == 0 or dim == 0:
+        return dtable
+    if n == 0 or pool == 0:
+        return dtable.zero_()
+    g = g.detach().contiguous()
+    # a bfloat16 dtable accumulates in a float32 scratch, rounded once
+    scratch = None
+    if dtype == torch.bfloat16:
+        scratch = torch.empty((rows, dim), dtype=torch.float32, device=g.device)
+    lib = _lib("gather_pool_bwd")
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        rc = lib.pr_gather_pool_bwd(
+            g.data_ptr(), _DTYPE_CODE[g.dtype], ids.data_ptr(),
+            None if mask is None else mask.data_ptr(), n, pool, dim, rows,
+            dtable.data_ptr(), _DTYPE_CODE[dtype],
+            None if scratch is None else scratch.data_ptr(), stream,
+        )
+    _check_launch(lib, rc, "gather_pool_bwd")
+    gather_pool_bwd.launches += 1
+    return dtable
+
+
+class _GatherPoolCuda(torch.autograd.Function):
+    """K1 forward, K1b backward.  Only the table gets a gradient: ids are
+    integers, and ``gather_pool`` refuses a mask that would need one."""
+
+    @staticmethod
+    def forward(ctx, table, ids, mask, out_dtype):
+        ctx.save_for_backward(ids, mask)
+        ctx.rows, ctx.table_dtype = table.shape[0], table.dtype
+        return _gather_pool_cuda(table, ids, mask, out_dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        ids, mask = ctx.saved_tensors
+        return gather_pool_bwd(g, ids, mask, ctx.rows, ctx.table_dtype), None, None, None
+
+
 def gather_pool(table: torch.Tensor, ids: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """table (R, D) f32/bf16; ids (N, L) int32; mask (N, L) or None (weight
-    1) → (N, D) in the table dtype, summed in float32.  Ids are clipped to
-    [0, R-1].  CPU tensors take ``gather_pool_plain``; CUDA tensors launch
-    the kernel, which is forward only: it refuses a table that would need
-    a gradient."""
+    1) → (N, D), summed in float32, in the table dtype or (``out_dtype``)
+    float32 from a bfloat16 table.  Ids are clipped to [0, R-1].  CPU
+    tensors take ``gather_pool_plain``; CUDA tensors launch K1, and K1b when
+    a gradient flows back to the table."""
     if table.device.type == "cpu":
-        return gather_pool_plain(table, ids, mask)
+        return gather_pool_plain(table, ids, mask, out_dtype)
     if table.device.type != "cuda":
         raise ValueError(f"gather_pool runs on cpu or cuda, not {table.device}")
-    return _gather_pool_cuda(table, ids, mask)
+    if table.dim() != 2 or not table.is_contiguous():
+        raise ValueError("table must be a contiguous (R, D) tensor")
+    if table.dtype not in _DTYPE_CODE:
+        raise TypeError(f"table dtype {table.dtype} is not float32 or bfloat16")
+    out_dtype = _out_dtype(table, out_dtype)
+    if mask is not None and torch.is_grad_enabled() and mask.requires_grad:
+        raise NotImplementedError(
+            "gather_pool on CUDA gives no gradient for the mask: detach it, "
+            "or multiply by it outside the lookup"
+        )
+    ids, mask = _check_ids_mask(ids, mask, table.device)
+    return _GatherPoolCuda.apply(table, ids, mask, out_dtype)
 
 
 gather_pool.launches = 0
+gather_pool_bwd.launches = 0

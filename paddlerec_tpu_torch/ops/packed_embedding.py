@@ -6,7 +6,9 @@ physical row ``i // pack``, lanes ``(i % pack)·w`` onward
 (``paddlerec_tpu/ops/packed_embedding.py``).  Because the parameter is
 contiguous, ``table.view(R·pack, w)`` is free and makes logical id ``i``
 row ``i`` of the view, so the lookup is one gather of ``w``-wide rows through
-kernel K1 and no one-hot select.
+kernel K1 and no one-hot select, and its gradient one ``w``-wide scatter-add
+through K1b; the view's gradient is, byte for byte, the ``(R, 128)``
+parameter's.
 """
 
 from __future__ import annotations
@@ -43,8 +45,13 @@ def packed_lookup(table: torch.Tensor, ids: torch.Tensor,
                   embedding_dim: int) -> torch.Tensor:
     """Look up ids in a packed (R, 128) table → (..., embedding_dim).
 
-    Forward only.  Equal to the JAX ``packed_lookup`` for ids in
-    ``[0, R·pack)``; ids outside clip to the view's first or last row."""
+    Equal to the JAX ``packed_lookup``, and its gradient to the JAX
+    function's, for ids in ``[0, R·pack)``.  Ids outside clip to the view's
+    first or last row in the forward and are dropped in the backward: the
+    table gets no gradient from them.  The JAX function also drops ids
+    ``>= R·pack`` in its backward; a negative id it reads from physical row
+    0 but adds, wrapped, to the end of the table's gradient.  Pad lanes
+    (``embedding_dim <= lane < w``) get exactly zero gradient."""
     flat = ids.reshape(-1, 1).to(torch.int32)
     vecs = gather_pool(logical_view(table, embedding_dim), flat)
     return vecs[:, :embedding_dim].reshape(ids.shape + (embedding_dim,))

@@ -30,7 +30,7 @@ from torch import nn
 
 from paddlerec_tpu_torch.convert import flatten_tree, from_jax_params, to_jax_params
 from paddlerec_tpu_torch.core.config import Config, load_config, parse_overrides, resolve_path
-from paddlerec_tpu_torch.core.device import resolve_device
+from paddlerec_tpu_torch.core.device import full_float32_matmul, resolve_device
 from paddlerec_tpu_torch.core.registry import load_model_def
 
 logger = logging.getLogger("paddlerec_tpu_torch")
@@ -77,10 +77,7 @@ def load_exported(export_dir: str, device=None) -> Tuple[Any, nn.Module]:
     """Returns (model_def, module): the module holds the artifact's
     parameters on ``device`` (default ``cuda``) in eval mode."""
     device = resolve_device(device)
-    # full float32 products and convolutions on the card: the parity
-    # tolerances against the JAX package assume it (TF32 keeps ~3 digits)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_float32_matmul()
     with open(os.path.join(export_dir, "config.json")) as f:
         config = Config(json.load(f))
     model_def = load_model_def(config)

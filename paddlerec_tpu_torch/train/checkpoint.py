@@ -1,0 +1,77 @@
+"""Checkpoint save/load.
+
+Counterpart of ``paddlerec_tpu/train/checkpoint.py``, with the same layout:
+per-epoch numbered directories under ``runner.model_save_path``, each holding
+``state`` (parameters + optimizer state for exact resume), and a
+``donefile.txt`` in the save root whose lines ``<tag>\\t<path>`` record the
+finished epochs, so resume is one read.
+
+The JAX package writes ``state`` with orbax, which the port cannot read or
+write; here ``state`` is a directory with one ``checkpoint.pt``
+(``torch.save`` of ``{"params": state_dict, "opt_state": ...}``, tensors on
+the CPU).  A JAX checkpoint crosses over only through
+``convert.from_jax_params``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import torch
+
+from paddlerec_tpu_torch.utils.fs import get_fs
+
+DONEFILE = "donefile.txt"
+_PAYLOAD = "checkpoint.pt"
+
+
+def _ckpt_dir(root: str, tag) -> str:
+    return os.path.join(os.path.abspath(root), str(tag))
+
+
+def _to_cpu(tree: Any) -> Any:
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, Mapping):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree
+
+
+def save_model(params: Mapping[str, torch.Tensor], opt_state: Any, root: str,
+               tag) -> str:
+    """Save params+opt under root/tag/state and update the donefile."""
+    path = _ckpt_dir(root, tag)
+    state_dir = os.path.join(path, "state")
+    os.makedirs(state_dir, exist_ok=True)
+    tmp = os.path.join(state_dir, _PAYLOAD + ".tmp")
+    torch.save({"params": _to_cpu(params), "opt_state": _to_cpu(opt_state)}, tmp)
+    os.replace(tmp, os.path.join(state_dir, _PAYLOAD))  # atomic
+    done = os.path.join(os.path.abspath(root), DONEFILE)
+    get_fs(done).append_line(done, f"{tag}\t{path}")
+    return path
+
+
+def load_model(root: str, tag) -> Tuple[Dict[str, torch.Tensor], Any]:
+    """Load (params, opt_state) from root/tag, tensors on the CPU."""
+    path = os.path.join(_ckpt_dir(root, tag), "state", _PAYLOAD)
+    restored = torch.load(path, map_location="cpu", weights_only=True)
+    return restored["params"], restored["opt_state"]
+
+
+def last_saved_tag(root: str) -> Optional[str]:
+    """Latest tag recorded in the donefile (resume point), or None."""
+    done = os.path.join(os.path.abspath(root), DONEFILE)
+    fs = get_fs(done)
+    if not fs.exists(done):
+        return None
+    lines = [l.strip() for l in fs.read_text(done).splitlines() if l.strip()]
+    if not lines:
+        return None
+    return lines[-1].split("\t")[0]
+
+
+def load_params_from_state(root: str, tag) -> Dict[str, torch.Tensor]:
+    """Restore ONLY the params of a full train checkpoint, so export and
+    inference tools load a checkpoint saved under any optimizer config."""
+    return load_model(root, tag)[0]

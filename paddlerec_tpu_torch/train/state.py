@@ -1,0 +1,44 @@
+"""Train state: module (parameters) + optimizer state + step."""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from paddlerec_tpu_torch.train.optimizers import Optimizer
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Counterpart of ``paddlerec_tpu/train/state.py``.  The JAX state is an
+    immutable pytree that every step replaces; here the module's parameters
+    and the optimizer state are updated in place and ``step`` counts on the
+    host."""
+
+    step: int
+    module: nn.Module
+    opt_state: Any
+    tx: Optimizer
+
+    @classmethod
+    def create(cls, module: nn.Module, tx: Optimizer) -> "TrainState":
+        state = cls(step=0, module=module, opt_state=None, tx=tx)
+        state.opt_state = tx.init(state.params)
+        return state
+
+    @functools.cached_property
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The parameters by their ``state_dict`` names (the module keeps
+        the same parameter objects for its lifetime, so this is read once)."""
+        return dict(self.module.named_parameters())
+
+    def apply_gradients(self) -> None:
+        """One optimizer step from the parameters' ``.grad``."""
+        params = self.params
+        grads = {k: p.grad for k, p in params.items()}
+        self.tx.apply(params, grads, self.opt_state)
+        self.step += 1

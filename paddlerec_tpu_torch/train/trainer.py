@@ -1,0 +1,451 @@
+"""The trainer: the single-device subset of ``paddlerec_tpu/train/trainer.py``.
+
+    batch (host) ──> device ──> train_step (eager: decode, forward, loss,
+    backward, optimizer step, in-step AUC buckets) ──> per-epoch checkpoint
+    + logging.
+
+The JAX trainer jits one SPMD step over a mesh; here one process drives one
+device and the step runs eagerly.  The embedding lookup is kernel K1 and its
+gradient kernel K1b (``ops/gather_pool.py``) when the device is a card.  The
+step never synchronises with the host: the loss stays on the device until a
+log line or the end of an epoch reads it, at the places where the reference
+calls ``jax.block_until_ready``.  Throughput telemetry matches the reference
+format (avg_reader_cost / avg_batch_cost / ips), letter for letter.
+
+Not ported yet (their config keys raise ``NotImplementedError`` when the
+trainer is built): meshes with ``mp > 1`` and multi-process runs, the geo and
+fl sync modes, the host table, sparse row-wise updates, the device-resident
+feed, ``pipe_command``, ``dump_fields``, the scalar writer and the profiler
+hook.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Dict, Iterable, Optional
+
+import torch
+
+from paddlerec_tpu_torch.core import metrics as metrics_lib
+from paddlerec_tpu_torch.core.config import Config, resolve_path
+from paddlerec_tpu_torch.core.device import (
+    full_float32_matmul, resolve_device, to_tensors,
+)
+from paddlerec_tpu_torch.data.schema import schema_from_config
+from paddlerec_tpu_torch.data.slot_reader import (
+    PrefetchIterator, SlotDataset, list_data_files,
+)
+from paddlerec_tpu_torch.data.superbatch import stack_superbatches
+from paddlerec_tpu_torch.data.wire import WireEncoder, decode_batch
+from paddlerec_tpu_torch.train import checkpoint as ckpt_lib
+from paddlerec_tpu_torch.train.state import TrainState
+
+# own handler + propagate=False: the environment may have already claimed
+# the root logger at WARNING, which would silently swallow the
+# reference-format INFO telemetry.
+logger = logging.getLogger("paddlerec_tpu_torch")
+if not logger.handlers:
+    _h = logging.StreamHandler()
+    _h.setFormatter(
+        logging.Formatter("%(asctime)s - %(levelname)s - %(message)s")
+    )
+    logger.addHandler(_h)
+    logger.setLevel(logging.INFO)
+    logger.propagate = False
+
+
+def check_ported(config: Config) -> None:
+    """Raise ``NotImplementedError`` naming the first runner or
+    hyper-parameter key that asks for code the port does not have yet."""
+    def refuse(key: str, what: str = "") -> None:
+        raise NotImplementedError(
+            f"{key}{what} is not ported to paddlerec_tpu_torch yet"
+        )
+
+    mode = str(config.runner("sync_mode", "") or "").lower()
+    if mode in ("geo", "fl"):
+        refuse("runner.sync_mode", f": {mode}")
+    for name in ("use_host_table", "feed_device_resident", "use_visual",
+                 "profiler_options", "dump_fields", "pipe_command"):
+        if config.runner(name):
+            refuse(f"runner.{name}")
+    mp = config.runner("mesh_mp")
+    if mp not in (None, 1, -1) or config.hyper("distributed_embedding", 0):
+        refuse("runner.mesh_mp / hyper_parameters.distributed_embedding",
+               " (a mesh with mp > 1)")
+    dp = config.runner("mesh_dp")
+    if dp not in (None, 1, -1):
+        refuse("runner.mesh_dp", " > 1")
+
+
+class Trainer:
+    def __init__(self, config: Config, model_def=None, device=None):
+        self.config = config
+        self.device = resolve_device(device)
+        check_ported(config)
+        # full float32 products on the card: the parity tolerances against
+        # the JAX package assume it
+        full_float32_matmul()
+        if model_def is None:
+            from paddlerec_tpu_torch.core.registry import load_model_def
+
+            model_def = load_model_def(config)
+        self.model_def = model_def
+        # built here so that an optimizer key that is not ported raises now
+        self.tx = model_def.create_optimizer()
+        self.state: Optional[TrainState] = None
+        self.use_auc = bool(config.runner("use_auc", True)) and (
+            model_def.metrics in ("auc", "acc")
+        )
+
+    # -- setup ----------------------------------------------------------------
+    def init_state(self, seed: Optional[int] = None) -> TrainState:
+        seed = int(self.config.runner("seed", 2023) if seed is None else seed)
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        module = self.model_def.make_module(device=self.device,
+                                            generator=generator)
+        self.state = TrainState.create(module, self.tx)
+        return self.state
+
+    def load_checkpoint(self, root: str, tag, params_only: bool = False) -> None:
+        """Restore params(+opt) from a checkpoint onto the device.
+
+        params_only skips the optimizer-state restore so export/inference
+        tools can load checkpoints saved under ANY optimizer config."""
+        if self.state is None:
+            self.init_state()
+        if params_only:
+            self.state.module.load_state_dict(
+                ckpt_lib.load_params_from_state(root, tag))
+            return
+        params, opt_state = ckpt_lib.load_model(root, tag)
+        self.state.module.load_state_dict(params)
+        _copy_into(self.state.opt_state, opt_state, "opt_state")
+        if isinstance(opt_state, dict) and "count" in opt_state:
+            self.state.opt_state["count"] = int(opt_state["count"])
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- steps ------------------------------------------------------------------
+    def train_step(self, batch, metric_state):
+        """One optimizer step on a device batch.  Returns (metric_state,
+        loss); the loss is a device scalar and nothing here waits for it."""
+        state, model_def = self.state, self.model_def
+        batch = decode_batch(batch)  # no-op unless wire-encoded
+        state.module.zero_grad(set_to_none=True)
+        loss, aux = model_def.train_forward(state.module, batch)
+        loss.backward()
+        state.apply_gradients()
+        if self.use_auc:
+            metric_state = model_def.update_metric_state(metric_state, aux)
+        return metric_state, loss.detach()
+
+    def super_step(self, sb, i: int, metric_state):
+        # index sub-batch i out of a staged superbatch ON DEVICE
+        # (runner.feed_superbatch): a view, no copy
+        return self.train_step({k: v[i] for k, v in sb.items()}, metric_state)
+
+    @torch.no_grad()
+    def infer_step(self, batch, metric_state):
+        batch = decode_batch(batch)
+        aux = self.model_def.infer_forward(self.state.module, batch)
+        if self.use_auc:
+            metric_state = self.model_def.update_metric_state(metric_state, aux)
+        return metric_state, aux
+
+    def infer_super(self, sb, i: int, metric_state):
+        # the eval twin of super_step, so evaluate() rides the same
+        # K-batches-per-transfer feed
+        return self.infer_step({k: v[i] for k, v in sb.items()}, metric_state)
+
+    # -- data ---------------------------------------------------------------------
+    def make_dataset(self, data_dir: str, batch_size: int, shuffle=False,
+                     drop_last: bool = True):
+        schema = schema_from_config(self.config)
+        files = list_data_files(data_dir)
+        reader_type = str(self.config.runner("reader_type", "")).lower()
+        from paddlerec_tpu_torch.data.binary import BinarySlotDataset, is_slotbin
+
+        bin_files = [f for f in files if f.endswith(".bin")]
+        if reader_type == "binary" or (
+            reader_type == "" and bin_files and is_slotbin(bin_files[0])
+        ):
+            # converted slotbin data: mmap views, zero parse work on the
+            # hot path
+            return BinarySlotDataset(
+                bin_files or files,
+                batch_size,
+                drop_last=drop_last,
+                shuffle_files=bool(shuffle),
+                shuffle_batches=bool(
+                    self.config.runner("shuffle_batches", False)
+                ),
+                seed=int(self.config.runner("seed", 2023)),
+            )
+        if reader_type == "native":
+            # the C++ thread-pool parser is not part of the port: do what
+            # the reference does when its toolchain is absent
+            logger.warning("native reader unavailable (not part of "
+                           "paddlerec_tpu_torch); "
+                           "falling back to the Python reader")
+        return SlotDataset(
+            files,
+            schema,
+            batch_size,
+            drop_last=drop_last,
+            shuffle_files=shuffle,
+            seed=int(self.config.runner("seed", 2023)),
+        )
+
+    def _wire_encode(self, dataset):
+        """Optional compact wire encoding (runner.wire_format: compact):
+        shrinks host→device bytes ~1.6x; decoded at the head of the step."""
+        if str(self.config.runner("wire_format", "")).lower() != "compact":
+            return dataset
+        # ONE stateful encoder per stream: the sparse representation is
+        # pinned after the first batch (escalate-only), so boundary-
+        # straddling streams can't flip dtypes batch to batch
+        enc = WireEncoder(int(self.config.hyper("sparse_feature_number", 0)))
+        return (enc(b) for b in dataset)
+
+    def _device_batches(self, dataset, allow_super: bool = False) -> Iterable:
+        # allow_super: ONLY the train and evaluate loops understand the
+        # (superbatch, index) tuples; every other consumer gets plain
+        # batches
+        dataset = self._wire_encode(dataset)
+        k = int(self.config.runner("feed_superbatch", 0) or 0)
+        if k > 1 and allow_super:
+            # superbatch staging: K host batches ride ONE host→device
+            # transfer; the step indexes batch i on device.  Yields
+            # (superbatch, i) pairs consumed by the superbatch step.
+            yield from self._staged_superbatches(dataset, k)
+            return
+        for batch in PrefetchIterator(iter(dataset), depth=4):
+            yield to_tensors(batch, self.device)
+
+    def _staged_superbatches(self, dataset, k: int, depth: int = 3):
+        stacks = stack_superbatches(dataset, k)
+        if self.device.type != "cuda":
+            staged = (to_tensors(sb, self.device) for sb in stacks)
+            for sb in PrefetchIterator(staged, depth=depth):
+                for i in range(int(next(iter(sb.values())).shape[0])):
+                    yield sb, i
+            return
+        # A feeder thread stages each superbatch in pinned host memory and
+        # starts its copy on a side stream; the step's stream waits on the
+        # copy's event, so the copy of superbatch n+1 overlaps the steps of
+        # superbatch n.  The pinned buffers form a ring, each reused only
+        # after the copy that last read it has finished.
+        device = self.device
+        side = torch.cuda.Stream(device)
+        ring = [{} for _ in range(depth + 2)]
+
+        def stage():
+            for n, host in enumerate(stacks):
+                slot = ring[n % len(ring)]
+                if "event" in slot:
+                    slot["event"].synchronize()
+                out = {}
+                with torch.cuda.device(device), torch.cuda.stream(side):
+                    for key, src in to_tensors(host, torch.device("cpu")).items():
+                        pin = slot.get(key)
+                        if (pin is None or pin.shape != src.shape
+                                or pin.dtype != src.dtype):
+                            pin = slot[key] = torch.empty(
+                                src.shape, dtype=src.dtype, pin_memory=True)
+                        pin.copy_(src)
+                        out[key] = pin.to(device, non_blocking=True)
+                    slot["event"] = torch.cuda.Event()
+                    slot["event"].record(side)
+                yield out, slot["event"]
+
+        for sb, copied in PrefetchIterator(stage(), depth=depth):
+            current = torch.cuda.current_stream(device)
+            current.wait_event(copied)
+            for t in sb.values():
+                t.record_stream(current)
+            for i in range(int(next(iter(sb.values())).shape[0])):
+                yield sb, i
+
+    @staticmethod
+    def _batch_rows(batch) -> int:
+        lead = batch.get("mask", next(iter(batch.values())))
+        return int(lead.shape[0])
+
+    def _init_metric_state(self):
+        return self.model_def.init_metric_state(device=self.device)
+
+    def _compute_metrics(self, metric_state):
+        return self.model_def.compute_metric_bundle(metric_state)
+
+    def _auc_str(self, metric_state):
+        return self.model_def.metric_log_str(metric_state)
+
+    def _bundle_str(self, metrics: Dict[str, float], prefix: str) -> str:
+        if "auc" in metrics:
+            return metrics_lib.metrics_str(metrics, prefix)
+        return prefix + " " + ", ".join(
+            f"{k}={v:.6f}" for k, v in metrics.items()
+        )
+
+    # -- loops ---------------------------------------------------------------------
+    def train(self) -> Dict[str, float]:
+        cfg = self.config
+        epochs = int(cfg.runner("epochs", 1))
+        batch_size = int(cfg.runner("train_batch_size", 32))
+        print_interval = int(cfg.runner("print_interval", 10))
+        save_path = resolve_path(cfg, "runner.model_save_path")
+        data_dir = resolve_path(cfg, "runner.train_data_dir")
+        start_epoch = 0
+
+        if self.state is None:
+            self.init_state()
+            init_path = resolve_path(cfg, "runner.model_init_path")
+            if init_path:
+                self.load_checkpoint(
+                    os.path.dirname(init_path), os.path.basename(init_path)
+                )
+                start_epoch = int(cfg.runner("last_epoch", -1)) + 1
+
+        last_metrics: Dict[str, float] = {}
+        # ONE dataset object for all epochs: re-iterating bumps its
+        # internal epoch counter, so shuffle_files gets a fresh
+        # permutation each epoch (a per-epoch object would reshuffle
+        # with the same seed every time)
+        dataset = self.make_dataset(
+            data_dir, batch_size,
+            shuffle=bool(cfg.runner("shuffle_files", False)),
+        )
+        for epoch in range(start_epoch, epochs):
+            metric_state = self._init_metric_state()
+            epoch_begin = time.time()
+            reader_start = time.time()
+            reader_cost = train_cost = 0.0
+            interval_samples = 0
+            total_samples = 0
+            loss = None
+            for batch_id, batch in enumerate(
+                    self._device_batches(dataset, allow_super=True)):
+                reader_cost += time.time() - reader_start
+                step_start = time.time()
+                if isinstance(batch, tuple):  # (superbatch, index)
+                    sb, idx = batch
+                    metric_state, loss = self.super_step(sb, idx, metric_state)
+                    n = int(next(iter(sb.values())).shape[1])
+                else:
+                    metric_state, loss = self.train_step(batch, metric_state)
+                    n = self._batch_rows(batch)
+                interval_samples += n
+                total_samples += n
+                if (batch_id + 1) % print_interval == 0:
+                    self._sync()
+                    train_cost += time.time() - step_start
+                    auc_str = self._auc_str(metric_state) if self.use_auc else ""
+                    logger.info(
+                        f"epoch: {epoch}, batch_id: {batch_id}, {auc_str}"
+                        f"loss: {float(loss):.6f}, "
+                        f"avg_reader_cost: {reader_cost / print_interval:.5f} sec, "
+                        f"avg_batch_cost: {(reader_cost + train_cost) / print_interval:.5f} sec, "
+                        f"avg_samples: {interval_samples / print_interval:.1f}, "
+                        f"ips: {interval_samples / max(reader_cost + train_cost, 1e-9):.2f} ins/s"
+                    )
+                    reader_cost = train_cost = 0.0
+                    interval_samples = 0
+                else:
+                    train_cost += time.time() - step_start
+                reader_start = time.time()
+
+            if loss is not None:
+                self._sync()
+            epoch_time = time.time() - epoch_begin
+            last_metrics = (
+                self._compute_metrics(metric_state) if self.use_auc else {}
+            )
+            if self.use_auc:
+                logger.info(
+                    "epoch: {} done, {}, epoch time: {:.2f} s, ips: {:.2f} ins/s".format(
+                        epoch,
+                        self._bundle_str(last_metrics, "train"),
+                        epoch_time,
+                        total_samples / max(epoch_time, 1e-9),
+                    )
+                )
+            else:
+                logger.info(f"epoch: {epoch} done, epoch time: {epoch_time:.2f} s")
+            if save_path:
+                path = ckpt_lib.save_model(
+                    self.state.module.state_dict(),
+                    self.state.opt_state,
+                    save_path,
+                    epoch,
+                )
+                logger.info(f"saved checkpoint to {path}")
+            last_metrics["epoch_time"] = epoch_time
+            last_metrics["ips"] = total_samples / max(epoch_time, 1e-9)
+        return last_metrics
+
+    def evaluate(self, epoch_tag=None) -> Dict[str, float]:
+        cfg = self.config
+        batch_size = int(cfg.runner("infer_batch_size", 32))
+        print_interval = int(cfg.runner("print_interval", 10))
+        data_dir = resolve_path(cfg, "runner.test_data_dir")
+        load_path = resolve_path(cfg, "runner.infer_load_path")
+
+        if self.state is None:
+            self.init_state()
+        if epoch_tag is not None and load_path:
+            self.load_checkpoint(load_path, epoch_tag)
+
+        dataset = self.make_dataset(data_dir, batch_size, drop_last=False)
+        eval_batches = self._device_batches(dataset, allow_super=True)
+        metric_state = self._init_metric_state()
+        begin = time.time()
+        total = 0
+        for batch_id, batch in enumerate(eval_batches):
+            if isinstance(batch, tuple):  # (superbatch, index)
+                sb, idx = batch
+                metric_state, _ = self.infer_super(sb, idx, metric_state)
+                total += int(next(iter(sb.values())).shape[1])
+            else:
+                metric_state, _ = self.infer_step(batch, metric_state)
+                total += self._batch_rows(batch)
+            if (batch_id + 1) % print_interval == 0 and self.use_auc:
+                logger.info(
+                    f"infer batch_id: {batch_id}, {self._auc_str(metric_state)}"
+                )
+        self._sync()  # the steps are only queued: wait, so the time is theirs
+        elapsed = time.time() - begin
+        metrics = self._compute_metrics(metric_state) if self.use_auc else {}
+        if self.use_auc:
+            logger.info(
+                "{}, infer time: {:.2f} s, ips: {:.2f} ins/s".format(
+                    self._bundle_str(metrics, "infer"),
+                    elapsed,
+                    total / max(elapsed, 1e-9),
+                )
+            )
+        metrics["ips"] = total / max(elapsed, 1e-9)
+        return metrics
+
+
+def _copy_into(target, source, path: str) -> None:
+    """Copy a loaded optimizer state's tensors into the live state's (same
+    nesting and names, or raise)."""
+    if isinstance(target, torch.Tensor):
+        if not isinstance(source, torch.Tensor) or source.shape != target.shape:
+            raise ValueError(f"checkpoint {path} does not match the optimizer")
+        with torch.no_grad():
+            target.copy_(source)
+    elif isinstance(target, dict):
+        if not isinstance(source, dict) or set(source) != set(target):
+            raise ValueError(
+                f"checkpoint {path} does not match the optimizer's state: "
+                f"{sorted(source) if isinstance(source, dict) else source!r} "
+                f"against {sorted(target)}"
+            )
+        for k, v in target.items():
+            _copy_into(v, source[k], f"{path}.{k}")

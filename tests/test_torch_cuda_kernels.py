@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from paddlerec_tpu_torch.ops.embedding import SlotEmbedding
-from paddlerec_tpu_torch.ops.gather_pool import gather_pool, gather_pool_plain
+from paddlerec_tpu_torch.ops.gather_pool import (
+    gather_pool, gather_pool_bwd, gather_pool_bwd_plain, gather_pool_plain,
+)
 
 torch.set_num_threads(1)
 
@@ -58,8 +60,11 @@ def test_gather_pool_refuses_bad_inputs(cuda):
         gather_pool(table.half(), ids)
     with pytest.raises(ValueError):
         gather_pool(table, ids, torch.ones(4, 2, device=cuda))
-    with pytest.raises(NotImplementedError, match="forward only"):
-        gather_pool(table.requires_grad_(), ids)
+    with pytest.raises(TypeError):
+        gather_pool(table, ids, out_dtype=torch.bfloat16)
+    mask = torch.ones(4, 1, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no gradient for the mask"):
+        gather_pool(table.requires_grad_(), ids, mask)
 
 
 @pytest.mark.cuda
@@ -74,3 +79,98 @@ def test_slot_embedding_cuda_matches_cpu(cuda, combiner):
         want = emb(ids, mask)
         got = emb.to(cuda)(ids.to(cuda), mask.to(cuda))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_gather_pool_f32_output_from_bf16_table(cuda):
+    rng = np.random.RandomState(1)
+    table = torch.from_numpy(rng.randn(1000, 16).astype(np.float32)).to(cuda, torch.bfloat16)
+    ids = torch.from_numpy(rng.randint(0, 1000, (4099, 5)).astype(np.int32)).to(cuda)
+    mask = torch.from_numpy((rng.rand(4099, 5) < 0.7).astype(np.float32)).to(cuda)
+    out = gather_pool(table, ids, mask, torch.float32)
+    ref = gather_pool_plain(table, ids, mask, torch.float32)
+    assert out.dtype == torch.float32
+    # exact bf16 rows summed in f32, <= 5 terms in another order
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_dtype,dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("dim,pool", [(16, 1), (128, 8), (10, 3), (16, 200)])
+def test_gather_pool_bwd_kernel_matches_plain(cuda, g_dtype, dtype, dim, pool):
+    rng = np.random.RandomState(dim + pool)
+    rows, n = 1000, 4099
+    g = torch.from_numpy(rng.randn(n, dim).astype(np.float32)).to(cuda, g_dtype)
+    ids = torch.from_numpy(rng.randint(-2, rows + 2, (n, pool)).astype(np.int32)).to(cuda)
+    mask = torch.from_numpy((rng.rand(n, pool) < 0.7).astype(np.float32)).to(cuda)
+    for m in (None, mask):
+        before = gather_pool_bwd.launches
+        out = gather_pool_bwd(g, ids, m, rows, dtype)
+        torch.cuda.synchronize()
+        assert gather_pool_bwd.launches == before + 1
+        ref = gather_pool_bwd_plain(g, ids, m, rows, dtype)
+        assert out.dtype == dtype and out.shape == (rows, dim)
+        # every row takes n*pool/rows adds (4 to 800) of size ~1, by atomics
+        # in an order of their own; a bf16 result rounds the f32 sum once
+        rtol = 1e-5 if dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                                   atol=1e-5 * max(1.0, (n * pool / rows) ** 0.5) * 4)
+
+
+@pytest.mark.cuda
+def test_gather_pool_bwd_refuses_bf16_g_into_f32_table(cuda):
+    g = torch.zeros(8, 16, device=cuda, dtype=torch.bfloat16)
+    ids = torch.zeros(8, 1, device=cuda, dtype=torch.int32)
+    with pytest.raises(TypeError, match="bfloat16 g into a float32"):
+        gather_pool_bwd(g, ids, None, 10, torch.float32)
+
+
+@pytest.mark.cuda
+def test_gather_pool_bwd_unique_ids_are_bitwise(cuda):
+    rng = np.random.RandomState(2)
+    rows = 20000
+    ids = torch.from_numpy(rng.permutation(rows)[:8192].astype(np.int32)).to(cuda)
+    g = torch.from_numpy(rng.randn(8192, 16).astype(np.float32)).to(cuda)
+    out = gather_pool_bwd(g, ids[:, None], None, rows)
+    assert torch.equal(out, gather_pool_bwd_plain(g, ids[:, None], None, rows))
+    zero = gather_pool_bwd(g, ids[:, None], torch.zeros(8192, 1, device=cuda), rows)
+    assert float(zero.abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_through_the_kernels_matches_plain(cuda, dtype):
+    """backward() through K1 launches K1b once and gives the gradient
+    autograd derives through the plain version on the same device."""
+    rng = np.random.RandomState(4)
+    table = torch.from_numpy(rng.randn(500, 16).astype(np.float32)).to(cuda, dtype)
+    ids = torch.from_numpy(rng.randint(-1, 501, (300, 4)).astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.rand(300, 4).astype(np.float32)).to(cuda)
+    weight = torch.from_numpy(rng.randn(300, 16).astype(np.float32)).to(cuda)
+    grads = []
+    for fn in (gather_pool, gather_pool_plain):
+        t = table.clone().requires_grad_()
+        fwd, bwd = gather_pool.launches, gather_pool_bwd.launches
+        (fn(t, ids, mask, torch.float32) * weight).sum().backward()
+        launched = (gather_pool.launches - fwd, gather_pool_bwd.launches - bwd)
+        assert launched == ((1, 1) if fn is gather_pool else (0, 0))
+        assert t.grad.dtype == dtype
+        grads.append(t.grad.float())
+    # f32: <= 2.4 adds a row on average, in another order.  bf16: the plain
+    # path's index_select backward adds in bf16, K1b in f32 rounded once
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(grads[0], grads[1], **tol)
+
+
+@pytest.mark.cuda
+def test_slot_embedding_trains_on_cuda_like_cpu(cuda):
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, 10**6, (8, 5)))
+    grads = []
+    for device in (torch.device("cpu"), cuda):
+        emb = SlotEmbedding(3000, 9, generator=torch.Generator().manual_seed(0)).to(device)
+        (emb(ids.to(device)) ** 2).sum().backward()
+        grads.append(emb.embedding.grad.cpu())
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-6, atol=1e-7)

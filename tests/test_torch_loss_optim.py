@@ -1,0 +1,144 @@
+"""Loss and optimizer steps of the port against optax: ``binary_logloss``,
+and ten steps of Adam, SGD, Adagrad and the global-norm clip from identical
+parameters and identical gradients."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from paddlerec_tpu.models import base as jax_base
+from paddlerec_tpu_torch.convert import (
+    _to_numpy, adam_state_from_optax, adam_state_to_optax, from_jax_params,
+)
+from paddlerec_tpu_torch.core.config import Config
+from paddlerec_tpu_torch.models import base as port_base
+from paddlerec_tpu_torch.train.optimizers import Optimizer
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_binary_logloss_matches_optax(masked):
+    rng = np.random.RandomState(0)
+    logits = (rng.randn(64) * 4).astype(np.float32)
+    logits[:4] = [-60.0, 60.0, 0.0, -0.0]  # the stable form's far ends
+    labels = (rng.rand(64) < 0.4).astype(np.float32)
+    mask = (rng.rand(64) < 0.8).astype(np.float32) if masked else None
+    ref = jax_base.binary_logloss(jnp.asarray(logits), jnp.asarray(labels),
+                                  None if mask is None else jnp.asarray(mask))
+    out = port_base.binary_logloss(torch.from_numpy(logits), torch.from_numpy(labels),
+                                   None if mask is None else torch.from_numpy(mask))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-6)
+    zero = port_base.binary_logloss(torch.from_numpy(logits), torch.from_numpy(labels),
+                                    torch.zeros(64))
+    assert float(zero) == 0.0  # an all-masked batch divides by max(0, 1)
+
+
+def _tree(rng, table_dtype):
+    return {
+        "embedding": {"embedding": jnp.asarray(rng.randn(40, 128) * 0.01, table_dtype)},
+        "tower": {"fc_0": {"kernel": jnp.asarray(rng.randn(12, 8), jnp.float32),
+                           "bias": jnp.zeros((8,), jnp.float32)}},
+        "fm_bias": jnp.zeros((), jnp.float32),
+    }
+
+
+def _grads(rng, params, step):
+    def leaf(p):
+        g = rng.randn(*p.shape) * (0.1 if step % 3 else 1e-4)
+        if p.ndim == 2 and p.shape[1] == 128:
+            g[step::5] = 0.0  # rows no id touched
+        return jnp.asarray(g, p.dtype)
+    return jax.tree.map(leaf, params)
+
+
+def _config(**hyper):
+    flat = {"hyper_parameters.optimizer.learning_rate": 0.01}
+    flat.update({f"hyper_parameters.{k}": v for k, v in hyper.items()})
+    return Config(flat)
+
+
+# optimizer class, clip_by_norm, table dtype, parameter tolerance.  f32: each
+# step's elementwise arithmetic is the same, up to the last bit (XLA fuses
+# a*b + c and rewrites (m / c) / d as m / (c * d)).  bf16 table: such a
+# last-bit difference in the f32 update can flip the rounding of a bf16
+# parameter, which is then one bf16 ulp off (2^-8 relative: 4.9e-4 for
+# |p| in [0.0625, 0.125)); measured: 4 of 5120 elements differ, by one ulp.
+CASES = [
+    ("Adam", None, "float32", 1e-6),
+    ("Adam", 0.5, "float32", 1e-6),
+    ("SGD", None, "float32", 1e-6),
+    ("Adagrad", 1.0, "float32", 1e-6),
+    ("Adam", None, "bfloat16", 5e-4),
+]
+
+
+@pytest.mark.parametrize("name,clip,dtype,atol", CASES)
+def test_ten_steps_match_optax(name, clip, dtype, atol):
+    hyper = {"optimizer.class": name, "sparse_feature_dtype": dtype}
+    if clip:
+        hyper["clip_by_norm"] = clip
+    cfg = _config(**hyper)
+    tx = jax_base.ModelDef(cfg).create_optimizer()
+    port_tx = port_base.ModelDef(cfg).create_optimizer()
+    assert isinstance(port_tx, Optimizer) and port_tx.name == name.lower()
+
+    rng = np.random.RandomState(1)
+    params = _tree(rng, jnp.dtype(dtype))
+    opt_state = tx.init(params)
+    port_params = {k: v.clone() for k, v in from_jax_params(
+        jax.tree.map(np.asarray, params)).items()}
+    port_state = port_tx.init(port_params)
+    update = jax.jit(lambda g, s, p: tx.update(g, s, p))
+    for step in range(10):
+        grads = _grads(rng, params, step)
+        updates, opt_state = update(grads, opt_state, params)
+        params = optax.apply_updates(params, updates)
+        port_grads = from_jax_params(jax.tree.map(np.asarray, grads))
+        port_tx.apply(port_params, port_grads, port_state)
+
+    want = from_jax_params(jax.tree.map(np.asarray, params))
+    for k, p in port_params.items():
+        assert p.dtype == want[k].dtype and p.shape == want[k].shape, k
+        np.testing.assert_allclose(p.float().numpy(), want[k].float().numpy(),
+                                   rtol=0, atol=atol, err_msg=k)
+    if name == "Adam":
+        ref = adam_state_from_optax(opt_state)
+        assert port_state["count"] == ref["count"] == 10
+        for k in port_params:
+            mu, nu = port_state["mu"][k], port_state["nu"][k]
+            assert mu.dtype == torch.float32 == ref["mu"][k].dtype, k
+            assert nu.dtype == ref["nu"][k].dtype == port_params[k].dtype, k
+            # a fused multiply-add against a product and a sum: the last bit
+            # of terms up to 0.1, which counts where they cancel
+            np.testing.assert_allclose(mu.numpy(), ref["mu"][k].numpy(),
+                                       rtol=1e-6, atol=1e-8, err_msg=k)
+            if nu.dtype == torch.float32:
+                np.testing.assert_allclose(nu.numpy(), ref["nu"][k].numpy(),
+                                           rtol=1e-6, atol=1e-12, err_msg=k)
+            else:  # every bf16 operation rounds as XLA's does
+                assert torch.equal(nu, ref["nu"][k]), k
+        back = adam_state_to_optax(port_state)
+        assert back["count"] == 10 and back["count"].dtype == np.int32
+        assert back["mu"]["tower"]["fc_0"]["kernel"].shape == (12, 8)
+        np.testing.assert_array_equal(
+            back["nu"]["embedding"]["embedding"].astype(np.float32),
+            _to_numpy(port_state["nu"]["embedding.embedding"]).astype(np.float32))
+
+
+@pytest.mark.parametrize("key,value", [
+    ("optimizer.class", "rmsprop"), ("optimizer.class", "adamw"),
+    ("optimizer.lazy_mode", True), ("optimizer.runtime_inject", True),
+    ("embedding_l2", 1e-4), ("sparse_update", True),
+])
+def test_unported_optimizer_keys_raise(key, value):
+    with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
+        port_base.ModelDef(_config(**{key: value})).create_optimizer()
+
+
+def test_unknown_optimizer_is_a_value_error():
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        port_base.ModelDef(_config(**{"optimizer.class": "lion"})).create_optimizer()
