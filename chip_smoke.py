@@ -25,16 +25,30 @@ without a result line:
 6. the training path at the same width, Adam: the first 5 steps against the
    port's own CPU run from the same parameters and batches (loss atol
    1e-5); ``Trainer.train()`` over slotbin files through the staged
-   superbatch feed with ``wire_format: compact`` at batch 8192 (48 steps)
-   and 512 (192 steps), two epochs each, one K1 and one K1b launch per step,
+   superbatch feed with ``wire_format: compact`` at batch 8192 (24 steps)
+   and 512 (96 steps), one epoch each, one K1 and one K1b launch per step,
    the loss finite and falling; ``Trainer.evaluate()`` from the saved
    checkpoint; a short run with the bfloat16 table;
 7. time K1 and K1b at the main path's shapes with CUDA events, beside their
    plain versions, the one-call PyTorch yardsticks (``embedding_bag``,
-   ``embedding_dense_backward``, which the port never calls) and the memory
-   bound;
+   ``embedding_dense_backward``, which the port never calls), the memory
+   bound and the launch floor (an empty kernel);
 8. ``torch.profiler`` over 20 forwards and over 20 train steps at each
-   batch size.
+   batch size;
+9. the sparse row-wise path: each update rule on the card against the port's
+   CPU run of the same inputs, ``stochastic_round_bf16`` bitwise given the
+   noise, the first 5 sparse steps card against CPU at vocab 1,000,001;
+   then ``configs/rank/deepfm/config_bigdata.yaml`` at its full width (vocab
+   100,000,001, a 3.2 GB bfloat16 table, row-wise adagrad with stochastic
+   rounding, batch 8192): the external lookup and the per-row gradient sum
+   through K1 and K1b against their plain versions, two epochs of 24 steps
+   of ``Trainer.train()`` through the staged feed, ``evaluate()``, the
+   checkpoint, ``tools.export`` and ``run_predict`` on the artifact, with
+   the peak allocation held under table + row state + 1 GB; 8 steps each of
+   the dnn and wide_deep ``config_bigdata.yaml``;
+10. the sparse step profiled as in 8 (vocab 1,000,001, beside the dense
+    step's numbers), the host and device dedup timed, and K1b timed at its
+    compact shape.
 
 Standard output: the ``nvidia-smi`` line, one JSON line per phase's result
 (each tagged with the card), the ``{"kernels": [...]}`` line, and last
@@ -60,13 +74,15 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "rank", "deepfm", "config.yaml")
+BIGDATA = os.path.join(ROOT, "configs", "rank", "{}", "config_bigdata.yaml")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 SM_CYCLES_PER_S = 1.98e9  # H100 SXM boost clock: sizes the spin in time_ms
 BATCHES = (512, 8192)  # serving batch; config_bigdata.yaml's infer batch
 ROWS = 8192 + 1000  # a full batch of 8192 and a padded tail
-TRAIN_STEPS = {8192: 24, 512: 96}  # steps per epoch; two epochs are trained
+TRAIN_STEPS = {8192: 24, 512: 96}  # steps of the one epoch that is trained
 SLOTS = 26
+GB = 1 << 30
 
 
 def emit(obj) -> None:
@@ -361,17 +377,380 @@ def time_k1b(gp, seed: int, vocab: int, rows: int) -> list:
     return out
 
 
+def time_launch_floor(gp, iters: int = 500) -> float:
+    """ms per launch of the empty kernel of ``csrc/gather_pool.cu``, timed as
+    the kernels are (CUDA events, the host queued ahead): no kernel's time
+    goes under it, whatever its byte bound.  ``iters`` stays under the depth
+    of the launch queue (about a thousand): beyond it the host, at ~18 us a
+    ``ctypes`` call, would be what is timed."""
+    device = torch.device("cuda")
+    call = time_ms(lambda _: gp.empty_launch(device), [None], iters)
+    return time_ms(lambda _: gp.empty_launch(device), [None], iters,
+                   hold_ms=4 * iters * call + 5)
+
+
+def time_k1b_compact(gp, seed: int, vocab: int) -> list:
+    """Phase 10: K1b at the sparse step's shape: the gradient sum per unique
+    physical row, g (N, 16) f32 scattered at ``slot·8 + sub`` into a compact
+    (U·8, 16) buffer, U the batch's unique rows of a ``vocab``-id table."""
+    from paddlerec_tpu_torch.ops.sparse_update import host_dedup
+
+    rng = np.random.RandomState(seed + 5)
+    g_dev = torch.Generator(device="cuda").manual_seed(seed + 5)
+    out = []
+    for batch in BATCHES:
+        n = batch * SLOTS
+        n_sets = max(4, math.ceil(64 * 13312 / n))
+        sets, uniqs = [], []
+        for _ in range(n_sets):
+            ids = rng.randint(1, vocab, n).astype(np.int64)
+            uniq, slot = host_dedup(ids, vocab, 8)
+            uniqs.append(int((uniq != np.iinfo(np.int32).max).sum()))
+            lane = slot.astype(np.int64) * 8 + ids % vocab % 8
+            sets.append(torch.from_numpy(lane.astype(np.int32)).cuda()[:, None])
+        rows = 8 * max(uniqs)  # one buffer size for every set
+        flat = {id(s): s.reshape(-1).long() for s in sets}
+        grad = torch.randn(n, 16, device="cuda", generator=g_dev)
+        iters = 10 * n_sets
+        fns = {
+            "ms": lambda s: gp.gather_pool_bwd(grad, s, None, rows),
+            "plain_ms": lambda s: gp.gather_pool_bwd_plain(grad, s, None, rows),
+            "library_ms": lambda s: torch.ops.aten.embedding_dense_backward(
+                grad, flat[id(s)], rows, -1, False),
+        }
+        call = {k: time_ms(fn, sets, iters) for k, fn in fns.items()}
+        device = {k: time_ms(fn, sets, iters, hold_ms=4 * iters * call[k] + 5)
+                  for k, fn in fns.items()}
+        # the compact buffer written once (U·512 bytes), g and ids read once
+        nbytes = rows * 16 * 4 + n * 16 * 4 + n * 4
+        bound = max(nbytes / HBM_BYTES_PER_S, n * 16 / F32_FLOPS) * 1e3
+        out.append({"shape": "compact", "batch": batch, "n": n, "pool": 1, "dim": 16,
+                    "rows": rows, "vocab": vocab, "unique_rows": float(np.mean(uniqs)),
+                    "dtype": "float32", **device, "bound_ms": bound,
+                    "bound_by": "bytes", "bytes": nbytes,
+                    "share_of_bound": bound / device["ms"],
+                    "zero_fill_bytes": rows * 16 * 4,
+                    "call_ms": {k[:-3] if k != "ms" else "kernel": v
+                                for k, v in call.items()}})
+    return out
+
+
+def time_dedup(seed: int, vocabs) -> list:
+    """Phase 10: the dedup of one batch's physical rows, on the host
+    (``host_dedup``: numpy, what the feed thread runs) and on the card
+    (``dedup_rows``: sort + cumsum; CUDA events, host queued ahead)."""
+    from paddlerec_tpu_torch.ops.sparse_update import dedup_rows, host_dedup
+
+    rng = np.random.RandomState(seed + 6)
+    out = []
+    for vocab in vocabs:
+        for batch in BATCHES:
+            n = batch * SLOTS
+            sets = [rng.randint(1, vocab, (batch, SLOTS)).astype(np.int64)
+                    for _ in range(8)]
+            host_dedup(sets[0], vocab, 8)
+            t0 = time.perf_counter()
+            for ids in sets:
+                uniq, _ = host_dedup(ids, vocab, 8)
+            host_ms = (time.perf_counter() - t0) * 1e3 / len(sets)
+            rows = (vocab + 7) // 8
+            phys = [torch.from_numpy((ids.reshape(-1) % vocab // 8).astype(np.int32)).cuda()
+                    for ids in sets]
+            call = time_ms(lambda p: dedup_rows(p, rows), phys, 40)
+            card_ms = time_ms(lambda p: dedup_rows(p, rows), phys, 40,
+                              hold_ms=4 * 40 * call + 5)
+            got = dedup_rows(phys[-1], rows)[0].cpu().numpy()
+            real = int((uniq != np.iinfo(np.int32).max).sum())
+            if not np.array_equal(got[:real], uniq[:real]) or np.any(got[real:] != rows):
+                raise AssertionError("dedup_rows on the card disagrees with host_dedup")
+            out.append({"vocab": vocab, "batch": batch, "n": n, "unique_rows": real,
+                        "host_dedup_ms": host_ms, "dedup_rows_card_ms": card_ms,
+                        "dedup_rows_call_ms": call})
+    return out
+
+
+def sparse_checks(gp, seed: int, card: str) -> None:
+    """Phase 9: each row-wise rule on the card against the port's own CPU run
+    of the same inputs (two steps, f32 and bf16 table, N = 13,312 positions
+    of a vocab-1,000,001 table), and ``stochastic_round_bf16`` bitwise
+    against the CPU given the noise."""
+    from paddlerec_tpu_torch.ops import sparse_update as su
+
+    vocab, pack, n = 1000001, 8, 512 * SLOTS
+    rows = (vocab + pack - 1) // pack
+    rng = np.random.RandomState(seed + 7)
+    results = []
+    rules = {
+        "adagrad_compact": (su.apply_sparse_adagrad_compact, su.rowwise_adagrad_init),
+        "adam_compact": (su.apply_sparse_adam_compact, su.rowwise_adam_init),
+        "adagrad": (su.apply_sparse_adagrad, su.rowwise_adagrad_init),
+        "adam": (su.apply_sparse_update, su.rowwise_adam_init),
+    }
+    for dtype in (torch.float32, torch.bfloat16):
+        start = torch.from_numpy((rng.randn(rows, 128) * 0.05).astype(np.float32)).to(dtype)
+        steps = []
+        for _ in range(2):
+            ids = rng.randint(0, 3 * vocab, n).astype(np.int64)
+            ids[: n // 8] = ids[n // 8: n // 4]  # duplicates
+            g = (rng.randn(n, 16) * 0.1).astype(np.float32)
+            g[:, 10:] = 0.0
+            steps.append((ids, torch.from_numpy(g)))
+        for name, (fn, init) in rules.items():
+            tables = {}
+            for device in ("cpu", "cuda"):
+                table = start.clone().to(device)
+                state = init(table)
+                before = gp.gather_pool_bwd.launches
+                for ids, g in steps:
+                    hashed = ids % vocab
+                    sub = torch.from_numpy((hashed % pack).astype(np.int32)).to(device)
+                    if name.endswith("compact"):
+                        uniq, slot = su.host_dedup(ids, vocab, pack)
+                        fn(table, state, g.to(device), torch.from_numpy(uniq).to(device),
+                           torch.from_numpy(slot).to(device), 0.05, sub=sub)
+                    else:
+                        phys = torch.from_numpy((hashed // pack).astype(np.int32)).to(device)
+                        fn(table, state, g.to(device), phys, 0.05, sub=sub)
+                launched = gp.gather_pool_bwd.launches - before
+                if launched != (2 if device == "cuda" else 0):
+                    raise AssertionError(f"{name} on {device}: {launched} K1b launches")
+                tables[device] = (table.cpu(), [t.cpu() for t in state])
+            torch.cuda.synchronize()
+            (t_cpu, s_cpu), (t_card, s_card) = tables["cpu"], tables["cuda"]
+            err = float((t_card.float() - t_cpu.float()).abs().max())
+            differ = int((t_card != t_cpu).sum())
+            state_err = max(float((a.float() - b.float()).abs().max())
+                            for a, b in zip(s_card, s_cpu))
+            moved = float((t_cpu.float() - start.float()).abs().max())
+            # The sum per row arrives in another order on the card (atomics),
+            # and the card's rsqrt, sqrt and pow are not the host's to the
+            # last bit.  Adagrad: f32 entries within 1e-6.  Adam: 1 - b2**count
+            # cancels to 1e-3, so a last bit of the power is 6e-5 of the
+            # step (lr = 0.05): 5e-6.  A bf16 entry may then land on the
+            # other side of a rounding (one ulp of |p| <= 0.3: 2e-3): few of
+            # the touched entries (2 steps x n positions x 10 lanes) with
+            # Adagrad, up to a tenth with Adam.
+            adam = "adam" in name
+            touched = 2 * n * 10
+            ok = moved > 1e-3 and state_err <= 1e-6 and (
+                err <= (5e-6 if adam else 1e-6) if dtype == torch.float32
+                else err <= 2e-3 and differ <= (0.1 if adam else 1e-3) * touched)
+            results.append({"rule": name, "table_dtype": str(dtype), "n": n,
+                            "max_abs_err_table": err, "entries_that_differ": differ,
+                            "max_abs_err_state": state_err, "ok": ok})
+            if not ok:
+                raise AssertionError(f"row-wise rule on the card vs the CPU: {results[-1]}")
+    x = torch.from_numpy((rng.randn(1 << 20) * np.exp(rng.randn(1 << 20) * 3)).astype(np.float32))
+    noise = torch.from_numpy(rng.randint(0, 1 << 16, 1 << 20).astype(np.int32))
+    same = torch.equal(su.stochastic_round_bf16(x.cuda(), noise.cuda()).cpu(),
+                       su.stochastic_round_bf16(x, noise))
+    if not same:
+        raise AssertionError("stochastic_round_bf16: card and CPU differ given the noise")
+    emit({"sparse_checks": results, "stochastic_round_bf16_bitwise_vs_cpu": same,
+          "card": card})
+
+
+def check_sparse_lookup(gp, module, vocab: int, seed: int, card: str) -> dict:
+    """Phase 9, on the full-width table: the external lookup through K1 and
+    the per-row gradient sum through K1b against their plain versions, at
+    N = 212,992 and 13,312 positions with ids over the whole vocabulary."""
+    from paddlerec_tpu_torch.ops import sparse_update as su
+    from paddlerec_tpu_torch.ops.packed_embedding import logical_view
+
+    emb = module.embedding
+    rng = np.random.RandomState(seed + 8)
+    g_dev = torch.Generator(device="cuda").manual_seed(seed + 8)
+    out = {"k1_err": 0.0, "k1b_err": 0.0, "cases": []}
+    for batch in reversed(BATCHES):
+        n = batch * SLOTS
+        ids = rng.randint(1, 3 * vocab, (batch, SLOTS)).astype(np.int64)
+        before = (gp.gather_pool.launches, gp.gather_pool_bwd.launches)
+        vecs = emb(torch.from_numpy(ids).cuda())
+        weight = torch.randn(vecs.shape, device="cuda", generator=g_dev)
+        (vecs * weight).sum().backward()
+        g = emb.take_delta_grad()
+        hashed = torch.from_numpy(ids.reshape(-1) % vocab).cuda()
+        view = logical_view(emb.embedding.detach(), emb.embedding_dim)
+        plain = gp.gather_pool_plain(view, hashed.to(torch.int32)[:, None], None,
+                                     torch.float32)[:, :emb.embedding_dim]
+        if emb.embedding.grad is not None or vecs.dtype != torch.float32:
+            raise AssertionError("external lookup: a table gradient, or not float32")
+        if not torch.equal(vecs.detach().reshape(n, -1), plain):
+            raise AssertionError("external lookup through K1 differs from its plain version")
+        if not torch.equal(g[:, :emb.embedding_dim], weight.reshape(n, -1)):
+            raise AssertionError("the captured gradient is not the vectors' gradient")
+        uniq, slot = su.host_dedup(ids, vocab, 8)
+        real = int((uniq != su.SENTINEL).sum())
+        slot_t = torch.from_numpy(slot).cuda()
+        sub = (hashed % 8).to(torch.int32)
+        summed = su._grad_sum(g, sub, slot_t, real)
+        lanes = su._lane_ids(slot_t, sub, 16)
+        ref = gp.gather_pool_bwd_plain(g, lanes, None, real * 8).view(real, 128)
+        torch.cuda.synchronize()
+        launched = (gp.gather_pool.launches - before[0],
+                    gp.gather_pool_bwd.launches - before[1])
+        if launched != (1, 1):
+            raise AssertionError(f"lookup and gradient sum launched K1, K1b {launched}")
+        err = float((summed - ref).abs().max())
+        # a lane group that one position touched: bitwise
+        once = torch.bincount(lanes.reshape(-1).long(), minlength=real * 8) == 1
+        bitwise_once = torch.equal(summed.view(-1, 16)[once], ref.view(-1, 16)[once])
+        if not bitwise_once or not torch.allclose(summed, ref, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"per-row gradient sum through K1b: max err {err}")
+        out["k1b_err"] = max(out["k1b_err"], err)
+        out["cases"].append({"n": n, "unique_rows": real, "k1_bitwise": True,
+                             "k1b_bitwise_where_touched_once": bitwise_once,
+                             "k1b_max_abs_err": err,
+                             "k1b_tolerance": {"rtol": 1e-5, "atol": 1e-6}})
+    emit({"sparse_lookup_checks": out["cases"], "vocab": vocab,
+          "table": list(emb.embedding.shape), "table_dtype": str(emb.embedding.dtype),
+          "card": card})
+    return out
+
+
+def train_sparse(gp, work: str, seed: int, card: str) -> dict:
+    """Phase 9: ``configs/rank/deepfm/config_bigdata.yaml`` at its full
+    width through ``Trainer.train()``, ``evaluate()``, the checkpoint,
+    ``tools.export`` and ``run_predict``; then 8 steps each of the dnn and
+    wide_deep ``config_bigdata.yaml``."""
+    from paddlerec_tpu_torch.core.config import Config, load_config
+    from paddlerec_tpu_torch.core.device import to_tensors
+    from paddlerec_tpu_torch.data.schema import schema_from_config
+    from paddlerec_tpu_torch.data.slot_reader import SlotDataset, list_data_files
+    from paddlerec_tpu_torch.data.synthetic import write_criteo_sample
+    from paddlerec_tpu_torch.tools.export import export_model
+    from paddlerec_tpu_torch.tools.predict import run_predict
+    from paddlerec_tpu_torch.train.trainer import Trainer
+
+    cfg = load_config(BIGDATA.format("deepfm"))
+    vocab = int(cfg.hyper("sparse_feature_number"))
+    batch = int(cfg.runner("train_batch_size"))
+    data = os.path.join(work, "sparse_train")
+    write_sparse_train_data(data, TRAIN_STEPS[batch] * batch, vocab, seed + 9)
+
+    def run_config(model: str, **extra):
+        flat = dict(load_config(BIGDATA.format(model)).to_dict())
+        flat.update({
+            "runner.train_data_dir": data, "runner.test_data_dir": data,
+            "runner.model_save_path": None, "runner.infer_load_path": None,
+            "runner.print_interval": 4, "runner.feed_superbatch": 4,
+            "runner.wire_format": "compact", "runner.reader_type": "",
+        })
+        flat.update(extra)
+        return Config(flat)
+
+    # the first 5 steps, card against CPU, at the vocabulary the CPU can hold
+    # and with round-to-nearest (the two devices draw different noise)
+    small = os.path.join(work, "sparse_small")
+    write_sparse_train_data(small, 5 * batch, 1000001, seed + 10, files=1)
+    first = first_steps_vs_cpu(gp, run_config("deepfm", **{
+        "runner.train_data_dir": small,
+        "hyper_parameters.sparse_feature_number": 1000001,
+        "hyper_parameters.sparse_update_stochastic_round": False}), seed)
+    emit({"train_sparse_first_steps_vs_cpu": first, "card": card})
+
+    ckpt = os.path.join(work, "sparse_ckpt")
+    # two epochs over the same rows: the second must read lower than the first
+    run_cfg = run_config("deepfm", **{"runner.model_save_path": ckpt,
+                                      "runner.infer_load_path": ckpt,
+                                      "runner.epochs": 2})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer = Trainer(run_cfg)
+    trainer.init_state(seed=seed)
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    table = trainer.state.module.embedding.embedding
+    acc = trainer.state.extra["embedding/embedding_delta"].acc
+    held = table.numel() * table.element_size() + acc.numel() * acc.element_size()
+    if tuple(table.shape) != (12500001, 128) or table.dtype != torch.bfloat16:
+        raise AssertionError(f"the table is {tuple(table.shape)} {table.dtype}")
+    lookup = check_sparse_lookup(gp, trainer.state.module, vocab, seed, card)
+    torch.cuda.reset_peak_memory_stats()
+    run = run_training(gp, run_cfg, seed, trainer=trainer, min_steps=24)
+    run["free_disk_bytes_after_checkpoints"] = shutil.disk_usage(work).free
+    peak = torch.cuda.max_memory_allocated() - base
+    moments = [k for v in trainer.state.opt_state.values() if isinstance(v, dict)
+               for k in v if "embedding" in k]
+    if table.grad is not None or moments:
+        raise AssertionError(f"a table gradient or dense moments exist: {moments}")
+    if peak > held + GB:
+        raise AssertionError(
+            f"peak allocation {peak} bytes above table + row state + 1 GB ({held + GB})")
+    run.update({"vocab": vocab, "table_shape": list(table.shape),
+                "table_and_row_state_bytes": held, "peak_allocated_bytes": peak,
+                "peak_above_table_and_state_bytes": peak - held,
+                "allocated_before_bytes": base, "init_seconds": init_seconds,
+                "row_rule": trainer.model_def._sparse_update_rule(),
+                "stochastic_round": bool(run_cfg.hyper("sparse_update_stochastic_round"))})
+    emit({"train_sparse": run, "card": card})
+
+    # export the checkpoint, serve the artifact
+    t0 = time.perf_counter()
+    export_dir = os.path.join(work, "sparse_export")
+    export_model(Config({**run_cfg.to_dict(),
+                         "runner.model_init_path": os.path.join(ckpt, "1")}), export_dir)
+    shutil.rmtree(ckpt)
+    text = os.path.join(work, "sparse_text")
+    write_criteo_sample(text, num_lines=ROWS, num_files=4, vocab=vocab, seed=seed)
+    gp.gather_pool.launches = 0
+    outputs, report = run_predict(export_dir, text, batch)
+    served_launches = gp.gather_pool.launches
+    preds = np.concatenate(outputs)
+    own = []
+    dataset = SlotDataset(list_data_files(text), schema_from_config(run_cfg), batch,
+                          drop_last=False)
+    with torch.no_grad():
+        for host_batch in dataset:
+            aux = trainer.model_def.infer_forward(
+                trainer.state.module, to_tensors(host_batch, trainer.device))
+            own.append(aux["predictions"].cpu().numpy()[host_batch["mask"] > 0])
+    err = float(np.abs(preds - np.concatenate(own)).max())
+    # the artifact's plain lookup hands out bf16 vectors where the training
+    # module's external lookup gave float32 ones
+    if preds.shape != (ROWS,) or not np.all((preds > 0) & (preds < 1)) or err > 2e-2:
+        raise AssertionError(f"the exported sparse run serves wrongly: max err {err}")
+    if served_launches != math.ceil(ROWS / batch):
+        raise AssertionError(f"run_predict launched K1 {served_launches} times")
+    emit({"export_sparse": {"seconds_export_and_predict": time.perf_counter() - t0,
+                            "rows": ROWS, "max_abs_err_vs_training_module": err,
+                            "k1_launches": served_launches, **report}, "card": card})
+    shutil.rmtree(export_dir)
+    del trainer, table, acc
+    torch.cuda.empty_cache()
+
+    runs = {"deepfm": run}
+    for model in ("dnn", "wide_deep"):
+        short = os.path.join(work, f"sparse_{model}")
+        write_sparse_train_data(short, 8 * batch, vocab, seed + 11, files=2)
+        runs[model] = run_training(
+            gp, run_config(model, **{"runner.train_data_dir": short,
+                                     "runner.test_data_dir": short}),
+            seed, check_fall=False)
+        runs[model]["model"] = model
+        emit({"train_sparse": runs[model], "card": card})
+        torch.cuda.empty_cache()
+    return {"first": first, "runs": runs, "lookup": lookup,
+            "served_launches": served_launches}
+
+
 class LossLines(logging.Handler):
-    """Collects the ``loss:`` values of the trainer's log lines."""
+    """Collects the ``loss:`` and ``avg_reader_cost:`` values of the
+    trainer's log lines."""
 
     def __init__(self):
         super().__init__(level=logging.INFO)
-        self.losses = []
+        self.losses, self.reader_costs = [], []
 
     def emit(self, record):
-        found = re.search(r"loss: (-?[0-9.]+|nan|inf)", record.getMessage())
-        if found and record.getMessage().startswith("epoch:"):
+        line = record.getMessage()
+        found = re.search(r"loss: (-?[0-9.]+|nan|inf)", line)
+        if found and line.startswith("epoch:"):
             self.losses.append(float(found.group(1)))
+            self.reader_costs.append(float(
+                re.search(r"avg_reader_cost: ([0-9.]+) sec", line).group(1)))
 
 
 def write_train_data(data_dir: str, rows: int, vocab: int, seed: int) -> None:
@@ -388,6 +767,32 @@ def write_train_data(data_dir: str, rows: int, vocab: int, seed: int) -> None:
                       part["sparse"].astype(np.int32), part["dense"])
 
 
+def write_sparse_train_data(data_dir: str, rows: int, vocab: int, seed: int,
+                            files: int = 4, hot: int = 4096) -> None:
+    """Criteo-shaped rows for a production-sized vocabulary, as slotbin
+    files: ids over the whole of ``[1, vocab)``, half of them uniform and
+    half drawn from ``hot`` ids per slot (themselves spread over the whole
+    vocabulary), so that some ids come back often enough to be learned in a
+    few steps, as the head of a real id distribution does.  The label
+    carries the planted signal of ``synthetic_batch``."""
+    from paddlerec_tpu_torch.data.binary import write_slotbin
+
+    os.makedirs(data_dir)
+    rng = np.random.RandomState(seed)
+    pools = rng.randint(1, vocab, size=(SLOTS, hot)).astype(np.int64)
+    for i in range(files):
+        n = rows // files
+        sparse = rng.randint(1, vocab, size=(n, SLOTS)).astype(np.int64)
+        picks = pools[np.arange(SLOTS), rng.randint(0, hot, size=(n, SLOTS))]
+        sparse = np.where(rng.rand(n, SLOTS) < 0.5, picks, sparse)
+        dense = rng.rand(n, 13).astype(np.float32)
+        w = ((sparse * 2654435761) % 1000) / 1000.0 - 0.5
+        score = w.mean(axis=1) * 8.0 + (dense.mean(axis=1) - 0.5) * 2.0
+        label = (rng.rand(n) < 1.0 / (1.0 + np.exp(-score))).astype(np.float32)
+        write_slotbin(os.path.join(data_dir, f"part-{i}.bin"), label,
+                      sparse.astype(np.int32), dense)
+
+
 def train_config(cfg, work: str, batch: int, **extra):
     from paddlerec_tpu_torch.core.config import Config
 
@@ -398,7 +803,7 @@ def train_config(cfg, work: str, batch: int, **extra):
         "runner.model_save_path": os.path.join(work, f"ckpt_{batch}"),
         "runner.infer_load_path": os.path.join(work, f"ckpt_{batch}"),
         "runner.train_batch_size": batch, "runner.infer_batch_size": batch,
-        "runner.epochs": 2, "runner.print_interval": 8,
+        "runner.epochs": 1, "runner.print_interval": 8,
         "runner.feed_superbatch": 4, "runner.wire_format": "compact",
     })
     flat.update(extra)
@@ -407,7 +812,8 @@ def train_config(cfg, work: str, batch: int, **extra):
 
 def first_steps_vs_cpu(gp, cfg, seed: int, steps: int = 5) -> dict:
     """The first ``steps`` train steps on the card against the port's own
-    CPU run from the same parameters and the same batches (f32)."""
+    CPU run from the same parameters and the same batches (a sparse run's
+    batches deduped on the host, as the feed does)."""
     from paddlerec_tpu_torch.core.device import to_tensors
     from paddlerec_tpu_torch.train.trainer import Trainer
 
@@ -418,7 +824,8 @@ def first_steps_vs_cpu(gp, cfg, seed: int, steps: int = 5) -> dict:
     card.state.module.load_state_dict(host.state.module.state_dict())
     batch = int(cfg.runner("train_batch_size"))
     dataset = card.make_dataset(cfg.runner("train_data_dir"), batch)
-    batches = [b for b, _ in zip(dataset, range(steps))]
+    batches = [card.model_def.augment_batch_host(b)
+               for b, _ in zip(dataset, range(steps))]
     gp.gather_pool.launches = gp.gather_pool_bwd.launches = 0
     losses = {}
     for name, trainer in (("cuda", card), ("cpu", host)):
@@ -430,24 +837,28 @@ def first_steps_vs_cpu(gp, cfg, seed: int, steps: int = 5) -> dict:
     if launches != (steps, steps):
         raise AssertionError(f"{steps} steps on the card launched K1, K1b {launches}")
     err = float(np.abs(np.array(losses["cuda"]) - np.array(losses["cpu"])).max())
-    table_err = float((card.state.module.embedding.embedding.detach().cpu()
-                       - host.state.module.embedding.embedding.detach()).abs().max())
+    table_err = float((card.state.module.embedding.embedding.detach().cpu().float()
+                       - host.state.module.embedding.embedding.detach().float()).abs().max())
     if not np.all(np.isfinite(losses["cuda"])) or err > 1e-5:
         raise AssertionError(f"card and CPU losses differ by {err}: {losses}")
-    return {"batch_size": batch, "steps": steps, "loss_cuda": losses["cuda"],
+    return {"batch_size": batch, "steps": steps, "sparse_update": card.sparse,
+            "vocab": int(cfg.hyper("sparse_feature_number")),
+            "loss_cuda": losses["cuda"],
             "max_abs_err_loss_vs_cpu": err, "max_abs_err_table_vs_cpu": table_err,
             "k1_launches": launches[0], "k1b_launches": launches[1]}
 
 
-def run_training(gp, cfg, seed: int, check_fall: bool = True) -> dict:
+def run_training(gp, cfg, seed: int, check_fall: bool = True, trainer=None,
+                 min_steps: int = 8) -> dict:
     """``Trainer.train()`` then ``evaluate()`` through the normal entry
     points; the kernels' counts are read around each."""
     from paddlerec_tpu_torch.train.trainer import Trainer, logger
 
     batch = int(cfg.runner("train_batch_size"))
     epochs = int(cfg.runner("epochs"))
-    trainer = Trainer(cfg)
-    trainer.init_state(seed=seed)
+    if trainer is None:
+        trainer = Trainer(cfg)
+        trainer.init_state(seed=seed)
     lines = LossLines()
     logger.addHandler(lines)
     gp.gather_pool.launches = gp.gather_pool_bwd.launches = 0
@@ -459,7 +870,7 @@ def run_training(gp, cfg, seed: int, check_fall: bool = True) -> dict:
         logger.removeHandler(lines)
     steps = trainer.state.step
     launches = (gp.gather_pool.launches, gp.gather_pool_bwd.launches)
-    if launches != (steps, steps) or steps < 8:
+    if launches != (steps, steps) or steps < min_steps:
         raise AssertionError(f"{steps} train steps launched K1, K1b {launches}")
     losses = lines.losses
     if len(losses) < 2 or not np.all(np.isfinite(losses)):
@@ -469,7 +880,8 @@ def run_training(gp, cfg, seed: int, check_fall: bool = True) -> dict:
         raise AssertionError(f"batch {batch}: the loss did not fall: {losses}")
     examples = steps * batch
     gp.gather_pool.launches = gp.gather_pool_bwd.launches = 0
-    evaluated = trainer.evaluate(epoch_tag=epochs - 1)
+    saved = bool(cfg.runner("model_save_path"))
+    evaluated = trainer.evaluate(epoch_tag=epochs - 1 if saved else None)
     eval_launches = (gp.gather_pool.launches, gp.gather_pool_bwd.launches)
     eval_batches = math.ceil(evaluated["total_ins"] / batch)
     if eval_launches != (eval_batches, 0):
@@ -479,7 +891,9 @@ def run_training(gp, cfg, seed: int, check_fall: bool = True) -> dict:
     return {
         "batch_size": batch, "steps": steps, "epochs": epochs,
         "table_dtype": str(trainer.state.module.embedding.embedding.dtype),
+        "sparse_update": trainer.sparse,
         "logged_losses": losses,
+        "avg_reader_cost_ms": 1e3 * float(np.mean(lines.reader_costs)),
         "train_seconds_with_checkpoints": seconds,
         "last_epoch_seconds": metrics["epoch_time"],
         "last_epoch_examples_per_s": metrics["ips"],
@@ -492,9 +906,10 @@ def run_training(gp, cfg, seed: int, check_fall: bool = True) -> dict:
 
 
 def profile_train(cfg, batch_size: int, seed: int, iters: int = 20) -> dict:
-    """Phase 8: ``torch.profiler`` over ``iters`` train steps on one device
-    batch: wall and device time per step, the card's idle share (profiler
-    on), kernels per step and the largest device items."""
+    """Phases 8 and 10: ``torch.profiler`` over ``iters`` train steps on one
+    device batch (a sparse run's deduped on the host, with its count): wall
+    and device time per step, the card's idle share (profiler on), kernels
+    per step and the largest device items."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -503,7 +918,11 @@ def profile_train(cfg, batch_size: int, seed: int, iters: int = 20) -> dict:
 
     trainer = Trainer(cfg)
     trainer.init_state(seed=seed)
-    batch = to_tensors(trainer.model_def.example_batch(batch_size), trainer.device)
+    from paddlerec_tpu_torch.train.trainer import _count_uniq
+
+    host_batch = trainer.model_def.augment_batch_host(
+        trainer.model_def.example_batch(batch_size))
+    batch = to_tensors(_count_uniq(host_batch), trainer.device)
     ms = trainer._init_metric_state()
     for _ in range(3):
         ms, _ = trainer.train_step(batch, ms)
@@ -528,6 +947,9 @@ def profile_train(cfg, batch_size: int, seed: int, iters: int = 20) -> dict:
         module.zero_grad(set_to_none=True)
         loss, aux = model_def.train_forward(module, batch)
         loss.backward()
+        if trainer.sparse:
+            aux["delta_grads"] = {
+                k: m.take_delta_grad() for k, m in model_def.sparse_taps(module).items()}
         return aux
 
     def looped(fn):
@@ -542,6 +964,10 @@ def profile_train(cfg, batch_size: int, seed: int, iters: int = 20) -> dict:
     parts["forward"], _ = looped(lambda: model_def.train_forward(module, batch))
     parts["forward_backward"], aux = looped(forward_backward)
     parts["optimizer"], _ = looped(trainer.state.apply_gradients)
+    if trainer.state.extra is not None:
+        parts["row_update"], _ = looped(lambda: model_def.apply_sparse_updates(
+            module, trainer.state.extra, aux["delta_grads"], batch,
+            rng=trainer._round_rng))
     parts["metrics"], _ = looped(lambda: model_def.update_metric_state(ms, aux))
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
@@ -549,7 +975,9 @@ def profile_train(cfg, batch_size: int, seed: int, iters: int = 20) -> dict:
     host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:12]
     return {
-        "batch_size": batch_size, "steps": iters,
+        "batch_size": batch_size, "steps": iters, "sparse_update": trainer.sparse,
+        "vocab": int(cfg.hyper("sparse_feature_number")),
+        "table_dtype": str(module.embedding.embedding.dtype),
         "wall_ms_per_step": wall_ms,
         "wall_ms_per_step_profiler_off": plain_wall_ms,
         "device_ms_per_step": device_ms if kernels else "not measured",
@@ -633,6 +1061,7 @@ def main(argv=None) -> int:
 
     main_err = check_k1(gp, args.seed, card)  # phase 3
     bwd_err = check_k1b(gp, args.seed, card)
+    sparse_checks(gp, args.seed, card)  # phase 9, the part at small size
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:  # phase 4
@@ -716,34 +1145,60 @@ def main(argv=None) -> int:
         for batch in BATCHES:
             emit({"profile_train": profile_train(train_cfgs[batch], batch, args.seed),
                   "card": card})
+        floor_ms = time_launch_floor(gp)
+        del service, table
+        sparse = train_sparse(gp, work, args.seed, card)  # phase 9
+        from paddlerec_tpu_torch.core.config import Config  # phase 10
+        bigdata = load_config(BIGDATA.format("deepfm")).to_dict()
+        for batch in BATCHES:
+            sparse_cfg = Config({**bigdata, "runner.train_batch_size": batch,
+                                 "runner.infer_batch_size": batch,
+                                 "hyper_parameters.sparse_feature_number": vocab})
+            emit({"profile_train_sparse": profile_train(sparse_cfg, batch, args.seed),
+                  "card": card})
+        big_vocab = int(bigdata["hyper_parameters.sparse_feature_number"])
+        emit({"time_dedup": time_dedup(args.seed, (big_vocab, vocab)), "card": card})
+        compact_cases = time_k1b_compact(gp, args.seed, big_vocab)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for case, batch in zip(cases, BATCHES):
         case["launches"] = launches[batch]
     for case, batch in zip(bwd_cases, BATCHES):
         case["launches"] = train_runs[batch]["k1b_launches"]
-    k1_launches = sum(launches.values()) + first["k1_launches"] + sum(
-        r["k1_launches"] + r["eval"]["k1_launches"] for r in train_runs.values())
-    k1b_launches = first["k1b_launches"] + sum(
-        r["k1b_launches"] for r in train_runs.values())
+    compact_cases[-1]["launches"] = sparse["runs"]["deepfm"]["k1b_launches"]
+    all_runs = list(train_runs.values()) + list(sparse["runs"].values())
+    k1_launches = (sum(launches.values()) + first["k1_launches"]
+                   + sparse["first"]["k1_launches"] + sparse["served_launches"]
+                   + sum(r["k1_launches"] + r["eval"]["k1_launches"] for r in all_runs))
+    k1b_launches = (first["k1b_launches"] + sparse["first"]["k1b_launches"]
+                    + sum(r["k1b_launches"] for r in all_runs))
     if k1_launches < 1 or k1b_launches < 1:
         raise AssertionError("the main path launched a kernel no time")
     kernels = []
     for name, source, replaces, count, err, timed in (
         ("gather_pool", "paddlerec_tpu_torch/csrc/gather_pool.cu",
-         "paddlerec_tpu/ops/pallas_embedding.py:37", k1_launches, main_err, cases),
+         "paddlerec_tpu/ops/pallas_embedding.py:37", k1_launches,
+         max(main_err, sparse["lookup"]["k1_err"]), cases),
         # the JAX package has no kernel for the gradient: K1b takes the
         # place of the XLA scatter-add of _packed_lookup_bwd
         ("gather_pool_bwd", "paddlerec_tpu_torch/csrc/gather_pool_bwd.cu",
-         "paddlerec_tpu/ops/packed_embedding.py:94", k1b_launches, bwd_err, bwd_cases),
+         "paddlerec_tpu/ops/packed_embedding.py:94", k1b_launches,
+         max(bwd_err, sparse["lookup"]["k1b_err"]), bwd_cases + compact_cases),
     ):
-        # the headline numbers are those of the training batch, 8192
+        # the headline numbers are those of the training batch, 8192 (K1b: of
+        # the sparse step's compact shape, config_bigdata.yaml's)
         top = timed[-1]
+        for case in timed:
+            # what the kernel can reach: its byte bound, or the launch floor
+            # where that is higher
+            case["launch_floor_ms"] = floor_ms
+            case["share_of_reachable"] = max(case["bound_ms"], floor_ms) / case["ms"]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": count, "max_abs_err": err, "ms": top["ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "launch_floor_ms": floor_ms, "share_of_reachable": top["share_of_reachable"],
             "card": card, "cases": timed,
         })
     emit({"kernels": kernels})

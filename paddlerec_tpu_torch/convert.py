@@ -9,14 +9,27 @@ copied bit for bit both ways, bfloat16 included.
 Optax's Adam moments (``ScaleByAdamState.mu`` / ``.nu``) are trees of the
 parameters' shape, so the same mapping carries them into the port's
 optimizer state (``train/optimizers.py``) and back.
+
+Sparse runs (``hyper_parameters.sparse_update``).  The JAX package's
+parameters then hold a zero ``embedding_delta`` leaf of ``(capacity, 128)``
+float32 beside every table, its route for the per-position gradients; the
+port has no such parameter.  ``from_jax_params`` drops those leaves and
+``to_jax_params(..., delta_capacity=C)`` recreates them as zeros.  The
+row-wise side state (``TrainState.extra``: ``{"<path>/embedding_delta":
+RowwiseAdamState | RowwiseAdagradState}``) crosses through
+``from_jax_sparse_state`` / ``to_jax_sparse_state`` as numpy arrays.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+
+TABLE_NAME = "embedding"
+DELTA_NAME = "embedding_delta"
 
 
 def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -49,10 +62,13 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax params (nested, or flat with ``/`` keys) → state_dict on the CPU."""
+    """Flax params (nested, or flat with ``/`` keys) → state_dict on the CPU.
+    ``embedding_delta`` leaves (a sparse run's gradient taps) are dropped."""
     state = {}
     for path, value in flatten_tree(tree).items():
         head, _, leaf = path.rpartition("/")
+        if leaf == DELTA_NAME:
+            continue
         if leaf == "kernel":
             key = f"{head}/weight" if head else "weight"
             value = np.asarray(value).T
@@ -62,8 +78,12 @@ def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return state
 
 
-def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """state_dict → nested flax params tree of numpy arrays."""
+def to_jax_params(state_dict: Mapping[str, torch.Tensor],
+                  delta_capacity: Optional[int] = None) -> Dict[str, Any]:
+    """state_dict → nested flax params tree of numpy arrays.  With
+    ``delta_capacity`` every packed table (an ``embedding`` leaf of 128
+    lanes) gets its zero ``embedding_delta`` ``(capacity, 128)`` float32
+    sibling, as a sparse run of the JAX package holds it."""
     tree: Dict[str, Any] = {}
     for key, t in state_dict.items():
         *parents, leaf = key.split(".")
@@ -74,13 +94,43 @@ def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         for p in parents:
             node = node.setdefault(p, {})
         node[leaf] = value
+        if (delta_capacity is not None and leaf == TABLE_NAME
+                and value.ndim == 2 and value.shape[1] == 128):
+            node[DELTA_NAME] = np.zeros((delta_capacity, 128), np.float32)
     return tree
 
 
+def from_jax_sparse_state(extra: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX package's row-wise side state → the port's, on the CPU:
+    same keys, the same NamedTuple fields (``m``, ``v``, ``count`` or
+    ``acc``) as tensors."""
+    from paddlerec_tpu_torch.ops.sparse_update import (
+        RowwiseAdagradState, RowwiseAdamState,
+    )
+
+    out = {}
+    for key, st in extra.items():
+        fields = {f: _to_torch(getattr(st, f)) for f in st._fields}
+        cls = RowwiseAdagradState if "acc" in fields else RowwiseAdamState
+        out[key] = cls(**fields)
+    return out
+
+
+def to_jax_sparse_state(extra: Mapping[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
+    """The port's row-wise side state → ``{key: {field: numpy array}}``, to
+    fill the JAX package's ``RowwiseAdamState`` / ``RowwiseAdagradState``
+    from (``cls(**fields)``)."""
+    return {key: {f: _to_numpy(getattr(st, f)) for f in st._fields}
+            for key, st in extra.items()}
+
+
 def _find_adam_state(opt_state: Any):
-    """The ``ScaleByAdamState`` inside an optax state (a nest of tuples)."""
+    """The first ``ScaleByAdamState`` inside an optax state (a nest of
+    tuples and, under ``multi_transform``, of dicts)."""
     if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
         return opt_state
+    if isinstance(opt_state, Mapping):
+        opt_state = list(opt_state.values())
     if isinstance(opt_state, (tuple, list)):
         for item in opt_state:
             found = _find_adam_state(item)

@@ -14,6 +14,10 @@ import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
 
+# batch entries the host reads in the step (counts that size an allocation):
+# they stay on the CPU, so reading them waits for nothing on the device
+HOST_KEYS = frozenset({"sparse_num_uniq"})
+
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means ``cuda``; raises when CUDA is asked for and absent."""
@@ -35,8 +39,9 @@ def full_float32_matmul() -> None:
 
 def to_tensors(batch: Dict[str, np.ndarray],
                device: torch.device) -> Dict[str, torch.Tensor]:
-    """Host batch → tensors on ``device``.  float64 becomes float32, as
-    JAX's default (64-bit mode off) does for the reference."""
+    """Host batch → tensors on ``device`` (``HOST_KEYS`` stay on the CPU).
+    float64 becomes float32, as JAX's default (64-bit mode off) does for
+    the reference."""
     out = {}
     for k, v in batch.items():
         a = np.asarray(v)
@@ -45,5 +50,5 @@ def to_tensors(batch: Dict[str, np.ndarray],
         a = np.ascontiguousarray(a)
         if not a.flags.writeable:  # a read-only mmap view: torch wants its own
             a = a.copy()
-        out[k] = torch.from_numpy(a).to(device)
+        out[k] = torch.from_numpy(a) if k in HOST_KEYS else torch.from_numpy(a).to(device)
     return out

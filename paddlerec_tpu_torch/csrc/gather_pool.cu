@@ -189,6 +189,16 @@ extern "C" int pr_gather_pool(const void* table, int dtype, int64_t rows, int64_
   return static_cast<int>(cudaGetLastError());
 }
 
+// An empty kernel: what any launch costs on the card.  chip_smoke.py times it
+// beside K1 and K1b as the floor no kernel's time can go under, whatever its
+// byte bound says (K1 at a serving batch moves 1.76 MB: 0.5 us of bytes).
+__global__ void empty_kernel() {}
+
+extern "C" int pr_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" const char* pr_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

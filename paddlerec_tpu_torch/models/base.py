@@ -6,14 +6,20 @@ builds its ``nn.Module`` (``make_module``), maps a batch through it
 (``train_forward(module, batch)`` / ``infer_forward(module, batch)``, the
 JAX functions of ``(params, batch)`` with the parameters held by the
 module), builds its optimizer (``create_optimizer``) and owns the streaming
-metric hooks the trainer calls.  The sparse row-wise updates, the lazy and
-runtime-injected optimizers and the accuracy metric family are not ported
-yet; their keys raise ``NotImplementedError``.
+metric hooks the trainer calls.  With ``hyper_parameters.sparse_update`` it
+also owns the row-wise side of a step: the host dedup of a batch
+(``augment_batch_host``), the one clip over dense and per-position
+gradients (``clip_grads``) and the row-wise optimizer step on every table
+in external-update mode (``apply_sparse_updates``).
+
+Not ported yet: the accuracy metric family (``AccuracyModelDef``), the
+multi-process dedup (``global_dedup_arrays``), ``touched_tables`` and the
+row-sharded sparse rules; nothing the single-device trainer reaches.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +28,9 @@ from torch.nn import functional as F
 
 from paddlerec_tpu_torch.core import metrics as metrics_lib
 from paddlerec_tpu_torch.core.config import Config
+from paddlerec_tpu_torch.ops import sparse_update as su
+from paddlerec_tpu_torch.ops.embedding import SlotEmbedding
+from paddlerec_tpu_torch.ops.packed_embedding import sub_width
 from paddlerec_tpu_torch.train.optimizers import Optimizer
 
 Batch = Dict[str, torch.Tensor]
@@ -95,34 +104,146 @@ class ModelDef:
         ]
         return ", ".join(parts) + ", "
 
+    # -- sparse (row-wise) embedding updates -----------------------------------
+    # hyper_parameters.sparse_update: true puts the embedding tables in
+    # external-update mode (ops/embedding.py) so the optimizer touches ONLY
+    # the rows a batch used, essential at vocab >= 10^7.
+    def sparse_update_enabled(self) -> bool:
+        return bool(self.config.hyper("sparse_update", False))
+
+    def _sparse_update_rule(self) -> str:
+        # "adam": element-wise moments, parity with dense Adam on touched
+        # rows.  "adagrad": scalar per-row accumulator.
+        return str(self.config.hyper("sparse_update_rule", "adam")).lower()
+
+    @staticmethod
+    def sparse_taps(module: nn.Module) -> Dict[str, SlotEmbedding]:
+        """The tables in external-update mode, keyed as the JAX package keys
+        its side state: ``"<module path>/embedding_delta"``."""
+        return {
+            "/".join(filter(None, [*name.split("."), "embedding_delta"])): m
+            for name, m in module.named_modules()
+            if isinstance(m, SlotEmbedding) and m.external_update
+        }
+
+    def init_sparse_state(self, module: nn.Module):
+        """Row-wise optimizer state for every tapped table (or None)."""
+        taps = self.sparse_taps(module)
+        if not taps:
+            return None
+        init = (su.rowwise_adagrad_init
+                if self._sparse_update_rule() == "adagrad"
+                else su.rowwise_adam_init)
+        return {key: init(m.embedding) for key, m in taps.items()}
+
+    def sparse_update_ids(self, batch: Batch):
+        return batch["sparse"]
+
+    def _default_pack(self) -> int:
+        # models whose fused table is wider than sparse_feature_dim (e.g.
+        # deepfm's E+1 lanes) set sparse_embed_logical_dim
+        dim = int(getattr(
+            self, "sparse_embed_logical_dim",
+            int(self.config.hyper("sparse_feature_dim", 9)),
+        ))
+        return 128 // sub_width(dim)
+
+    def augment_batch_host(self, batch: Dict[str, np.ndarray]):
+        """Host-side batch enrichment (runs in the input pipeline): dedup
+        the batch's physical rows so the device never needs an O(vocab)
+        grad scratch or a device-side sort."""
+        if not self.sparse_update_enabled() or "sparse_uniq" in batch:
+            return batch
+        vocab = int(self.config.hyper("sparse_feature_number", 1000001))
+        uniq, slot = su.host_dedup(
+            self.sparse_update_ids(batch), vocab, self._default_pack())
+        return dict(batch, sparse_uniq=uniq, sparse_slot=slot)
+
+    @torch.no_grad()
+    def clip_grads(self, params: Dict[str, torch.Tensor],
+                   delta_grads: Dict[str, torch.Tensor]) -> None:
+        """One global-norm clip over the dense leaves' ``.grad`` AND the
+        per-position gradients of the tapped tables (not their per-row
+        sums), in place — used by the trainer for sparse runs, where the
+        optimizer's own clip would only see the dense leaves."""
+        clip = self.config.hyper("clip_by_norm")
+        if not clip:
+            return
+        grads = [p.grad for p in params.values() if p.grad is not None]
+        grads += list(delta_grads.values())
+        gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+        scale = torch.clamp(float(clip) / torch.clamp(gnorm, min=1e-12), max=1.0)
+        torch._foreach_mul_(grads, scale)
+
+    def apply_sparse_updates(self, module: nn.Module, extra: Dict[str, Any],
+                             delta_grads: Dict[str, torch.Tensor],
+                             batch: Batch,
+                             rng: Optional[torch.Generator] = None) -> None:
+        """Consume the captured per-position gradients → row-wise step on
+        the tapped tables, in place.  Runs after the dense optimizer, which
+        never sees those tables.  With ``sparse_uniq`` in the batch and the
+        default pack the compact rules run; otherwise the sort-free rules
+        with their dense scratch.  ``sparse_num_uniq``, where the feed put
+        it into the batch (a host value), spares the compact rules their
+        read of the count from the device."""
+        adagrad = self._sparse_update_rule() == "adagrad"
+        if not bool(self.config.hyper("sparse_update_stochastic_round", False)):
+            rng = None  # round-to-nearest (deterministic) by default
+        lr = float(self.config.hyper("optimizer.learning_rate", 0.001))
+        vocab = int(self.config.hyper("sparse_feature_number", 1000001))
+        default_pack = self._default_pack()
+        ids = self.sparse_update_ids(batch)
+        for key, emb in self.sparse_taps(module).items():
+            dgrad = delta_grads.get(key)
+            if dgrad is None:
+                continue  # the table was not looked up in this step
+            table = emb.embedding
+            pack = su.infer_pack(vocab, table.shape[0])
+            hashed = (ids % vocab).reshape(-1)
+            sub = (hashed % pack).to(torch.int32)
+            if "sparse_uniq" in batch and pack == default_pack:
+                # host-deduped fast path: O(batch) scratch
+                apply_fn = (su.apply_sparse_adagrad_compact if adagrad
+                            else su.apply_sparse_adam_compact)
+                num_uniq = batch.get("sparse_num_uniq")
+                apply_fn(table, extra[key], dgrad, batch["sparse_uniq"],
+                         batch["sparse_slot"], lr, rng=rng, sub=sub,
+                         num_uniq=None if num_uniq is None else int(num_uniq))
+            else:
+                apply_fn = (su.apply_sparse_adagrad if adagrad
+                            else su.apply_sparse_update)
+                phys = torch.div(hashed, pack, rounding_mode="floor").to(torch.int32)
+                apply_fn(table, extra[key], dgrad, phys, lr, rng=rng, sub=sub)
+
     # -- optimizer -------------------------------------------------------------
     def create_optimizer(self) -> Optimizer:
         """Optimizer from hyper_parameters.optimizer.* (Adam(lr) by
-        default), with ``clip_by_norm`` chained before it.  Classes and
-        options whose code is not ported raise, naming the key."""
+        default).  ``clip_by_norm`` is chained before it and
+        ``embedding_l2`` after it, except in sparse runs: those clip once
+        over the whole gradient in the trainer (``clip_grads``), and their
+        tables, which the row-wise rules step, never reach this optimizer."""
         cfg = self.config
-        for key in ("optimizer.runtime_inject", "optimizer.lazy_mode",
-                    "embedding_l2", "sparse_update"):
-            value = cfg.hyper(key, False)
-            if value and float(value):
-                raise NotImplementedError(
-                    f"hyper_parameters.{key} is not ported to "
-                    f"paddlerec_tpu_torch yet"
-                )
+        sparse = self.sparse_update_enabled()
+        inject = bool(cfg.hyper("optimizer.runtime_inject", False))
+        if inject and sparse:
+            raise ValueError(
+                "optimizer.runtime_inject does not compose with "
+                "sparse_update (row-wise updates read lr statically)"
+            )
         name = str(cfg.hyper("optimizer.class", "Adam")).lower()
         if name == "gradientdescent":
             name = "sgd"
-        if name in ("rmsprop", "adamw"):
-            raise NotImplementedError(
-                f"hyper_parameters.optimizer.class: {name} is not ported to "
-                f"paddlerec_tpu_torch yet (adam, sgd and adagrad are)"
-            )
         return Optimizer(
             name,
             lr=float(cfg.hyper("optimizer.learning_rate", 0.001)),
-            clip=cfg.hyper("clip_by_norm"),
+            clip=None if sparse else cfg.hyper("clip_by_norm"),
             initial_accumulator_value=float(
                 cfg.hyper("optimizer.initial_accumulator_value", 0.1)),
+            lazy=bool(cfg.hyper("optimizer.lazy_mode", False)),
+            weight_decay=float(cfg.hyper("optimizer.weight_decay", 1e-4)),
+            embedding_l2=0.0 if sparse else float(
+                cfg.hyper("embedding_l2", 0.0) or 0.0),
+            runtime_inject=inject,
         )
 
     def make_module(self, device=None,
@@ -169,6 +290,23 @@ class CTRModelDef(ModelDef):
         if name in ("float32", "fp32", "f32"):
             return torch.float32
         raise ValueError(f"unknown sparse_feature_dtype {name!r}")
+
+    def sparse_embed_kwargs(self) -> Dict[str, Any]:
+        """SlotEmbedding kwargs for the sparse_update mode (pass into the
+        module's main fused table).  The capacity must fit the LARGEST
+        batch the module will see — infer batches are routinely bigger
+        than train batches."""
+        if not self.sparse_update_enabled():
+            return {}
+        cfg = self.config
+        max_bs = max(int(cfg.runner("train_batch_size", 512)),
+                     int(cfg.runner("infer_batch_size", 512)))
+        return {
+            "external_update": True,
+            "delta_capacity": int(cfg.hyper(
+                "sparse_update_capacity", self.num_sparse * max_bs
+            )),
+        }
 
     def model_inputs(self, batch: Batch) -> Tuple[torch.Tensor, ...]:
         if self.dense_dim:

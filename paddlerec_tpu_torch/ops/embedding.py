@@ -4,8 +4,21 @@ The local packed path of ``paddlerec_tpu/ops/embedding.py`` ``SlotEmbedding``:
 one ``(R, 128)`` packed table (parameter ``embedding``) shared by every
 slot, ids hashed ``ids % vocab``, one id per slot or a pooled multi-hot
 slot.  Every lookup is one launch of kernel K1 on the table's logical view,
-and its gradient one launch of K1b.  The row-sharded (all_to_all) and
-sparse-update paths are not ported yet.
+and its gradient one launch of K1b.  The row-sharded (all_to_all) path is
+not ported yet.
+
+**External (sparse) update mode** (``external_update=True``, the
+reference's ``_external_lookup``).  The table takes no gradient: it is read
+detached, every position's vector leaves the lookup in float32 (also from a
+bfloat16 table, as the reference's ``take(table) + delta`` promotes), and
+the gradient of those ``(N, w)`` vectors is captured on a leaf tensor
+(``take_delta_grad``) for the row-wise optimizer step of
+``ops/sparse_update.py``.  The JAX package routes that gradient through a
+zero ``embedding_delta`` parameter of ``delta_capacity`` rows; the port has
+no such parameter and allocates nothing of that size, but keeps the
+capacity check, since users' configs name ``sparse_update_capacity``.
+Without a recorded gradient (``torch.no_grad()``, evaluation, serving) the
+lookup is the same one K1 launch as the plain path.
 """
 
 from __future__ import annotations
@@ -34,12 +47,16 @@ class SlotEmbedding(nn.Module):
       combiner: 'sum' | 'mean' pooling over the L axis; 'mean' divides by
         max(mask.sum(L), 1), or by L without a mask.
       hash_ids: apply ``ids % vocab_size`` (floor modulo, as in JAX).
+      external_update: sparse-update mode, see the module docstring;
+        ``delta_capacity`` bounds the lookup positions per batch and must be
+        set explicitly (``CTRModelDef.sparse_embed_kwargs`` does).
     """
 
     def __init__(self, vocab_size: int, embedding_dim: int,
                  combiner: str = "sum", hash_ids: bool = True,
                  dtype: torch.dtype = torch.float32, init_stddev: float = 1e-2,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 external_update: bool = False, delta_capacity: int = 0):
         super().__init__()
         if combiner not in ("sum", "mean"):
             raise ValueError(f"combiner must be 'sum' or 'mean', not {combiner!r}")
@@ -47,10 +64,48 @@ class SlotEmbedding(nn.Module):
         self.embedding_dim = embedding_dim
         self.combiner = combiner
         self.hash_ids = hash_ids
+        self.external_update = bool(external_update)
+        self.delta_capacity = int(delta_capacity)
+        # in external mode the optimizer steps rows, not the parameter: it
+        # takes no gradient, so none of the table's size is ever allocated
         self.embedding = nn.Parameter(init_packed_table(
             vocab_size, embedding_dim, stddev=init_stddev, dtype=dtype,
             generator=generator, device=device,
-        ))
+        ), requires_grad=not self.external_update)
+        self._delta_tap: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def _check_delta_capacity(n: int, cap: int) -> None:
+        if cap <= 0:
+            raise ValueError(
+                "external_update requires an explicit delta_capacity "
+                "(params are initialized from a tiny example batch, so "
+                "sizing from the first batch cannot work; "
+                "ModelDef.sparse_embed_kwargs computes the right value)"
+            )
+        if n > cap:
+            raise ValueError(
+                f"batch has {n} lookup positions > delta_capacity {cap}; "
+                "raise hyper_parameters.sparse_update_capacity"
+            )
+
+    def _external_lookup(self, ids: torch.Tensor) -> torch.Tensor:
+        """Sparse-update path: detached table read + gradient capture.
+        ids: hashed int32, any shape → ids.shape + (E,) float32."""
+        self._check_delta_capacity(ids.numel(), self.delta_capacity)
+        view = logical_view(self.embedding.detach(), self.embedding_dim)
+        vecs = gather_pool(view, ids.reshape(-1, 1), None, torch.float32)
+        if torch.is_grad_enabled():
+            self._delta_tap = vecs.requires_grad_()
+        return vecs[:, :self.embedding_dim].reshape(
+            ids.shape + (self.embedding_dim,))
+
+    def take_delta_grad(self) -> Optional[torch.Tensor]:
+        """The (N, w) float32 gradient of the last recorded external
+        lookup's vectors, in the flat order of its ids; ``None`` if no
+        backward pass reached it.  The capture is dropped."""
+        tap, self._delta_tap = self._delta_tap, None
+        return None if tap is None else tap.grad
 
     def forward(self, ids: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -58,6 +113,26 @@ class SlotEmbedding(nn.Module):
             ids = ids % self.vocab_size
         ids = ids.to(torch.int32)
         e = self.embedding_dim
+        if self.external_update:
+            if not self.hash_ids:
+                raise ValueError(
+                    "external_update requires hash_ids=True: the optimizer-"
+                    "side row mapping mirrors the ids % vocab hash"
+                )
+            vecs = self._external_lookup(ids)
+            if ids.dim() == 2:
+                return vecs
+            # one gradient row per position: pool outside the lookup
+            if mask is not None:
+                vecs = vecs * mask[..., None]
+            pooled = vecs.sum(dim=2)
+            if self.combiner == "mean":
+                denom = (mask.sum(dim=2, keepdim=True) if mask is not None
+                         else torch.full(pooled.shape[:-1] + (1,),
+                                         float(ids.shape[2]), dtype=pooled.dtype,
+                                         device=ids.device))
+                pooled = pooled / torch.clamp(denom, min=1.0)
+            return pooled
         if ids.dim() == 2:  # (B, S) → (B, S, E)
             return packed_lookup(self.embedding, ids, e)
         b, s, pool = ids.shape

@@ -42,10 +42,15 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGTYPES = {
-    "gather_pool": ("pr_gather_pool", [
-        _PTR, _INT, _I64, _I64, _PTR, _PTR, _I64, _I64, _PTR, _INT, _PTR]),
-    "gather_pool_bwd": ("pr_gather_pool_bwd", [
-        _PTR, _INT, _PTR, _PTR, _I64, _I64, _I64, _I64, _PTR, _INT, _PTR, _PTR]),
+    "gather_pool": {
+        "pr_gather_pool": [
+            _PTR, _INT, _I64, _I64, _PTR, _PTR, _I64, _I64, _PTR, _INT, _PTR],
+        "pr_empty_launch": [_PTR],
+    },
+    "gather_pool_bwd": {
+        "pr_gather_pool_bwd": [
+            _PTR, _INT, _PTR, _PTR, _I64, _I64, _I64, _I64, _PTR, _INT, _PTR, _PTR],
+    },
 }
 
 
@@ -107,9 +112,9 @@ def gather_pool_bwd_plain(g: torch.Tensor, ids: torch.Tensor,
 def _lib(stem: str) -> ctypes.CDLL:
     if stem not in _LIBS:
         lib = load_library(stem)
-        name, argtypes = _ARGTYPES[stem]
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = ctypes.c_int
+        for name, argtypes in _ARGTYPES[stem].items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
         lib.pr_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pr_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[stem] = lib
@@ -164,6 +169,17 @@ def _gather_pool_cuda(table: torch.Tensor, ids: torch.Tensor,
     _check_launch(lib, rc, "gather_pool")
     gather_pool.launches += 1
     return out
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch the empty kernel of ``csrc/gather_pool.cu`` on the current
+    stream of a CUDA ``device``: the cost of a launch alone, which
+    ``chip_smoke.py`` times as the floor under every kernel's time.  No
+    count: it is no kernel of any path."""
+    lib = _lib("gather_pool")
+    with torch.cuda.device(device):
+        rc = lib.pr_empty_launch(torch.cuda.current_stream(device).cuda_stream)
+    _check_launch(lib, rc, "empty")
 
 
 def gather_pool_bwd(g: torch.Tensor, ids: torch.Tensor,

@@ -60,6 +60,20 @@ class MLP(nn.Module):
         return x
 
 
+def flax_dense(in_dim: int, out_dim: int, device=None,
+               generator: Optional[torch.Generator] = None) -> nn.Linear:
+    """A linear layer initialized as flax's ``Dense`` default:
+    ``lecun_normal`` weights (a normal of variance 1/fan_in, truncated at
+    two standard deviations), zero bias."""
+    fc = nn.Linear(in_dim, out_dim, device=device)
+    with torch.no_grad():
+        std = math.sqrt(1.0 / in_dim) / 0.87962566103423978
+        nn.init.trunc_normal_(fc.weight, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+        fc.bias.zero_()
+    return fc
+
+
 def fm_second_order(emb: torch.Tensor) -> torch.Tensor:
     """FM second-order interaction: 0.5 * ((Σv)² − Σv²) summed over dim.
 

@@ -21,6 +21,9 @@ import torch
 from paddlerec_tpu_torch.ops.gather_pool import gather_pool
 
 
+_INIT_BLOCK_ROWS = 1 << 20  # 512 MB of float32 per block
+
+
 def sub_width(embedding_dim: int) -> int:
     """Smallest divisor of 128 that is >= embedding_dim (8,16,32,64,128)."""
     for w in (8, 16, 32, 64, 128):
@@ -62,10 +65,16 @@ def init_packed_table(vocab_size: int, embedding_dim: int,
                       generator: Optional[torch.Generator] = None,
                       device=None) -> torch.Tensor:
     """Normal·stddev packed table (pad lanes are initialized too — they are
-    never read).  ``generator`` must live on ``device``."""
-    shape = packed_shape(vocab_size, embedding_dim)
-    table = torch.randn(shape, generator=generator, device=device) * stddev
-    return table.to(dtype)
+    never read).  ``generator`` must live on ``device``.  Drawn in float32
+    blocks of ``_INIT_BLOCK_ROWS`` rows on the device and cast into the table
+    block by block, so a table of gigabytes never has a float32 copy."""
+    rows, lanes = packed_shape(vocab_size, embedding_dim)
+    table = torch.empty((rows, lanes), dtype=dtype, device=device)
+    for start in range(0, rows, _INIT_BLOCK_ROWS):
+        n = min(_INIT_BLOCK_ROWS, rows - start)
+        block = torch.randn((n, lanes), generator=generator, device=device)
+        table[start:start + n] = block.mul_(stddev)
+    return table
 
 
 def unpack_table(table: np.ndarray, vocab_size: int, embedding_dim: int) -> np.ndarray:

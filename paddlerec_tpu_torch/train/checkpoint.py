@@ -2,14 +2,15 @@
 
 Counterpart of ``paddlerec_tpu/train/checkpoint.py``, with the same layout:
 per-epoch numbered directories under ``runner.model_save_path``, each holding
-``state`` (parameters + optimizer state for exact resume), and a
+``state`` (parameters + optimizer state, and the row-wise side state of a
+sparse run, for exact resume), and a
 ``donefile.txt`` in the save root whose lines ``<tag>\\t<path>`` record the
 finished epochs, so resume is one read.
 
 The JAX package writes ``state`` with orbax, which the port cannot read or
 write; here ``state`` is a directory with one ``checkpoint.pt``
-(``torch.save`` of ``{"params": state_dict, "opt_state": ...}``, tensors on
-the CPU).  A JAX checkpoint crosses over only through
+(``torch.save`` of ``{"params": state_dict, "opt_state": ...}`` and, for a
+sparse run, ``"extra": {key: {field: tensor}}``; tensors on the CPU).  A JAX checkpoint crosses over only through
 ``convert.from_jax_params``.
 """
 
@@ -33,30 +34,36 @@ def _ckpt_dir(root: str, tag) -> str:
 def _to_cpu(tree: Any) -> Any:
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu()
+    if hasattr(tree, "_asdict"):  # a row-wise state: saved as a plain dict
+        tree = tree._asdict()
     if isinstance(tree, Mapping):
         return {k: _to_cpu(v) for k, v in tree.items()}
     return tree
 
 
 def save_model(params: Mapping[str, torch.Tensor], opt_state: Any, root: str,
-               tag) -> str:
-    """Save params+opt under root/tag/state and update the donefile."""
+               tag, extra: Optional[Mapping[str, Any]] = None) -> str:
+    """Save params+opt(+extra) under root/tag/state and update the donefile."""
     path = _ckpt_dir(root, tag)
     state_dir = os.path.join(path, "state")
     os.makedirs(state_dir, exist_ok=True)
     tmp = os.path.join(state_dir, _PAYLOAD + ".tmp")
-    torch.save({"params": _to_cpu(params), "opt_state": _to_cpu(opt_state)}, tmp)
+    payload = {"params": _to_cpu(params), "opt_state": _to_cpu(opt_state)}
+    if extra is not None:
+        payload["extra"] = _to_cpu(extra)
+    torch.save(payload, tmp)
     os.replace(tmp, os.path.join(state_dir, _PAYLOAD))  # atomic
     done = os.path.join(os.path.abspath(root), DONEFILE)
     get_fs(done).append_line(done, f"{tag}\t{path}")
     return path
 
 
-def load_model(root: str, tag) -> Tuple[Dict[str, torch.Tensor], Any]:
-    """Load (params, opt_state) from root/tag, tensors on the CPU."""
+def load_model(root: str, tag) -> Tuple[Dict[str, torch.Tensor], Any, Any]:
+    """Load (params, opt_state, extra) from root/tag, tensors on the CPU;
+    ``extra`` is None for a checkpoint without row-wise side state."""
     path = os.path.join(_ckpt_dir(root, tag), "state", _PAYLOAD)
     restored = torch.load(path, map_location="cpu", weights_only=True)
-    return restored["params"], restored["opt_state"]
+    return restored["params"], restored["opt_state"], restored.get("extra")
 
 
 def last_saved_tag(root: str) -> Optional[str]:

@@ -3,10 +3,11 @@ JAX package builds in ``ModelDef.create_optimizer``
 (``paddlerec_tpu/models/base.py:329-449``).
 
 Each step is a plain function over lists of tensors under
-``torch.no_grad()``; it updates parameters and state in place (the JAX
-package returns new trees; here the state is mutated to save memory) and
-never synchronises with the host.  The order of operations follows optax
-0.2.6, so that a bfloat16 table steps as it does there:
+``torch.no_grad()``; it updates the state in place (the JAX package returns
+new trees; here the state is mutated to save memory), returns the updates,
+and never synchronises with the host.  ``Optimizer.apply`` adds them to the
+parameters.  The order of operations follows optax 0.2.6, so that a
+bfloat16 table steps as it does there:
 
 * **Adam** is ``optax.adam(lr, mu_dtype=float32)``: the first moment is
   stored in float32 whatever the parameter's dtype, the second moment in the
@@ -22,10 +23,32 @@ never synchronises with the host.  The order of operations follows optax
   and the sum ``sqrt(v_hat) + eps`` are float32.  The port copies all of
   that, as read from the optimized HLO of the jitted step on the CPU.  ``torch.optim.Adam`` keeps both moments in the parameter's
   dtype and does not match.
+* **AdamW** is ``optax.adamw(lr, weight_decay)``: the same moments (the first
+  in the parameter's dtype), ``weight_decay * p`` added to the Adam
+  direction before the learning rate.
 * **SGD** is ``optax.sgd(lr)``; **Adagrad** is ``optax.adagrad(lr,
-  initial_accumulator_value)`` with ``eps=1e-7`` inside the root.
+  initial_accumulator_value)`` with ``eps=1e-7`` inside the root;
+  **RMSProp** is ``optax.rmsprop(lr)``: ``decay=0.9``, ``eps=1e-8`` inside
+  the root, no momentum.
+* **Lazy Adam** (``optimizer.lazy_mode``) is ``lazy_adam`` of
+  ``paddlerec_tpu/train/optimizers.py`` on the embedding tables (every leaf
+  with ``embedding`` in a component of its name) and ``optax.adam(lr)`` on
+  the rest: rows of a leaf of rank >= 2 whose gradient is all zero keep
+  their moments and take no step; one count serves both.
 * ``clip_by_global_norm`` is ``optax.clip_by_global_norm``, applied to the
-  gradients before the step.
+  gradients before the step.  ``embedding_l2`` is
+  ``optax.add_decayed_weights(-embedding_l2 * lr)`` on the embedding tables
+  only, applied to the updates after the step.
+* With ``optimizer.runtime_inject`` (``optax.inject_hyperparams``) the
+  learning rate and ``embedding_l2`` live in the state under
+  ``hyperparams`` and are read at every step, so
+  ``Trainer.set_hyperparams`` retunes them between steps; the decay is then
+  always part of the step (zero by default).  The JAX package needs this to
+  avoid a recompile; eager PyTorch has nothing to recompile.
+
+AdamW, RMSProp and lazy Adam are held against optax for float32 leaves; on a
+bfloat16 table their moments are computed in float32 and rounded once, which
+is not XLA's rounding step by step.
 
 The state is a dict of plain values: ``count`` (a Python int, the step's
 int32 counter) and one ``{name: tensor}`` dict per moment, keyed like the
@@ -42,6 +65,7 @@ import torch
 
 Tensors = Mapping[str, torch.Tensor]
 OptState = Dict[str, Any]
+Updates = Dict[str, torch.Tensor]
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -71,10 +95,12 @@ def clip_by_global_norm(grads: List[torch.Tensor],
             for g in grads]
 
 
-def adam_init(params: Tensors) -> OptState:
+def adam_init(params: Tensors,
+              mu_dtype: Optional[torch.dtype] = torch.float32) -> OptState:
+    """``mu_dtype=None``: the first moment in each parameter's dtype."""
     return {
         "count": 0,
-        "mu": {k: torch.zeros_like(p, dtype=torch.float32)
+        "mu": {k: torch.zeros_like(p, dtype=mu_dtype or p.dtype)
                for k, p in params.items()},
         "nu": {k: torch.zeros_like(p) for k, p in params.items()},
     }
@@ -82,22 +108,31 @@ def adam_init(params: Tensors) -> OptState:
 
 @torch.no_grad()
 def adam_step(params: Tensors, grads: Tensors, state: OptState, lr: float,
-              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> None:
-    count = state["count"] = state["count"] + 1
+              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+              weight_decay: float = 0.0) -> Updates:
+    """Adam on the named parameters, from the count ``state`` already holds
+    (``Optimizer.apply`` increments it)."""
+    count = state["count"]
     bc1 = _bias_correction(b1, count)
     bc2 = _bias_correction(b2, count)
     groups: Dict[torch.dtype, List[str]] = {}
     for k in params:
         groups.setdefault(grads[k].dtype, []).append(k)
+    updates: Updates = {}
     for dtype, names in groups.items():
         ps = [params[k] for k in names]
         gs = [grads[k] for k in names]
         mus = [state["mu"][k] for k in names]
         nus = [state["nu"][k] for k in names]
         # mu = (1 - b1) * g + b1 * mu in float32, (1 - b1) in g's dtype
-        torch._foreach_mul_(mus, b1)
-        torch._foreach_add_(mus, torch._foreach_mul(
+        # (in place where mu is stored in float32, else rounded once into it)
+        new_mus = [m if m.dtype == torch.float32 else m.float() for m in mus]
+        torch._foreach_mul_(new_mus, b1)
+        torch._foreach_add_(new_mus, torch._foreach_mul(
             [g.float() for g in gs], _scalar(1 - b1, dtype)))
+        for m, new in zip(mus, new_mus):
+            if m is not new:
+                m.copy_(new)
         # nu = (1 - b2) * g**2 + b2 * nu, every operation in g's dtype
         torch._foreach_mul_(nus, _scalar(b2, dtype))
         g2 = torch._foreach_mul(gs, gs)
@@ -110,11 +145,41 @@ def adam_step(params: Tensors, grads: Tensors, state: OptState, lr: float,
         torch._foreach_sqrt_(denom)
         denom = [d.float() for d in denom]
         torch._foreach_add_(denom, _scalar(eps, dtype))
-        us = torch._foreach_div(mus, bc1)
+        us = torch._foreach_div(new_mus, bc1)
         torch._foreach_div_(us, denom)
+        if weight_decay:
+            torch._foreach_add_(us, torch._foreach_mul(
+                [p.float() for p in ps], weight_decay))
         torch._foreach_mul_(us, -lr)
-        # (p + u).to(p.dtype): a bfloat16 parameter adds in float32, rounds once
-        torch._foreach_add_(ps, us)
+        updates.update(zip(names, us))
+    return updates
+
+
+@torch.no_grad()
+def lazy_adam_step(params: Tensors, grads: Tensors, state: OptState, lr: float,
+                   b1: float = 0.9, b2: float = 0.999,
+                   eps: float = 1e-8) -> Updates:
+    """``lazy_adam``: Adam that only updates rows touched this step.  Row
+    granularity is the leading axis of each leaf of rank >= 2; lower ranks
+    mask by element.  Uses the count ``state`` already holds."""
+    count = state["count"]
+    bc1 = _bias_correction(b1, count)
+    bc2 = _bias_correction(b2, count)
+    updates: Updates = {}
+    for k in params:
+        g = grads[k].float()
+        if g.dim() >= 2:
+            touched = torch.any(g != 0, dim=tuple(range(1, g.dim())), keepdim=True)
+        else:
+            touched = g != 0
+        m, v = state["mu"][k].float(), state["nu"][k].float()
+        m = torch.where(touched, b1 * m + (1 - b1) * g, m)
+        v = torch.where(touched, b2 * v + (1 - b2) * g * g, v)
+        state["mu"][k].copy_(m)
+        state["nu"][k].copy_(v)
+        u = (m / bc1) / (torch.sqrt(v / bc2) + eps) * -lr
+        updates[k] = torch.where(touched, u, torch.zeros_like(u))
+    return updates
 
 
 def sgd_init(params: Tensors) -> OptState:
@@ -123,10 +188,9 @@ def sgd_init(params: Tensors) -> OptState:
 
 @torch.no_grad()
 def sgd_step(params: Tensors, grads: Tensors, state: OptState,
-             lr: float) -> None:
+             lr: float) -> Updates:
     names = list(params)
-    torch._foreach_add_([params[k] for k in names],
-                        torch._foreach_mul([grads[k] for k in names], -lr))
+    return dict(zip(names, torch._foreach_mul([grads[k] for k in names], -lr)))
 
 
 def adagrad_init(params: Tensors,
@@ -138,17 +202,38 @@ def adagrad_init(params: Tensors,
 
 @torch.no_grad()
 def adagrad_step(params: Tensors, grads: Tensors, state: OptState, lr: float,
-                 eps: float = 1e-7) -> None:
+                 eps: float = 1e-7) -> Updates:
     names = list(params)
-    ps = [params[k] for k in names]
     gs = [grads[k] for k in names]
     acc = [state["sum_of_squares"][k] for k in names]
     torch._foreach_add_(acc, torch._foreach_mul(gs, gs))  # g*g + t
-    us = []
-    for t, g in zip(acc, gs):
+    updates = {}
+    for k, t, g in zip(names, acc, gs):
         inv = torch.where(t > 0, torch.rsqrt(t + eps), torch.zeros_like(t))
-        us.append(inv.mul_(g).mul_(-lr))
-    torch._foreach_add_(ps, us)
+        updates[k] = inv.mul_(g).mul_(-lr)
+    return updates
+
+
+def rmsprop_init(params: Tensors) -> OptState:
+    return {"nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+
+@torch.no_grad()
+def rmsprop_step(params: Tensors, grads: Tensors, state: OptState, lr: float,
+                 decay: float = 0.9, eps: float = 1e-8) -> Updates:
+    updates = {}
+    for k in params:
+        g = grads[k].float()
+        nu = (1 - decay) * (g * g) + decay * state["nu"][k].float()
+        state["nu"][k].copy_(nu)
+        updates[k] = torch.rsqrt(nu + eps).mul_(g).mul_(-lr)
+    return updates
+
+
+def is_table_name(name: str) -> bool:
+    """A ``state_dict`` name of an embedding table: the leaves
+    ``embedding_l2`` decays (``is_embedding_path`` of the JAX package)."""
+    return any(part in ("embedding", "sparse_w") for part in name.split("."))
 
 
 class Optimizer:
@@ -158,26 +243,67 @@ class Optimizer:
     gradients."""
 
     def __init__(self, name: str, lr: float, clip: Optional[float] = None,
-                 initial_accumulator_value: float = 0.1):
-        if name not in ("adam", "sgd", "adagrad"):
+                 initial_accumulator_value: float = 0.1, lazy: bool = False,
+                 weight_decay: float = 1e-4, embedding_l2: float = 0.0,
+                 runtime_inject: bool = False):
+        if name not in ("adam", "sgd", "adagrad", "rmsprop", "adamw"):
             raise ValueError(f"unknown optimizer {name!r}")
         self.name = name
         self.lr = float(lr)
         self.clip = None if not clip else float(clip)
         self.initial_accumulator_value = float(initial_accumulator_value)
+        self.lazy = bool(lazy) and name == "adam"
+        self.weight_decay = float(weight_decay) if name == "adamw" else 0.0
+        self.embedding_l2 = float(embedding_l2)
+        self.runtime_inject = bool(runtime_inject)
 
     def init(self, params: Tensors) -> OptState:
-        if self.name == "adam":
-            return adam_init(params)
-        if self.name == "adagrad":
-            return adagrad_init(params, self.initial_accumulator_value)
-        return sgd_init(params)
+        if self.name in ("adam", "adamw"):
+            plain = self.name == "adam" and not self.lazy
+            state = adam_init(params, torch.float32 if plain else None)
+        elif self.name == "adagrad":
+            state = adagrad_init(params, self.initial_accumulator_value)
+        elif self.name == "rmsprop":
+            state = rmsprop_init(params)
+        else:
+            state = sgd_init(params)
+        if self.runtime_inject:
+            state["hyperparams"] = {"learning_rate": self.lr,
+                                    "embedding_l2": self.embedding_l2}
+        return state
 
+    def _step(self, params: Tensors, grads: Tensors, state: OptState,
+              lr: float) -> Updates:
+        if self.name in ("adam", "adamw"):
+            state["count"] += 1
+            if not self.lazy:
+                return adam_step(params, grads, state, lr,
+                                 weight_decay=self.weight_decay)
+            tables = {k: p for k, p in params.items()
+                      if any("embedding" in part for part in k.split("."))}
+            dense = {k: p for k, p in params.items() if k not in tables}
+            updates = adam_step(dense, grads, state, lr)
+            updates.update(lazy_adam_step(tables, grads, state, lr))
+            return updates
+        step = {"sgd": sgd_step, "adagrad": adagrad_step,
+                "rmsprop": rmsprop_step}[self.name]
+        return step(params, grads, state, lr)
+
+    @torch.no_grad()
     def apply(self, params: Tensors, grads: Tensors, state: OptState) -> None:
+        hyper = state.get("hyperparams", {})
+        lr = float(hyper.get("learning_rate", self.lr))
+        el2 = float(hyper.get("embedding_l2", self.embedding_l2))
         if self.clip is not None:
             names = list(grads)
             clipped = clip_by_global_norm([grads[k] for k in names], self.clip)
             grads = dict(zip(names, clipped))
-        step = {"adam": adam_step, "sgd": sgd_step,
-                "adagrad": adagrad_step}[self.name]
-        step(params, grads, state, self.lr)
+        updates = self._step(params, grads, state, lr)
+        if el2:
+            for k, p in params.items():
+                if is_table_name(k):
+                    updates[k] = updates[k] + (-el2 * lr) * p
+        names = list(params)
+        # (p + u).to(p.dtype): a bfloat16 parameter adds in float32, rounds once
+        torch._foreach_add_([params[k] for k in names],
+                            [updates[k] for k in names])

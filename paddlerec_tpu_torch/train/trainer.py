@@ -12,11 +12,20 @@ log line or the end of an epoch reads it, at the places where the reference
 calls ``jax.block_until_ready``.  Throughput telemetry matches the reference
 format (avg_reader_cost / avg_batch_cost / ips), letter for letter.
 
+With ``hyper_parameters.sparse_update`` the step is the reference's sparse
+one, in its order: backward (the tables take no gradient; the gradient of
+the looked-up vectors is captured), one clip over dense and per-position
+gradients, the dense optimizer, the row-wise step on the touched rows
+(``ModelDef.apply_sparse_updates``; K1b sums the gradient per unique row),
+metrics.  The feed thread dedups each batch's rows on the host
+(``augment_batch_host``) before the wire encoding, and adds the count of
+unique rows as a host value, so the step need not read it from the device.
+
 Not ported yet (their config keys raise ``NotImplementedError`` when the
-trainer is built): meshes with ``mp > 1`` and multi-process runs, the geo and
-fl sync modes, the host table, sparse row-wise updates, the device-resident
-feed, ``pipe_command``, ``dump_fields``, the scalar writer and the profiler
-hook.
+trainer is built): meshes with ``mp > 1`` and multi-process runs (and with
+them the row-sharded sparse rules and the global dedup), the geo and fl sync
+modes, the host table, the device-resident feed, ``pipe_command``,
+``dump_fields``, the scalar writer and the profiler hook.
 """
 
 from __future__ import annotations
@@ -26,12 +35,13 @@ import os
 import time
 from typing import Dict, Iterable, Optional
 
+import numpy as np
 import torch
 
 from paddlerec_tpu_torch.core import metrics as metrics_lib
 from paddlerec_tpu_torch.core.config import Config, resolve_path
 from paddlerec_tpu_torch.core.device import (
-    full_float32_matmul, resolve_device, to_tensors,
+    HOST_KEYS, full_float32_matmul, resolve_device, to_tensors,
 )
 from paddlerec_tpu_torch.data.schema import schema_from_config
 from paddlerec_tpu_torch.data.slot_reader import (
@@ -39,6 +49,7 @@ from paddlerec_tpu_torch.data.slot_reader import (
 )
 from paddlerec_tpu_torch.data.superbatch import stack_superbatches
 from paddlerec_tpu_torch.data.wire import WireEncoder, decode_batch
+from paddlerec_tpu_torch.ops.sparse_update import SENTINEL
 from paddlerec_tpu_torch.train import checkpoint as ckpt_lib
 from paddlerec_tpu_torch.train.state import TrainState
 
@@ -58,7 +69,14 @@ if not logger.handlers:
 
 def check_ported(config: Config) -> None:
     """Raise ``NotImplementedError`` naming the first runner or
-    hyper-parameter key that asks for code the port does not have yet."""
+    hyper-parameter key that asks for code the port does not have yet:
+    ``runner.sync_mode: geo|fl``, ``runner.use_host_table``,
+    ``runner.feed_device_resident``, ``runner.use_visual``,
+    ``runner.profiler_options``, ``runner.dump_fields``,
+    ``runner.pipe_command``, ``runner.mesh_mp`` / ``runner.mesh_dp`` > 1 and
+    ``hyper_parameters.distributed_embedding`` (which also keeps the
+    row-sharded sparse rules and the global dedup out of reach).  Every
+    optimizer key of ``create_optimizer`` is ported."""
     def refuse(key: str, what: str = "") -> None:
         raise NotImplementedError(
             f"{key}{what} is not ported to paddlerec_tpu_torch yet"
@@ -96,6 +114,10 @@ class Trainer:
         # built here so that an optimizer key that is not ported raises now
         self.tx = model_def.create_optimizer()
         self.state: Optional[TrainState] = None
+        self.sparse = bool(model_def.sparse_update_enabled())
+        # noise of the stochastic rounding: reseeded from runner.seed and
+        # the step at every step, so a resumed run draws what it would have
+        self._round_rng: Optional[torch.Generator] = None
         self.use_auc = bool(config.runner("use_auc", True)) and (
             model_def.metrics in ("auc", "acc")
         )
@@ -106,8 +128,27 @@ class Trainer:
         generator = torch.Generator(device=self.device).manual_seed(seed)
         module = self.model_def.make_module(device=self.device,
                                             generator=generator)
-        self.state = TrainState.create(module, self.tx)
+        self.state = TrainState.create(
+            module, self.tx, extra=self.model_def.init_sparse_state(module))
+        self._round_rng = torch.Generator(device=self.device)
         return self.state
+
+    def set_hyperparams(self, **values: float) -> None:
+        """Retune the injected optimizer hyperparameters (learning_rate,
+        embedding_l2) in place.  Requires the optimizer to have been built
+        with hyper_parameters.optimizer.runtime_inject."""
+        if self.state is None:
+            self.init_state()
+        hp = self.state.opt_state.get("hyperparams")
+        if hp is None:
+            raise ValueError(
+                "set_hyperparams needs optimizer.runtime_inject: true "
+                "(the default optimizer reads lr/el2 from the config)"
+            )
+        unknown = set(values) - set(hp)
+        if unknown:
+            raise KeyError(f"not injected hyperparams: {sorted(unknown)}")
+        hp.update({k: float(v) for k, v in values.items()})
 
     def load_checkpoint(self, root: str, tag, params_only: bool = False) -> None:
         """Restore params(+opt) from a checkpoint onto the device.
@@ -120,11 +161,21 @@ class Trainer:
             self.state.module.load_state_dict(
                 ckpt_lib.load_params_from_state(root, tag))
             return
-        params, opt_state = ckpt_lib.load_model(root, tag)
+        params, opt_state, extra = ckpt_lib.load_model(root, tag)
         self.state.module.load_state_dict(params)
         _copy_into(self.state.opt_state, opt_state, "opt_state")
-        if isinstance(opt_state, dict) and "count" in opt_state:
-            self.state.opt_state["count"] = int(opt_state["count"])
+        if self.state.extra is None:
+            return
+        if extra is None:
+            # checkpoint predates sparse_update (no side state on disk):
+            # restore params+opt and keep freshly-initialized moments
+            logger.warning(
+                "checkpoint has no sparse-update side state; row-wise "
+                "optimizer moments start fresh"
+            )
+            return
+        _copy_into({k: v._asdict() for k, v in self.state.extra.items()},
+                   extra, "extra")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -139,7 +190,22 @@ class Trainer:
         state.module.zero_grad(set_to_none=True)
         loss, aux = model_def.train_forward(state.module, batch)
         loss.backward()
+        if self.sparse:
+            delta_grads = {
+                key: g for key, emb in model_def.sparse_taps(state.module).items()
+                if (g := emb.take_delta_grad()) is not None}
+            # one shared global-norm clip for dense AND row-wise: the
+            # optimizer's own clip is left out whenever sparse_update is on
+            model_def.clip_grads(state.params, delta_grads)
         state.apply_gradients()
+        if state.extra is not None:
+            # row-wise sparse embedding update (the dense optimizer above
+            # never sees the tapped tables)
+            seed = int(self.config.runner("seed", 2023))
+            self._round_rng.manual_seed(((seed << 32) + state.step) % (1 << 63))
+            model_def.apply_sparse_updates(
+                state.module, state.extra, delta_grads, batch,
+                rng=self._round_rng)
         if self.use_auc:
             metric_state = model_def.update_metric_state(metric_state, aux)
         return metric_state, loss.detach()
@@ -212,10 +278,15 @@ class Trainer:
         enc = WireEncoder(int(self.config.hyper("sparse_feature_number", 0)))
         return (enc(b) for b in dataset)
 
-    def _device_batches(self, dataset, allow_super: bool = False) -> Iterable:
+    def _device_batches(self, dataset, allow_super: bool = False,
+                        augment: bool = False) -> Iterable:
         # allow_super: ONLY the train and evaluate loops understand the
         # (superbatch, index) tuples; every other consumer gets plain
-        # batches
+        # batches.  augment: the train loop's batches get the host dedup of
+        # a sparse run (evaluation has no use for it)
+        if augment and self.sparse:
+            dataset = (_count_uniq(self.model_def.augment_batch_host(b))
+                       for b in dataset)
         dataset = self._wire_encode(dataset)
         k = int(self.config.runner("feed_superbatch", 0) or 0)
         if k > 1 and allow_super:
@@ -252,6 +323,9 @@ class Trainer:
                 out = {}
                 with torch.cuda.device(device), torch.cuda.stream(side):
                     for key, src in to_tensors(host, torch.device("cpu")).items():
+                        if key in HOST_KEYS:
+                            out[key] = src
+                            continue
                         pin = slot.get(key)
                         if (pin is None or pin.shape != src.shape
                                 or pin.dtype != src.dtype):
@@ -267,7 +341,8 @@ class Trainer:
             current = torch.cuda.current_stream(device)
             current.wait_event(copied)
             for t in sb.values():
-                t.record_stream(current)
+                if t.is_cuda:
+                    t.record_stream(current)
             for i in range(int(next(iter(sb.values())).shape[0])):
                 yield sb, i
 
@@ -329,7 +404,8 @@ class Trainer:
             total_samples = 0
             loss = None
             for batch_id, batch in enumerate(
-                    self._device_batches(dataset, allow_super=True)):
+                    self._device_batches(dataset, allow_super=True,
+                                         augment=True)):
                 reader_cost += time.time() - reader_start
                 step_start = time.time()
                 if isinstance(batch, tuple):  # (superbatch, index)
@@ -382,6 +458,7 @@ class Trainer:
                     self.state.opt_state,
                     save_path,
                     epoch,
+                    extra=self.state.extra,
                 )
                 logger.info(f"saved checkpoint to {path}")
             last_metrics["epoch_time"] = epoch_time
@@ -432,9 +509,20 @@ class Trainer:
         return metrics
 
 
+def _count_uniq(batch):
+    """A host batch with ``sparse_uniq`` (ascending, SENTINEL-padded) gets
+    ``sparse_num_uniq``, the count of its real rows: a host value that rides
+    beside the device batch (``HOST_KEYS``)."""
+    if "sparse_uniq" not in batch:
+        return batch
+    count = np.searchsorted(batch["sparse_uniq"], SENTINEL)
+    return dict(batch, sparse_num_uniq=np.int64(count))
+
+
 def _copy_into(target, source, path: str) -> None:
-    """Copy a loaded optimizer state's tensors into the live state's (same
-    nesting and names, or raise)."""
+    """Copy a loaded optimizer or row-wise state into the live state's:
+    tensors in place, plain values (the count, injected hyperparameters) by
+    assignment; same nesting and names, or raise."""
     if isinstance(target, torch.Tensor):
         if not isinstance(source, torch.Tensor) or source.shape != target.shape:
             raise ValueError(f"checkpoint {path} does not match the optimizer")
@@ -448,4 +536,7 @@ def _copy_into(target, source, path: str) -> None:
                 f"against {sorted(target)}"
             )
         for k, v in target.items():
-            _copy_into(v, source[k], f"{path}.{k}")
+            if isinstance(v, (torch.Tensor, dict)):
+                _copy_into(v, source[k], f"{path}.{k}")
+            else:
+                target[k] = type(v)(source[k])

@@ -235,7 +235,8 @@ def test_cli_trains_logs_saves_and_evaluates(tmp_path):
         done = f.read().splitlines()
     assert done == [f"0\t{os.path.join(save, '0')}", f"1\t{os.path.join(save, '1')}"]
     assert port_ckpt.last_saved_tag(save) == "1"
-    params, opt_state = port_ckpt.load_model(save, 1)
+    params, opt_state, extra = port_ckpt.load_model(save, 1)
+    assert extra is None  # row-wise side state: sparse runs only
     assert opt_state["count"] == 16 and sorted(opt_state) == ["count", "mu", "nu"]
     assert sorted(port_ckpt.load_params_from_state(save, 0)) == sorted(params)
 
@@ -299,20 +300,56 @@ def test_trainer_feeds_slotbin_superbatches_and_resumes(tmp_path):
 @pytest.mark.parametrize("key,value", [
     ("runner.sync_mode", "geo"), ("runner.sync_mode", "fl"),
     ("runner.use_host_table", True), ("runner.feed_device_resident", True),
-    ("runner.mesh_mp", 2), ("runner.use_visual", True),
+    ("runner.mesh_mp", 2), ("runner.mesh_dp", 2), ("runner.use_visual", True),
     ("runner.profiler_options", "batch_range=[2,4]"),
     ("runner.dump_fields", ["predictions"]), ("runner.pipe_command", "cat"),
-    ("hyper_parameters.sparse_update", True),
-    ("hyper_parameters.optimizer.lazy_mode", True),
-    ("hyper_parameters.optimizer.runtime_inject", True),
-    ("hyper_parameters.embedding_l2", 1e-5),
-    ("hyper_parameters.optimizer.class", "rmsprop"),
+    ("hyper_parameters.distributed_embedding", 1),
 ])
 def test_keys_that_are_not_ported_raise_by_name(tmp_path, key, value):
-    cfg = Config({**small_config(tmp_path, **SMALL).to_dict(), key: value})
-    name = key.split(".")[-1] if not key.endswith("class") else "rmsprop"
-    with pytest.raises(NotImplementedError, match=name):
-        port_trainer_mod.Trainer(cfg, device="cpu")
+    """Every key ``check_ported`` still refuses, sparse runs included."""
+    name = key.split(".")[-1]
+    for sparse in (False, True):
+        cfg = Config({**small_config(tmp_path, **SMALL).to_dict(), key: value,
+                      "hyper_parameters.sparse_update": sparse})
+        with pytest.raises(NotImplementedError, match=name):
+            port_trainer_mod.Trainer(cfg, device="cpu")
+
+
+def test_set_hyperparams_retunes_the_injected_values(tmp_path):
+    flat = small_config(tmp_path, **SMALL).to_dict()
+    plain = port_trainer_mod.Trainer(Config(flat), device="cpu")
+    with pytest.raises(ValueError, match="set_hyperparams needs optimizer.runtime_inject"):
+        plain.set_hyperparams(learning_rate=0.1)
+    trainer = port_trainer_mod.Trainer(Config({
+        **flat, "hyper_parameters.optimizer.runtime_inject": True}), device="cpu")
+    trainer.set_hyperparams(learning_rate=0.0, embedding_l2=0.5)  # builds the state
+    assert trainer.state.opt_state["hyperparams"] == {"learning_rate": 0.0,
+                                                     "embedding_l2": 0.5}
+    with pytest.raises(KeyError, match="not injected hyperparams"):
+        trainer.set_hyperparams(momentum=0.9)
+    before = {k: v.clone() for k, v in trainer.state.module.state_dict().items()}
+    batch = to_tensors(_batches(3, steps=1)[0], CPU)
+    ms, _ = trainer.train_step(batch, trainer._init_metric_state())
+    for k, v in trainer.state.module.state_dict().items():  # lr 0: nothing moves
+        assert torch.equal(v, before[k]), k
+    trainer.set_hyperparams(learning_rate=0.01)
+    trainer.train_step(batch, ms)
+    table = trainer.state.module.state_dict()["embedding.embedding"]
+    # a row no id touched decays by lr * el2 and nothing else
+    rows = np.ones(table.shape[0], bool)
+    rows[(_batches(3, steps=1)[0]["sparse"].reshape(-1) % VOCAB) // 8] = False
+    assert rows.sum() > 10
+    ratio = table[rows] / before["embedding.embedding"][rows]
+    np.testing.assert_allclose(ratio.numpy(), 1 - 0.01 * 0.5, rtol=1e-5)
+    # the values ride in the checkpoint with the rest of the optimizer state
+    port_ckpt.save_model(trainer.state.module.state_dict(), trainer.state.opt_state,
+                         str(tmp_path / "hp"), 0)
+    other = port_trainer_mod.Trainer(Config({
+        **flat, "hyper_parameters.optimizer.runtime_inject": True}), device="cpu")
+    other.load_checkpoint(str(tmp_path / "hp"), 0)
+    assert other.state.opt_state["hyperparams"] == {"learning_rate": 0.01,
+                                                   "embedding_l2": 0.5}
+    assert other.state.opt_state["count"] == 2
 
 
 def test_native_reader_falls_back_with_a_warning(tmp_path):
