@@ -48,7 +48,28 @@ without a result line:
    the dnn and wide_deep ``config_bigdata.yaml``;
 10. the sparse step profiled as in 8 (vocab 1,000,001, beside the dense
     step's numbers), the host and device dedup timed, and K1b timed at its
-    compact shape.
+    compact shape;
+11. the CTR rank zoo (lr, logistic_regression, fm, slot_dnn, dcn, dcn_v2, dlrm,
+    xdeepfm, autoint, gatenet, flen, deepfefm, difm, ffm, fat_deepffm, fgcnn,
+    autofis): each model's ``configs/rank/<model>/config.yaml`` at full
+    width, a module on the card and its twin on the CPU from one seed (the
+    first that gives the parameters a gradient: dlrm's head can start dead),
+    one forward and three train steps at batch 512, predictions and losses card
+    against CPU, with the K1 and K1b launches per forward and step asserted
+    (one per table: two for ffm);
+12. dcn_v2, xdeepfm, dlrm and ffm at full width through the entry points:
+    ``export_model`` and ``run_predict`` at batch 8192 (card against the
+    port's CPU run, atol 1e-5), ``Trainer.train()`` for two epochs of 24
+    steps at batch 8192 and ``evaluate()``, with the peak allocation and the
+    launches by row width; dlrm beside the same run on the CPU (its loss may
+    stay at log 2 only if the twin's head died too); dcn_v2 also with
+    ``sparse_update: true`` (bfloat16 table, row-wise adagrad);
+    ``torch.profiler`` over the dcn_v2 and xdeepfm train step.
+
+Phase 3 covers the two shapes the zoo adds to the main path: rows of 8 lanes
+(the view of lr's and ffm's width-1 packed table) and of 351 lanes (ffm's
+unpacked table, rows of 1,404 bytes: both kernels' scalar path); phase 7 times
+both kernels there.
 
 Standard output: the ``nvidia-smi`` line, one JSON line per phase's result
 (each tagged with the card), the ``{"kernels": [...]}`` line, and last
@@ -58,6 +79,7 @@ Standard output: the ``nvidia-smi`` line, one JSON line per phase's result
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import logging
 import math
@@ -83,6 +105,18 @@ ROWS = 8192 + 1000  # a full batch of 8192 and a padded tail
 TRAIN_STEPS = {8192: 24, 512: 96}  # steps of the one epoch that is trained
 SLOTS = 26
 GB = 1 << 30
+FFM_DIM = 39 * 9  # ffm's unpacked row: one E-vector per sparse and dense field
+ZOO = ("lr", "logistic_regression", "fm", "slot_dnn", "dcn", "dcn_v2", "dlrm",
+       "xdeepfm", "autoint", "gatenet", "flen", "deepfefm", "difm", "ffm",
+       "fat_deepffm", "fgcnn", "autofis")
+ZOO_TABLES = {"ffm": 2}  # K1 launches per forward and K1b per step: one per table
+ZOO_PATHS = ("dcn_v2", "xdeepfm", "dlrm", "ffm")  # served and trained at batch 8192
+# dlrm's towers end in the MLP's trailing ReLU, as in the JAX package, so its
+# two-unit head can die: both units at or below 0 on every row, logits 0, loss
+# log 2, no gradient (tests/test_torch_zoo_train.py shows both packages reach
+# that state under Adam at these tower sizes).  Its run on the card is held
+# against a CPU twin's: the loss must fall unless the twin's head died too.
+ZOO_HEAD_MAY_DIE = ("dlrm",)
 
 
 def emit(obj) -> None:
@@ -99,11 +133,16 @@ def card_line() -> str:
     return out[0]
 
 
-def check_k1(gp, seed: int, card: str) -> float:
-    """Phase 3.  Returns the largest error on the main path's shapes."""
+def check_k1(gp, seed: int, card: str, wide: torch.Tensor) -> float:
+    """Phase 3.  ``wide`` is ffm's unpacked (1,000,001, 351) float32 table.
+    Returns the largest error on the main path's shapes."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     packed = torch.randn(125001, 128, device="cuda", generator=g)  # DeepFM's table
     view16 = packed.view(-1, 16)
+    # lr's rank-1 table: 16 ids per row, read through its 8-lane view
+    view8 = torch.randn(62501, 128, device="cuda", generator=g).view(-1, 8)
+    wide_bf16 = wide.to(torch.bfloat16)
+    n_small, n_big = 512 * SLOTS, 8192 * SLOTS  # the zoo's batch, the training batch
 
     def ids(n, pool, rows):
         return torch.randint(0, rows, (n, pool), device="cuda", generator=g,
@@ -139,6 +178,23 @@ def check_k1(gp, seed: int, card: str) -> float:
          mask01(8192, 8), (1e-2, 1e-5)),
         ("bf16 D16 L8 mask →f32", view16.to(torch.bfloat16),
          ids(8192, 8, view16.shape[0]), mask01(8192, 8), (1e-6, 1e-6)),
+        # the zoo's shapes: 32- and 16-byte rows (lr, ffm's first_weight), and
+        # ffm's 1,404- and 702-byte rows, no multiple of 16: the scalar path
+        ("f32 D8 L1 B512", view8, ids(n_small, 1, view8.shape[0]), None, "bitwise"),
+        ("f32 D8 L1 B8192", view8, ids(n_big, 1, view8.shape[0]), None, "bitwise"),
+        ("f32 D8 L3 mask", view8, ids(4096, 3, view8.shape[0]), mask01(4096, 3),
+         (1e-5, 1e-6)),
+        ("bf16 D8 L1 B8192", view8.to(torch.bfloat16), ids(n_big, 1, view8.shape[0]),
+         None, "bitwise"),
+        ("bf16 D8 L3 mask", view8.to(torch.bfloat16), ids(4096, 3, view8.shape[0]),
+         mask01(4096, 3), (1e-2, 1e-5)),
+        ("f32 D351 L1 B512", wide, ids(n_small, 1, wide.shape[0]), None, "bitwise"),
+        ("f32 D351 L1 B8192", wide, ids(n_big, 1, wide.shape[0]), None, "bitwise"),
+        ("f32 D351 L3 mask", wide, ids(4096, 3, wide.shape[0]), mask01(4096, 3),
+         (1e-5, 1e-6)),
+        ("bf16 D351 L1 B8192", wide_bf16, ids(n_big, 1, wide.shape[0]), None, "bitwise"),
+        ("bf16 D351 L3 mask", wide_bf16, ids(4096, 3, wide.shape[0]), mask01(4096, 3),
+         (1e-2, 1e-5)),
     ]
     results, main_err = [], 0.0
     for name, table, idx, mask, tol in cases:
@@ -162,8 +218,9 @@ def check_k1(gp, seed: int, card: str) -> float:
         })
         if not ok:
             raise AssertionError(f"K1 disagrees with its plain version: {results[-1]}")
-        if name.endswith(("D16 L1 B512", "D16 L1 B8192")):
+        if name.endswith(("L1 B512", "L1 B8192")):
             main_err = max(main_err, err)
+        del out, ref
     emit({"k1_checks": results, "card": card})
     return main_err
 
@@ -227,6 +284,28 @@ def check_k1b(gp, seed: int, card: str) -> float:
          torch.zeros(1024, 8, device="cuda"), 125001, None, "zero"),
         ("f32 ids out of range are dropped", grad(4096, 16),
          ids(4096, 2, 1200) - 100, None, 1000, None, (1e-5, 1e-5)),
+        # the zoo's shapes: the 8-lane view of a width-1 table (1,000,016
+        # rows) and ffm's unpacked gradient (1,000,001, 351), 1.4 GB in f32
+        ("f32 D8 L1 B512", grad(n_small, 8), ids(n_small, 1, 1000016), None,
+         1000016, None, (1e-5, 1e-6)),
+        ("f32 D8 L1 B8192", grad(n_big, 8), ids(n_big, 1, 1000016), None,
+         1000016, None, (1e-5, 1e-6)),
+        ("f32 D8 L3 mask", grad(4096, 8), ids(4096, 3, 1000016), mask01(4096, 3),
+         1000016, None, (1e-5, 1e-6)),
+        ("bf16 D8 L1 B8192", grad(n_big, 8, bf16), ids(n_big, 1, 1000016), None,
+         1000016, None, (1e-2, 1e-6)),
+        ("bf16 D8 L3 mask", grad(4096, 8, bf16), ids(4096, 3, 1000016),
+         mask01(4096, 3), 1000016, None, (1e-2, 1e-6)),
+        ("f32 D351 L1 B512", grad(n_small, FFM_DIM), ids(n_small, 1, 1000001), None,
+         1000001, None, (1e-5, 1e-6)),
+        ("f32 D351 L1 B8192", grad(n_big, FFM_DIM), ids(n_big, 1, 1000001), None,
+         1000001, None, (1e-5, 1e-6)),
+        ("f32 D351 L3 mask", grad(4096, FFM_DIM), ids(4096, 3, 1000001),
+         mask01(4096, 3), 1000001, None, (1e-5, 1e-6)),
+        ("bf16 D351 L1 B8192", grad(n_big, FFM_DIM, bf16), ids(n_big, 1, 1000001),
+         None, 1000001, None, (1e-2, 1e-6)),
+        ("bf16 D351 L3 mask", grad(4096, FFM_DIM, bf16), ids(4096, 3, 1000001),
+         mask01(4096, 3), 1000001, None, (1e-2, 1e-6)),
     ]
     results, main_err = [], 0.0
     for name, grad_out, idx, mask, rows, dtype, tol in cases:
@@ -250,8 +329,10 @@ def check_k1b(gp, seed: int, card: str) -> float:
         })
         if not ok:
             raise AssertionError(f"K1b disagrees with its plain version: {results[-1]}")
-        if name.endswith(("D16 L1 B512", "D16 L1 B8192")):
+        if name.endswith(("L1 B512", "L1 B8192")):
             main_err = max(main_err, err)
+        del out, ref
+    del cases
     emit({"k1b_checks": results, "card": card})
 
     # backward() through the autograd.Function (K1, then K1b) against
@@ -304,76 +385,82 @@ def time_ms(fn, sets, iters: int, hold_ms: float = 0.0) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_k1(gp, table, seed: int, vocab: int) -> list:
-    """Phase 7: K1 on DeepFM's lookup (N = B·26, L = 1, D = 16, f32)."""
+def _id_sets(n: int, vocab: int, g, min_sets: int = 4) -> list:
+    """Enough distinct (n, 1) id sets that one cycle through them touches
+    more rows than L2 holds."""
+    n_sets = max(min_sets, math.ceil(64 * 13312 / n))
+    return [torch.randint(0, vocab, (n, 1), device="cuda", generator=g,
+                          dtype=torch.int32) for _ in range(n_sets)]
+
+
+def _timed(fns, sets, iters: int):
+    """(device ms, call ms) per function: as the host issues the calls, then
+    with the host queued ahead so that the card's work alone is timed."""
+    call = {k: time_ms(fn, sets, iters) for k, fn in fns.items()}
+    device = {k: time_ms(fn, sets, iters, hold_ms=4 * iters * call[k] + 5)
+              for k, fn in fns.items()}
+    return device, {k[:-3] if k != "ms" else "kernel": v for k, v in call.items()}
+
+
+def time_k1(gp, view, seed: int, vocab: int, batches=BATCHES, rounds: int = 10,
+            shape: str = "deepfm") -> list:
+    """Phase 7: K1 on a one-id-per-slot lookup (N = B·26, L = 1) of the
+    ``(rows, D)`` view of a float32 table: DeepFM's (D = 16), lr's (D = 8),
+    ffm's unpacked table (D = 351)."""
     from torch.nn import functional as F
 
-    view = table.view(-1, 16)
+    dim = view.shape[1]
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     rows = []
-    for batch in BATCHES:
+    for batch in batches:
         n = batch * SLOTS
-        # enough distinct id sets that one cycle touches more rows than L2 holds
-        n_sets = max(4, math.ceil(64 * 13312 / n))
-        sets = [torch.randint(0, vocab, (n, 1), device="cuda", generator=g,
-                              dtype=torch.int32) for _ in range(n_sets)]
-        iters = 10 * n_sets
+        sets = _id_sets(n, vocab, g)
         fns = {
             "ms": lambda s: gp.gather_pool(view, s),
             "plain_ms": lambda s: gp.gather_pool_plain(view, s),
             "library_ms": lambda s: F.embedding_bag(s, view, mode="sum"),
         }
-        call = {k: time_ms(fn, sets, iters) for k, fn in fns.items()}
-        device = {k: time_ms(fn, sets, iters, hold_ms=4 * iters * call[k] + 5)
-                  for k, fn in fns.items()}
-        uniq = sum(int(torch.unique(s).numel()) for s in sets) / n_sets
-        nbytes = uniq * 16 * 4 + n * 4 + n * 16 * 4  # rows once, ids, output
-        bound = max(nbytes / HBM_BYTES_PER_S, n * 16 / F32_FLOPS) * 1e3
-        rows.append({"batch": batch, "n": n, "pool": 1, "dim": 16,
+        device, call = _timed(fns, sets, rounds * len(sets))
+        uniq = sum(int(torch.unique(s).numel()) for s in sets) / len(sets)
+        nbytes = uniq * dim * 4 + n * 4 + n * dim * 4  # rows once, ids, output
+        bound = max(nbytes / HBM_BYTES_PER_S, n * dim / F32_FLOPS) * 1e3
+        rows.append({"shape": shape, "batch": batch, "n": n, "pool": 1, "dim": dim,
                      "dtype": "float32", **device, "bound_ms": bound,
-                     "bound_by": "bytes", "bytes": nbytes,
-                     "call_ms": {k[:-3] if k != "ms" else "kernel": v
-                                 for k, v in call.items()}})
+                     "bound_by": "bytes", "bytes": nbytes, "call_ms": call})
     return rows
 
 
-def time_k1b(gp, seed: int, vocab: int, rows: int) -> list:
-    """Phase 7: K1b on the gradient of DeepFM's lookup (N = B·26, L = 1,
-    D = 16, f32, a dense (rows, 16) gradient)."""
+def time_k1b(gp, seed: int, vocab: int, rows: int, dim: int = 16, batches=BATCHES,
+             rounds: int = 10, shape: str = "deepfm") -> list:
+    """Phase 7: K1b on the gradient of the same lookups (N = B·26, L = 1,
+    f32, a dense (rows, D) gradient)."""
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
     out = []
-    for batch in BATCHES:
+    for batch in batches:
         n = batch * SLOTS
-        n_sets = max(4, math.ceil(64 * 13312 / n))
-        sets = [torch.randint(0, vocab, (n, 1), device="cuda", generator=g,
-                              dtype=torch.int32) for _ in range(n_sets)]
+        sets = _id_sets(n, vocab, g)
         flat = {id(s): s.reshape(-1).long() for s in sets}  # the library's input
-        grad = torch.randn(n, 16, device="cuda", generator=g)
-        iters = 10 * n_sets
+        grad = torch.randn(n, dim, device="cuda", generator=g)
         fns = {
             "ms": lambda s: gp.gather_pool_bwd(grad, s, None, rows),
             "plain_ms": lambda s: gp.gather_pool_bwd_plain(grad, s, None, rows),
             "library_ms": lambda s: torch.ops.aten.embedding_dense_backward(
                 grad, flat[id(s)], rows, -1, False),
         }
-        call = {k: time_ms(fn, sets, iters) for k, fn in fns.items()}
-        device = {k: time_ms(fn, sets, iters, hold_ms=4 * iters * call[k] + 5)
-                  for k, fn in fns.items()}
-        uniq = sum(int(torch.unique(s).numel()) for s in sets) / n_sets
+        device, call = _timed(fns, sets, rounds * len(sets))
+        uniq = sum(int(torch.unique(s).numel()) for s in sets) / len(sets)
         # what the function must move: the dense gradient written once, g
         # and ids read once.  This design moves more (design_bytes): after
         # the zero fill each touched row is read and written back by its adds
-        nbytes = rows * 16 * 4 + n * 16 * 4 + n * 4
-        design_bytes = nbytes + 2 * uniq * 16 * 4
-        bound = max(nbytes / HBM_BYTES_PER_S, n * 16 / F32_FLOPS) * 1e3
-        out.append({"batch": batch, "n": n, "pool": 1, "dim": 16, "rows": rows,
-                    "dtype": "float32", **device, "bound_ms": bound,
+        nbytes = rows * dim * 4 + n * dim * 4 + n * 4
+        design_bytes = nbytes + 2 * uniq * dim * 4
+        bound = max(nbytes / HBM_BYTES_PER_S, n * dim / F32_FLOPS) * 1e3
+        out.append({"shape": shape, "batch": batch, "n": n, "pool": 1, "dim": dim,
+                    "rows": rows, "dtype": "float32", **device, "bound_ms": bound,
                     "bound_by": "bytes", "bytes": nbytes,
                     "design_bytes": design_bytes, "touched_rows": uniq,
                     "share_of_bound": bound / device["ms"],
-                    "zero_fill_bytes": rows * 16 * 4,
-                    "call_ms": {k[:-3] if k != "ms" else "kernel": v
-                                for k, v in call.items()}})
+                    "zero_fill_bytes": rows * dim * 4, "call_ms": call})
     return out
 
 
@@ -411,16 +498,13 @@ def time_k1b_compact(gp, seed: int, vocab: int) -> list:
         rows = 8 * max(uniqs)  # one buffer size for every set
         flat = {id(s): s.reshape(-1).long() for s in sets}
         grad = torch.randn(n, 16, device="cuda", generator=g_dev)
-        iters = 10 * n_sets
         fns = {
             "ms": lambda s: gp.gather_pool_bwd(grad, s, None, rows),
             "plain_ms": lambda s: gp.gather_pool_bwd_plain(grad, s, None, rows),
             "library_ms": lambda s: torch.ops.aten.embedding_dense_backward(
                 grad, flat[id(s)], rows, -1, False),
         }
-        call = {k: time_ms(fn, sets, iters) for k, fn in fns.items()}
-        device = {k: time_ms(fn, sets, iters, hold_ms=4 * iters * call[k] + 5)
-                  for k, fn in fns.items()}
+        device, call = _timed(fns, sets, 10 * n_sets)
         # the compact buffer written once (U·512 bytes), g and ids read once
         nbytes = rows * 16 * 4 + n * 16 * 4 + n * 4
         bound = max(nbytes / HBM_BYTES_PER_S, n * 16 / F32_FLOPS) * 1e3
@@ -429,9 +513,7 @@ def time_k1b_compact(gp, seed: int, vocab: int) -> list:
                     "dtype": "float32", **device, "bound_ms": bound,
                     "bound_by": "bytes", "bytes": nbytes,
                     "share_of_bound": bound / device["ms"],
-                    "zero_fill_bytes": rows * 16 * 4,
-                    "call_ms": {k[:-3] if k != "ms" else "kernel": v
-                                for k, v in call.items()}})
+                    "zero_fill_bytes": rows * 16 * 4, "call_ms": call})
     return out
 
 
@@ -849,9 +931,11 @@ def first_steps_vs_cpu(gp, cfg, seed: int, steps: int = 5) -> dict:
 
 
 def run_training(gp, cfg, seed: int, check_fall: bool = True, trainer=None,
-                 min_steps: int = 8) -> dict:
+                 min_steps: int = 8, tables: int = 1, check_auc: bool = True) -> dict:
     """``Trainer.train()`` then ``evaluate()`` through the normal entry
-    points; the kernels' counts are read around each."""
+    points; the kernels' counts are read around each: one K1 launch per
+    forward and one K1b launch per step for each of the model's ``tables``.
+    ``check_auc`` is switched off only for a run whose CPU twin's head died."""
     from paddlerec_tpu_torch.train.trainer import Trainer, logger
 
     batch = int(cfg.runner("train_batch_size"))
@@ -862,6 +946,8 @@ def run_training(gp, cfg, seed: int, check_fall: bool = True, trainer=None,
     lines = LossLines()
     logger.addHandler(lines)
     gp.gather_pool.launches = gp.gather_pool_bwd.launches = 0
+    gp.gather_pool.launches_by_dim.clear()
+    gp.gather_pool_bwd.launches_by_dim.clear()
     try:
         t0 = time.perf_counter()
         metrics = trainer.train()
@@ -870,7 +956,7 @@ def run_training(gp, cfg, seed: int, check_fall: bool = True, trainer=None,
         logger.removeHandler(lines)
     steps = trainer.state.step
     launches = (gp.gather_pool.launches, gp.gather_pool_bwd.launches)
-    if launches != (steps, steps) or steps < min_steps:
+    if launches != (tables * steps, tables * steps) or steps < min_steps:
         raise AssertionError(f"{steps} train steps launched K1, K1b {launches}")
     losses = lines.losses
     if len(losses) < 2 or not np.all(np.isfinite(losses)):
@@ -884,9 +970,10 @@ def run_training(gp, cfg, seed: int, check_fall: bool = True, trainer=None,
     evaluated = trainer.evaluate(epoch_tag=epochs - 1 if saved else None)
     eval_launches = (gp.gather_pool.launches, gp.gather_pool_bwd.launches)
     eval_batches = math.ceil(evaluated["total_ins"] / batch)
-    if eval_launches != (eval_batches, 0):
+    if eval_launches != (tables * eval_batches, 0):
         raise AssertionError(f"evaluate launched K1, K1b {eval_launches}")
-    if not (np.isfinite(evaluated["auc"]) and evaluated["auc"] > 0.5):
+    if not (np.isfinite(evaluated["auc"])
+            and (evaluated["auc"] > 0.5 or not check_auc)):
         raise AssertionError(f"evaluate: {evaluated}")
     return {
         "batch_size": batch, "steps": steps, "epochs": epochs,
@@ -900,6 +987,9 @@ def run_training(gp, cfg, seed: int, check_fall: bool = True, trainer=None,
         "last_epoch_steps_per_s": metrics["ips"] / batch,
         "examples": examples, "train_auc_last_epoch": metrics["auc"],
         "k1_launches": launches[0], "k1b_launches": launches[1],
+        # train() and evaluate() together, by the row width D of the launch
+        "k1_launches_by_dim": dict(gp.gather_pool.launches_by_dim),
+        "k1b_launches_by_dim": dict(gp.gather_pool_bwd.launches_by_dim),
         "eval": {"auc": evaluated["auc"], "total_ins": evaluated["total_ins"],
                  "examples_per_s": evaluated["ips"], "k1_launches": eval_launches[0]},
     }
@@ -975,6 +1065,7 @@ def profile_train(cfg, batch_size: int, seed: int, iters: int = 20) -> dict:
     host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:12]
     return {
+        "model": cfg.runner("model"),
         "batch_size": batch_size, "steps": iters, "sparse_update": trainer.sparse,
         "vocab": int(cfg.hyper("sparse_feature_number")),
         "table_dtype": str(module.embedding.embedding.dtype),
@@ -996,6 +1087,203 @@ def profile_train(cfg, batch_size: int, seed: int, iters: int = 20) -> dict:
                           "self_cpu_ms_per_step": e.self_cpu_time_total / 1e3 / iters,
                           "calls_per_step": e.count / iters} for e in host],
     }
+
+
+def dead_head(losses) -> bool:
+    """Whether a run's last three logged losses are log 2: logits of 0 on
+    every row, which is what a head of dead ReLU units gives."""
+    return bool(np.allclose(losses[-3:], math.log(2), rtol=0, atol=1e-6))
+
+
+def zoo_config(model: str):
+    from paddlerec_tpu_torch.core.config import load_config
+
+    return load_config(os.path.join(ROOT, "configs", "rank", model, "config.yaml"))
+
+
+ZOO_ATOL = 1e-5  # card against CPU, every model: float32 sums in another order
+
+
+def live_trainer(cfg, seed: int, batch, tries: int = 8):
+    """A CPU trainer initialised from the first seed at or after ``seed``
+    from which ``batch`` gives some parameter a gradient, and that seed.  A
+    head that starts dead (dlrm's two ReLU units at 0 on every row: every
+    prediction exactly 0.5, no gradient at all) would leave the comparisons
+    that follow nothing to compare."""
+    from paddlerec_tpu_torch.core.device import to_tensors
+    from paddlerec_tpu_torch.train.trainer import Trainer
+
+    for s in range(seed, seed + tries):
+        host = Trainer(cfg, device="cpu")
+        host.init_state(seed=s)
+        module = host.state.module
+        loss, _ = host.model_def.train_forward(module, to_tensors(batch, host.device))
+        loss.backward()
+        alive = any(p.grad is not None and bool(p.grad.any())
+                    for p in module.parameters())
+        module.zero_grad(set_to_none=True)
+        if alive:
+            return host, s
+    raise AssertionError(f"{cfg.runner('model')}: no gradient from "
+                         f"seeds {seed}..{seed + tries - 1}")
+
+
+def ctr_zoo(gp, seed: int, card: str) -> dict:
+    """Phase 11: every model of the zoo at the full width of its own config,
+    a module on the card and its twin on the CPU from one seed; one forward
+    and three train steps at batch 512 on the same batches.  Returns the
+    launch totals and each model's seed (see ``live_trainer``)."""
+    from paddlerec_tpu_torch.core.device import to_tensors
+    from paddlerec_tpu_torch.data.synthetic import synthetic_batch
+    from paddlerec_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.RandomState(seed + 12)
+    batches = [synthetic_batch(rng, BATCHES[0], vocab=1000001) for _ in range(4)]
+    results, failed, totals, seeds = [], [], [0, 0], {}
+    for model in ZOO:
+        cfg = zoo_config(model)
+        tables = ZOO_TABLES.get(model, 1)
+        t0 = time.perf_counter()
+        host, seeds[model] = live_trainer(cfg, seed, batches[0])
+        chip = Trainer(cfg)
+        chip.init_state(seed=seeds[model])
+        chip.state.module.load_state_dict(host.state.module.state_dict())
+        preds, losses, launched = {}, {}, {}
+        for name, trainer in (("cuda", chip), ("cpu", host)):
+            gp.gather_pool.launches = gp.gather_pool_bwd.launches = 0
+            first = to_tensors(batches[0], trainer.device)
+            with torch.no_grad():
+                aux = trainer.model_def.infer_forward(trainer.state.module, first)
+            preds[name] = aux["predictions"].cpu().numpy()
+            forward = (gp.gather_pool.launches, gp.gather_pool_bwd.launches)
+            ms, losses[name] = trainer._init_metric_state(), []
+            for b in batches[1:]:
+                ms, loss = trainer.train_step(to_tensors(b, trainer.device), ms)
+                losses[name].append(float(loss))
+            launched[name] = (forward, (gp.gather_pool.launches - forward[0],
+                                        gp.gather_pool_bwd.launches))
+        totals[0] += launched["cuda"][0][0] + launched["cuda"][1][0]
+        totals[1] += launched["cuda"][1][1]
+        steps = len(batches) - 1
+        want = ((tables, 0), (tables * steps, tables * steps))
+        if launched["cuda"] != want or launched["cpu"] != ((0, 0), (0, 0)):
+            raise AssertionError(f"{model}: K1, K1b launches {launched}, expected {want}")
+        pred_err = float(np.abs(preds["cuda"] - preds["cpu"]).max())
+        loss_err = float(np.abs(np.array(losses["cuda"]) - np.array(losses["cpu"])).max())
+        ok = bool(np.all(np.isfinite(preds["cuda"])) and np.all(np.isfinite(losses["cuda"]))
+                  and preds["cuda"].shape == (BATCHES[0],) and len(set(losses["cuda"])) > 1
+                  and pred_err <= ZOO_ATOL and loss_err <= ZOO_ATOL)
+        results.append({
+            "model": model, "ok": ok, "atol": ZOO_ATOL, "seed": seeds[model],
+            "max_abs_err_predictions": pred_err,
+            "predictions_spread": float(np.ptp(preds["cuda"])),
+            "max_abs_err_loss": loss_err, "loss_cuda": losses["cuda"],
+            "k1_per_forward": launched["cuda"][0][0],
+            "k1b_per_step": launched["cuda"][1][1] // steps,
+            "parameters": sum(p.numel() for p in chip.state.module.parameters()),
+            "seconds": time.perf_counter() - t0})
+        if not ok:
+            failed.append(model)
+        del host, chip, trainer, ms, aux, first, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"ctr_zoo": results, "batch_size": BATCHES[0], "card": card})
+    if failed:
+        raise AssertionError(f"card and CPU disagree for {failed}")
+    return {"k1_launches": totals[0], "k1b_launches": totals[1], "seeds": seeds}
+
+
+def zoo_paths(gp, work: str, data_dir: str, cpu_rows: int, seeds: dict,
+              card: str) -> dict:
+    """Phase 12: dcn_v2, xdeepfm, dlrm and ffm at full width through
+    ``export_model``, ``run_predict`` (over the slot text in ``data_dir``) and
+    ``Trainer.train()`` / ``evaluate()`` over the slotbin rows written for
+    phase 6 at batch 8192; dcn_v2 once more as a sparse run.  ``seeds`` are
+    ``ctr_zoo``'s: each model starts from parameters that take a gradient."""
+    from paddlerec_tpu_torch.tools.export import export_model
+    from paddlerec_tpu_torch.tools.predict import run_predict
+    from paddlerec_tpu_torch.train.trainer import Trainer, logger
+
+    batch = BATCHES[-1]
+    forwards = math.ceil(cpu_rows / batch)
+    totals, runs = [0, 0], {}
+    for model in ZOO_PATHS:
+        cfg, tables, seed = zoo_config(model), ZOO_TABLES.get(model, 1), seeds[model]
+        export_dir = os.path.join(work, f"export_{model}")
+        t0 = time.perf_counter()
+        export_model(cfg, export_dir, seed=seed)
+        cpu_out, _ = run_predict(export_dir, data_dir, batch, device="cpu")
+        gp.gather_pool.launches = 0
+        out, report = run_predict(export_dir, data_dir, batch)
+        launched = gp.gather_pool.launches
+        shutil.rmtree(export_dir)
+        preds, cpu_preds = np.concatenate(out), np.concatenate(cpu_out)
+        err = float(np.abs(preds - cpu_preds).max())
+        if launched != tables * forwards:
+            raise AssertionError(f"{model}: {launched} K1 launches for {forwards} forwards")
+        if (preds.shape != (cpu_rows,) or not np.all((preds >= 0) & (preds <= 1))
+                or not np.ptp(preds) > 0 or err > 1e-5):
+            raise AssertionError(f"{model}: cuda vs cpu max err {err}, "
+                                 f"spread {np.ptp(preds)}")
+        totals[0] += launched
+        emit({"predict": {"model": model, "batch_size": batch, **report,
+                          "max_abs_err_vs_cpu": err, "seed": seed,
+                          "predictions_spread": float(np.ptp(preds)),
+                          "k1_launches": launched,
+                          "seconds_export_and_predict": time.perf_counter() - t0},
+              "card": card})
+
+        variants = {model: {}}
+        if model == "dcn_v2":
+            variants["dcn_v2 sparse"] = {
+                "hyper_parameters.sparse_update": True,
+                "hyper_parameters.sparse_update_rule": "adagrad",
+                "hyper_parameters.sparse_feature_dtype": "bfloat16"}
+        for name, extra in variants.items():
+            # two epochs over the same 24 batches: the second must read lower
+            run_cfg = train_config(cfg, work, batch, **{
+                "runner.model_save_path": None, "runner.infer_load_path": None,
+                "runner.epochs": 2, **extra})
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            trainer, twin = None, None
+            if model in ZOO_HEAD_MAY_DIE:
+                # the same run on the CPU from the same parameters: the card's
+                # loss need not fall only if the twin's head died as well
+                host = Trainer(run_cfg, device="cpu")
+                host.init_state(seed=seed)
+                trainer = Trainer(run_cfg)
+                trainer.init_state(seed=seed)
+                trainer.state.module.load_state_dict(host.state.module.state_dict())
+                lines = LossLines()
+                logger.addHandler(lines)
+                try:
+                    host.train()
+                finally:
+                    logger.removeHandler(lines)
+                twin = {"logged_losses": lines.losses,
+                        "dead_head": dead_head(lines.losses)}
+                del host
+            alive = twin is None or not twin["dead_head"]
+            runs[name] = run_training(gp, run_cfg, seed, trainer=trainer, tables=tables,
+                                      min_steps=24, check_fall=alive, check_auc=alive)
+            runs[name].update({
+                "model": name, "seed": seed,
+                "dead_head": dead_head(runs[name]["logged_losses"]),
+                "peak_allocated_bytes": torch.cuda.max_memory_allocated() - base})
+            if twin is not None:
+                runs[name]["cpu_twin"] = twin
+                if runs[name]["dead_head"] != twin["dead_head"]:
+                    raise AssertionError(f"{name}: the head died on one device only: "
+                                         f"{runs[name]['logged_losses']} against {twin}")
+            del trainer
+            emit({"train": runs[name], "card": card})
+            totals[0] += runs[name]["k1_launches"] + runs[name]["eval"]["k1_launches"]
+            totals[1] += runs[name]["k1b_launches"]
+    return {"k1_launches": totals[0], "k1b_launches": totals[1], "runs": runs}
 
 
 def profile_forward(model_def, module, batch_size: int, iters: int = 20) -> dict:
@@ -1059,7 +1347,10 @@ def main(argv=None) -> int:
     emit({"build": {k: os.path.relpath(v, ROOT) for k, v in libs.items()},
           "seconds": time.perf_counter() - t0, "card": card})
 
-    main_err = check_k1(gp, args.seed, card)  # phase 3
+    # ffm's unpacked table, for the checks and the timing at its shape
+    wide = torch.randn(1000001, FFM_DIM, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(args.seed))
+    main_err = check_k1(gp, args.seed, card, wide)  # phase 3
     bwd_err = check_k1b(gp, args.seed, card)
     sparse_checks(gp, args.seed, card)  # phase 9, the part at small size
 
@@ -1137,8 +1428,19 @@ def main(argv=None) -> int:
         emit({"train": train_runs["bf16"], "card": card})
 
         table = service.module.embedding.embedding.detach()  # phase 7
-        cases = time_k1(gp, table, args.seed, vocab)
+        cases = time_k1(gp, table.view(-1, 16), args.seed, vocab)
         bwd_cases = time_k1b(gp, args.seed, vocab, table.view(-1, 16).shape[0])
+        # the zoo's shapes at the training batch: ffm's unpacked rows, and the
+        # 8-lane view of a width-1 table (lr, ffm's first_weight)
+        one = BATCHES[-1:]
+        view8 = torch.randn(62501, 128, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(args.seed + 4)).view(-1, 8)
+        zoo_cases = (time_k1(gp, wide, args.seed, vocab, one, 5, "ffm")
+                     + time_k1(gp, view8, args.seed, vocab, one, shape="lr"))
+        zoo_bwd_cases = (
+            time_k1b(gp, args.seed, vocab, wide.shape[0], FFM_DIM, one, 5, "ffm")
+            + time_k1b(gp, args.seed, vocab, view8.shape[0], 8, one, shape="lr"))
+        del wide, view8
         for batch in BATCHES:  # phase 8
             emit({"profile": profile_forward(service.model_def, service.module, batch),
                   "card": card})
@@ -1159,6 +1461,14 @@ def main(argv=None) -> int:
         big_vocab = int(bigdata["hyper_parameters.sparse_feature_number"])
         emit({"time_dedup": time_dedup(args.seed, (big_vocab, vocab)), "card": card})
         compact_cases = time_k1b_compact(gp, args.seed, big_vocab)
+        gc.collect()
+        torch.cuda.empty_cache()
+        zoo = ctr_zoo(gp, args.seed, card)  # phase 11
+        paths = zoo_paths(gp, work, data_dir, ROWS, zoo["seeds"], card)  # phase 12
+        for model in ("dcn_v2", "xdeepfm"):
+            emit({"profile_train": profile_train(
+                train_config(zoo_config(model), work, BATCHES[-1]), BATCHES[-1],
+                args.seed), "card": card})
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for case, batch in zip(cases, BATCHES):
@@ -1166,28 +1476,40 @@ def main(argv=None) -> int:
     for case, batch in zip(bwd_cases, BATCHES):
         case["launches"] = train_runs[batch]["k1b_launches"]
     compact_cases[-1]["launches"] = sparse["runs"]["deepfm"]["k1b_launches"]
+    # ffm's train() and evaluate(), counted by row width where the kernels launch
+    ffm_run = paths["runs"]["ffm"]
+    for case in zoo_cases:
+        case["launches"] = ffm_run["k1_launches_by_dim"].get(case["dim"], 0)
+    for case in zoo_bwd_cases:
+        case["launches"] = ffm_run["k1b_launches_by_dim"].get(case["dim"], 0)
+    if not all(case["launches"] > 0 for case in zoo_cases + zoo_bwd_cases):
+        raise AssertionError(f"ffm's run launched no kernel at a zoo shape: "
+                             f"{ffm_run['k1_launches_by_dim']}")
     all_runs = list(train_runs.values()) + list(sparse["runs"].values())
     k1_launches = (sum(launches.values()) + first["k1_launches"]
                    + sparse["first"]["k1_launches"] + sparse["served_launches"]
-                   + sum(r["k1_launches"] + r["eval"]["k1_launches"] for r in all_runs))
+                   + sum(r["k1_launches"] + r["eval"]["k1_launches"] for r in all_runs)
+                   + zoo["k1_launches"] + paths["k1_launches"])
     k1b_launches = (first["k1b_launches"] + sparse["first"]["k1b_launches"]
-                    + sum(r["k1b_launches"] for r in all_runs))
+                    + sum(r["k1b_launches"] for r in all_runs)
+                    + zoo["k1b_launches"] + paths["k1b_launches"])
     if k1_launches < 1 or k1b_launches < 1:
         raise AssertionError("the main path launched a kernel no time")
     kernels = []
-    for name, source, replaces, count, err, timed in (
+    for name, source, replaces, count, err, timed, top in (
         ("gather_pool", "paddlerec_tpu_torch/csrc/gather_pool.cu",
          "paddlerec_tpu/ops/pallas_embedding.py:37", k1_launches,
-         max(main_err, sparse["lookup"]["k1_err"]), cases),
+         max(main_err, sparse["lookup"]["k1_err"]), cases + zoo_cases, cases[-1]),
         # the JAX package has no kernel for the gradient: K1b takes the
         # place of the XLA scatter-add of _packed_lookup_bwd
         ("gather_pool_bwd", "paddlerec_tpu_torch/csrc/gather_pool_bwd.cu",
          "paddlerec_tpu/ops/packed_embedding.py:94", k1b_launches,
-         max(bwd_err, sparse["lookup"]["k1b_err"]), bwd_cases + compact_cases),
+         max(bwd_err, sparse["lookup"]["k1b_err"]),
+         bwd_cases + zoo_bwd_cases + compact_cases, compact_cases[-1]),
     ):
-        # the headline numbers are those of the training batch, 8192 (K1b: of
-        # the sparse step's compact shape, config_bigdata.yaml's)
-        top = timed[-1]
+        # the headline numbers (top) are those of the training batch, 8192, at
+        # DeepFM's shape (K1b: at the sparse step's compact shape,
+        # config_bigdata.yaml's); the zoo's shapes stand among the cases
         for case in timed:
             # what the kernel can reach: its byte bound, or the launch floor
             # where that is higher

@@ -3,12 +3,17 @@
 Names map one to one: the flax path ``tower/fc_0/kernel`` is the state_dict
 key ``tower.fc_0.weight``, and every other leaf keeps its name with ``/``
 read as ``.``.  A flax ``Dense`` kernel is ``(in, out)`` and an
-``nn.Linear`` weight ``(out, in)``, so kernels are transposed.  Values are
-copied bit for bit both ways, bfloat16 included.
+``nn.Linear`` weight ``(out, in)``, so kernels are transposed; a flax
+``Conv`` kernel is ``(H, W, in, out)`` and an ``nn.Conv2d`` weight
+``(out, in, H, W)``, so 4-D kernels are permuted.  Values are copied bit for
+bit both ways, bfloat16 included.
 
 Optax's Adam moments (``ScaleByAdamState.mu`` / ``.nu``) are trees of the
 parameters' shape, so the same mapping carries them into the port's
-optimizer state (``train/optimizers.py``) and back.
+optimizer state (``train/optimizers.py``) and back.  So does GRDA's
+accumulator (``GrdaState``), and the per-group states of an
+``optax.multi_transform`` (AutoFIS's search stage: Adam for the dense leaves,
+GRDA for the gate) map onto the ``MultiOptimizer`` state group by group.
 
 Sparse runs (``hyper_parameters.sparse_update``).  The JAX package's
 parameters then hold a zero ``embedding_delta`` leaf of ``(capacity, 128)``
@@ -61,17 +66,38 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
+def _kernel_to_weight(kernel: np.ndarray) -> np.ndarray:
+    """flax ``Dense`` (in, out) → (out, in); ``Conv`` (H, W, in, out) →
+    (out, in, H, W)."""
+    if kernel.ndim == 4:
+        return np.transpose(kernel, (3, 2, 0, 1))
+    return kernel.T
+
+
+def _weight_to_kernel(weight: np.ndarray) -> np.ndarray:
+    if weight.ndim == 4:
+        return np.transpose(weight, (2, 3, 1, 0)).copy()
+    return weight.T.copy()
+
+
+def _is_masked(leaf: Any) -> bool:
+    """optax's ``MaskedNode``: the placeholder ``multi_transform`` leaves
+    where a parameter belongs to another group."""
+    return isinstance(leaf, tuple) and len(leaf) == 0
+
+
 def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax params (nested, or flat with ``/`` keys) → state_dict on the CPU.
-    ``embedding_delta`` leaves (a sparse run's gradient taps) are dropped."""
+    ``embedding_delta`` leaves (a sparse run's gradient taps) are dropped,
+    and so are the masked placeholders of a ``multi_transform`` group."""
     state = {}
     for path, value in flatten_tree(tree).items():
         head, _, leaf = path.rpartition("/")
-        if leaf == DELTA_NAME:
+        if leaf == DELTA_NAME or _is_masked(value):
             continue
         if leaf == "kernel":
             key = f"{head}/weight" if head else "weight"
-            value = np.asarray(value).T
+            value = _kernel_to_weight(np.asarray(value))
         else:
             key = path
         state[key.replace("/", ".")] = _to_torch(value)
@@ -89,7 +115,7 @@ def to_jax_params(state_dict: Mapping[str, torch.Tensor],
         *parents, leaf = key.split(".")
         value = _to_numpy(t)
         if leaf == "weight":
-            leaf, value = "kernel", value.T.copy()
+            leaf, value = "kernel", _weight_to_kernel(value)
         node = tree
         for p in parents:
             node = node.setdefault(p, {})
@@ -124,16 +150,20 @@ def to_jax_sparse_state(extra: Mapping[str, Any]) -> Dict[str, Dict[str, np.ndar
             for key, st in extra.items()}
 
 
-def _find_adam_state(opt_state: Any):
-    """The first ``ScaleByAdamState`` inside an optax state (a nest of
-    tuples and, under ``multi_transform``, of dicts)."""
-    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+_ADAM_FIELDS = ("count", "mu", "nu")
+_GRDA_FIELDS = ("accumulator", "l1_accumulation", "count")
+
+
+def _find_state(opt_state: Any, fields):
+    """The first state with all of ``fields`` inside an optax state (a nest
+    of tuples and, under ``multi_transform``, of dicts)."""
+    if all(hasattr(opt_state, a) for a in fields):
         return opt_state
     if isinstance(opt_state, Mapping):
         opt_state = list(opt_state.values())
     if isinstance(opt_state, (tuple, list)):
         for item in opt_state:
-            found = _find_adam_state(item)
+            found = _find_state(item, fields)
             if found is not None:
                 return found
     return None
@@ -142,7 +172,7 @@ def _find_adam_state(opt_state: Any):
 def adam_state_from_optax(opt_state: Any) -> Dict[str, Any]:
     """Optax state of ``optax.adam`` (alone or chained after a clip) → the
     port's Adam state ``{"count", "mu", "nu"}`` on the CPU."""
-    adam = _find_adam_state(opt_state)
+    adam = _find_state(opt_state, _ADAM_FIELDS)
     if adam is None:
         raise ValueError("no ScaleByAdamState (count, mu, nu) in the optax state")
     return {
@@ -161,3 +191,52 @@ def adam_state_to_optax(state: Mapping[str, Any]) -> Dict[str, Any]:
         "mu": to_jax_params(state["mu"]),
         "nu": to_jax_params(state["nu"]),
     }
+
+
+def grda_state_from_optax(opt_state: Any) -> Dict[str, Any]:
+    """Optax state holding a ``GrdaState`` → the port's GRDA state
+    ``{"accumulator", "l1_accumulation", "count"}`` on the CPU."""
+    grda = _find_state(opt_state, _GRDA_FIELDS)
+    if grda is None:
+        raise ValueError("no GrdaState (accumulator, l1_accumulation, count) "
+                         "in the optax state")
+    return {
+        "accumulator": from_jax_params(grda.accumulator),
+        "l1_accumulation": float(np.asarray(grda.l1_accumulation)),
+        "count": int(np.asarray(grda.count)),
+    }
+
+
+def grda_state_to_optax(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's GRDA state → ``{"accumulator", "l1_accumulation",
+    "count"}`` with the accumulator as a flax-named tree of numpy arrays, to
+    fill a ``GrdaState`` from."""
+    return {
+        "accumulator": to_jax_params(state["accumulator"]),
+        "l1_accumulation": np.asarray(state["l1_accumulation"], np.float32),
+        "count": np.asarray(state["count"], np.int32),
+    }
+
+
+def multi_state_from_optax(opt_state: Any) -> Dict[str, Dict[str, Any]]:
+    """State of ``optax.multi_transform`` over Adam and GRDA groups → the
+    port's ``MultiOptimizer`` state ``{label: group state}``; each group's
+    trees keep only that group's leaves."""
+    inner = getattr(opt_state, "inner_states", None)
+    if inner is None:
+        raise ValueError("not a multi_transform state (no inner_states)")
+    out = {}
+    for label, group in inner.items():
+        if _find_state(group, _GRDA_FIELDS) is not None:
+            out[label] = grda_state_from_optax(group)
+        else:
+            out[label] = adam_state_from_optax(group)
+    return out
+
+
+def multi_state_to_optax(state: Mapping[str, Mapping[str, Any]]) -> Dict[str, Any]:
+    """The port's ``MultiOptimizer`` state → ``{label: fields}``, each group
+    through ``grda_state_to_optax`` or ``adam_state_to_optax``."""
+    return {label: (grda_state_to_optax(group) if "accumulator" in group
+                    else adam_state_to_optax(group))
+            for label, group in state.items()}

@@ -15,6 +15,9 @@ import sys
 from typing import Any, Dict
 
 _REGISTRY: Dict[str, Any] = {}
+# names registered by another model's module (the JAX package finds these by
+# importing its whole zoo)
+_ALIASES = {"rank.logistic_regression": "rank.lr"}
 
 
 def register_model(name: str):
@@ -31,10 +34,15 @@ def register_model(name: str):
 def get_model_class(name: str):
     """Look up a registered ModelDef class, importing builtins on demand."""
     if name not in _REGISTRY:
-        module_name = f"paddlerec_tpu_torch.models.{name}.model"
+        owner = _ALIASES.get(name, name)
+        module_name = f"paddlerec_tpu_torch.models.{owner}.model"
         try:
             importlib.import_module(module_name)
         except ModuleNotFoundError as e:
+            # only a missing model module (or package above it) means "not
+            # ported"; a ported model whose own import fails says so itself
+            if not (e.name and (module_name + ".").startswith(e.name + ".")):
+                raise
             raise KeyError(
                 f"model {name!r} is not ported and {module_name} could not "
                 f"be imported: {e}"

@@ -37,8 +37,10 @@
 // neighbouring chunks, so a warp covers whole rows.  Float sums by atomics
 // depend on the order the adds arrive in: the result equals the plain version
 // bitwise only where no row receives more than one add.  Rows whose width is
-// not a multiple of 4, or pointers not 16-byte aligned, take scalar loads and
-// scalar atomics.
+// not a multiple of 4 (ffm's 351 lanes), or pointers not 16-byte aligned, take
+// the scalar path: a thread owns one element, loads it and makes one scalar
+// atomicAdd per id, so that a warp's loads and atomics are still consecutive
+// addresses.
 //
 // Built by paddlerec_tpu_torch/ops/build.py into a shared library with a
 // plain C interface; paddlerec_tpu_torch/ops/gather_pool.py binds it.
@@ -83,51 +85,48 @@ __device__ __forceinline__ void atomic_add4(float* dst, const float* c) {
 }
 
 // kRound: round each contribution to bfloat16 before adding (bfloat16 table).
+// kVec: a thread owns 4 lanes and adds them with one 16-byte atomic; else one.
 template <typename G, bool kRound, bool kVec>
 __global__ void __launch_bounds__(256)
 scatter_add_kernel(const G* __restrict__ g, const int32_t* __restrict__ ids,
                    const float* __restrict__ mask, int64_t n, int64_t pool,
                    int64_t dim, int64_t rows, float* __restrict__ acc) {
-  const int64_t chunks = (dim + 3) / 4;
+  constexpr int W = kVec ? 4 : 1;
+  const int64_t chunks = dim / W;  // kVec: dim is a multiple of 4
   const int64_t total = n * chunks;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        t < total; t += stride) {
     const int64_t r = t / chunks;
-    const int64_t col = (t - r * chunks) * 4;
-    const int64_t width = dim - col < 4 ? dim - col : 4;
+    const int64_t col = (t - r * chunks) * W;
     const G* src = g + r * dim + col;
-    float v[4];
-    if (kVec) {
+    float v[W];
+    if constexpr (kVec) {
       load4(src, v);
     } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) v[k] = k < width ? to_float(src[k]) : 0.f;
+      v[0] = to_float(src[0]);
     }
     for (int64_t l = 0; l < pool; ++l) {
       const int64_t id = __ldg(ids + r * pool + l);
       if (id < 0 || id >= rows) continue;  // dropped, as the JAX scatter's mode="drop"
-      float c[4];
+      float c[W];
       if (mask != nullptr) {
         const float w = __ldg(mask + r * pool + l);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) c[k] = __fmul_rn(v[k], w);
+        for (int k = 0; k < W; ++k) c[k] = __fmul_rn(v[k], w);
       } else {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) c[k] = v[k];
+        for (int k = 0; k < W; ++k) c[k] = v[k];
       }
       if (kRound) {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) c[k] = __bfloat162float(__float2bfloat16_rn(c[k]));
+        for (int k = 0; k < W; ++k) c[k] = __bfloat162float(__float2bfloat16_rn(c[k]));
       }
       float* dst = acc + id * dim + col;
-      if (kVec) {
+      if constexpr (kVec) {
         atomic_add4(dst, c);
       } else {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (k < width) atomicAdd(dst + k, c[k]);
-        }
+        atomicAdd(dst, c[0]);
       }
     }
   }
@@ -152,10 +151,10 @@ void launch_scatter(const void* g, const int32_t* ids, const float* mask, int64_
                     int64_t pool, int64_t dim, int64_t rows, float* acc,
                     cudaStream_t stream) {
   constexpr int kThreads = 256;
-  const int64_t total = n * ((dim + 3) / 4);
-  const int64_t blocks = blocks_for(total, kThreads);
   const bool vec = dim % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(acc) % 16 == 0;
+  const int64_t total = n * (vec ? dim / 4 : dim);
+  const int64_t blocks = blocks_for(total, kThreads);
   const G* gp = static_cast<const G*>(g);
   if (vec) {
     scatter_add_kernel<G, kRound, true><<<blocks, kThreads, 0, stream>>>(

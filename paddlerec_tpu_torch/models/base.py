@@ -308,6 +308,16 @@ class CTRModelDef(ModelDef):
             )),
         }
 
+    def table_kwargs(self) -> Dict[str, Any]:
+        """``SlotEmbedding`` kwargs every table of a module gets: ``dtype``
+        from ``sparse_feature_dtype`` and, in a sparse run,
+        ``external_update`` and ``delta_capacity``.  The JAX package hands
+        these to every ``SlotEmbedding`` of a CTR model through a trace-time
+        context; here each ``make_module`` passes them on, so that
+        ``sparse_feature_dtype: bfloat16`` and ``sparse_update: true`` work
+        for every model from the config alone."""
+        return {"dtype": self.table_dtype(), **self.sparse_embed_kwargs()}
+
     def model_inputs(self, batch: Batch) -> Tuple[torch.Tensor, ...]:
         if self.dense_dim:
             return (batch["sparse"], batch["dense"])
@@ -325,16 +335,20 @@ class CTRModelDef(ModelDef):
             vocab=self.vocab_size,
         )
 
-    def _logits_and_aux(self, module: nn.Module,
-                        batch: Batch) -> Tuple[torch.Tensor, Aux]:
-        logits = module(*self.model_inputs(batch)).reshape(-1)
+    @staticmethod
+    def _aux(logits: torch.Tensor, batch: Batch) -> Aux:
         aux = {
             "predictions": torch.sigmoid(logits),
             "labels": batch["label"].reshape(-1).to(torch.float32),
         }
         if "mask" in batch:
             aux["mask"] = batch["mask"]
-        return logits, aux
+        return aux
+
+    def _logits_and_aux(self, module: nn.Module,
+                        batch: Batch) -> Tuple[torch.Tensor, Aux]:
+        logits = module(*self.model_inputs(batch)).reshape(-1)
+        return logits, self._aux(logits, batch)
 
     def train_forward(self, module: nn.Module,
                       batch: Batch) -> Tuple[torch.Tensor, Aux]:

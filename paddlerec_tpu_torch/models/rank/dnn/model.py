@@ -7,7 +7,7 @@ dense features, ``fc_sizes`` ReLU tower, final linear to one logit.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Any, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
@@ -24,14 +24,12 @@ class CtrDnnNet(nn.Module):
 
     def __init__(self, vocab_size: int, embedding_dim: int,
                  fc_sizes: Sequence[int], num_sparse: int, dense_dim: int,
-                 table_dtype: torch.dtype = torch.float32, device=None,
-                 generator: Optional[torch.Generator] = None,
-                 external_update: bool = False, delta_capacity: int = 0):
+                 table_kwargs: Optional[Mapping[str, Any]] = None, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.embedding = SlotEmbedding(
-            vocab_size, embedding_dim, dtype=table_dtype, device=device,
-            generator=generator, external_update=external_update,
-            delta_capacity=delta_capacity,
+            vocab_size, embedding_dim, device=device, generator=generator,
+            **(table_kwargs or {}),
         )
         self.tower = MLP(num_sparse * embedding_dim + dense_dim, fc_sizes,
                          device=device, generator=generator)
@@ -56,6 +54,6 @@ class ModelDef(CTRModelDef):
                     generator: Optional[torch.Generator] = None) -> nn.Module:
         return CtrDnnNet(
             self.vocab_size, self.embedding_dim, self.fc_sizes,
-            self.num_sparse, self.dense_dim, table_dtype=self.table_dtype(),
-            device=device, generator=generator, **self.sparse_embed_kwargs(),
+            self.num_sparse, self.dense_dim, table_kwargs=self.table_kwargs(),
+            device=device, generator=generator,
         )

@@ -9,7 +9,7 @@ K1 launch) serves both parts.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Any, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
@@ -26,15 +26,13 @@ class WideDeepNet(nn.Module):
 
     def __init__(self, vocab_size: int, embedding_dim: int,
                  fc_sizes: Sequence[int], num_sparse: int, dense_dim: int,
-                 table_dtype: torch.dtype = torch.float32, device=None,
-                 generator: Optional[torch.Generator] = None,
-                 external_update: bool = False, delta_capacity: int = 0):
+                 table_kwargs: Optional[Mapping[str, Any]] = None, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.embedding_dim = embedding_dim
         self.embedding = SlotEmbedding(
-            vocab_size, embedding_dim + 1, dtype=table_dtype, device=device,
-            generator=generator, external_update=external_update,
-            delta_capacity=delta_capacity,
+            vocab_size, embedding_dim + 1, device=device, generator=generator,
+            **(table_kwargs or {}),
         )  # lanes [0:E] = emb, lane E = wide weight
         self.wide_dense_w = nn.Parameter(
             torch.randn(dense_dim, generator=generator, device=device) * 1e-4
@@ -68,6 +66,6 @@ class ModelDef(CTRModelDef):
                     generator: Optional[torch.Generator] = None) -> nn.Module:
         return WideDeepNet(
             self.vocab_size, self.embedding_dim, self.fc_sizes,
-            self.num_sparse, self.dense_dim, table_dtype=self.table_dtype(),
-            device=device, generator=generator, **self.sparse_embed_kwargs(),
+            self.num_sparse, self.dense_dim, table_kwargs=self.table_kwargs(),
+            device=device, generator=generator,
         )

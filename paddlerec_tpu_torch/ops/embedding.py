@@ -19,6 +19,14 @@ no such parameter and allocates nothing of that size, but keeps the
 capacity check, since users' configs name ``sparse_update_capacity``.
 Without a recorded gradient (``torch.no_grad()``, evaluation, serving) the
 lookup is the same one K1 launch as the plain path.
+
+**Unpacked table** (``packed=False``, what ffm and fat_deepffm use for rows
+wider than 128 lanes): ``embedding`` is a plain ``(vocab, E)`` parameter
+drawn normal(``init_stddev``), and the lookup is ``take(table, ids,
+mode="clip")``: one K1 launch on the table itself, K1b in the backward.  As
+in the JAX package this branch ignores ``external_update`` (only the packed
+branch reads it there): the table keeps its gradient and the dense optimizer
+steps it, also in a sparse run.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ from torch import nn
 
 from paddlerec_tpu_torch.ops.gather_pool import gather_pool
 from paddlerec_tpu_torch.ops.packed_embedding import (
-    init_packed_table, logical_view, packed_lookup,
+    fill_normal, init_packed_table, logical_view, packed_lookup,
 )
 
 
@@ -47,6 +55,8 @@ class SlotEmbedding(nn.Module):
       combiner: 'sum' | 'mean' pooling over the L axis; 'mean' divides by
         max(mask.sum(L), 1), or by L without a mask.
       hash_ids: apply ``ids % vocab_size`` (floor modulo, as in JAX).
+      packed: the packed 128-lane layout (default), or a plain (vocab, E)
+        table for rows wider than 128 lanes; see the module docstring.
       external_update: sparse-update mode, see the module docstring;
         ``delta_capacity`` bounds the lookup positions per batch and must be
         set explicitly (``CTRModelDef.sparse_embed_kwargs`` does).
@@ -56,7 +66,8 @@ class SlotEmbedding(nn.Module):
                  combiner: str = "sum", hash_ids: bool = True,
                  dtype: torch.dtype = torch.float32, init_stddev: float = 1e-2,
                  device=None, generator: Optional[torch.Generator] = None,
-                 external_update: bool = False, delta_capacity: int = 0):
+                 external_update: bool = False, delta_capacity: int = 0,
+                 packed: bool = True):
         super().__init__()
         if combiner not in ("sum", "mean"):
             raise ValueError(f"combiner must be 'sum' or 'mean', not {combiner!r}")
@@ -64,14 +75,21 @@ class SlotEmbedding(nn.Module):
         self.embedding_dim = embedding_dim
         self.combiner = combiner
         self.hash_ids = hash_ids
-        self.external_update = bool(external_update)
+        self.packed = bool(packed)
+        self.external_update = bool(external_update) and self.packed
         self.delta_capacity = int(delta_capacity)
-        # in external mode the optimizer steps rows, not the parameter: it
-        # takes no gradient, so none of the table's size is ever allocated
-        self.embedding = nn.Parameter(init_packed_table(
-            vocab_size, embedding_dim, stddev=init_stddev, dtype=dtype,
-            generator=generator, device=device,
-        ), requires_grad=not self.external_update)
+        if not self.packed:
+            self.embedding = nn.Parameter(fill_normal(
+                torch.empty((vocab_size, embedding_dim), dtype=dtype,
+                            device=device), init_stddev, generator))
+        else:
+            # in external mode the optimizer steps rows, not the parameter:
+            # it takes no gradient, so none of the table's size is ever
+            # allocated
+            self.embedding = nn.Parameter(init_packed_table(
+                vocab_size, embedding_dim, stddev=init_stddev, dtype=dtype,
+                generator=generator, device=device,
+            ), requires_grad=not self.external_update)
         self._delta_tap: Optional[torch.Tensor] = None
 
     @staticmethod
@@ -133,16 +151,19 @@ class SlotEmbedding(nn.Module):
                                          device=ids.device))
                 pooled = pooled / torch.clamp(denom, min=1.0)
             return pooled
+        view = (logical_view(self.embedding, e) if self.packed
+                else self.embedding)
         if ids.dim() == 2:  # (B, S) → (B, S, E)
-            return packed_lookup(self.embedding, ids, e)
+            if self.packed:
+                return packed_lookup(self.embedding, ids, e)
+            return gather_pool(view, ids.reshape(-1, 1)).reshape(ids.shape + (e,))
         b, s, pool = ids.shape
         flat_mask, out_dtype = None, None
         if mask is not None:
             flat_mask = mask.reshape(b * s, pool)
             out_dtype = torch.promote_types(self.embedding.dtype, mask.dtype)
         pooled = gather_pool(
-            logical_view(self.embedding, e), ids.reshape(b * s, pool),
-            flat_mask, out_dtype,
+            view, ids.reshape(b * s, pool), flat_mask, out_dtype,
         )[:, :e].reshape(b, s, e)
         if self.combiner == "mean":
             if mask is not None:

@@ -20,7 +20,8 @@ memory-bound; each source says how its design follows from that.
 ``gather_pool`` takes the plain version only for tensors on the CPU, where
 autograd derives the gradient.  For a CUDA tensor it launches K1, and K1b in
 the backward pass, or raises; ``gather_pool.launches`` and
-``gather_pool_bwd.launches`` count the launches.
+``gather_pool_bwd.launches`` count the launches (``launches_by_dim`` of each
+counts the same launches by row width D).
 
 Ids out of range: the forward clips them to ``[0, R-1]``; the backward drops
 them (they add nothing to ``dtable``), negative ids included, on the CPU and
@@ -29,6 +30,7 @@ on the card alike.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Dict, Optional
 
@@ -168,6 +170,7 @@ def _gather_pool_cuda(table: torch.Tensor, ids: torch.Tensor,
         )
     _check_launch(lib, rc, "gather_pool")
     gather_pool.launches += 1
+    gather_pool.launches_by_dim[dim] += 1
     return out
 
 
@@ -228,6 +231,7 @@ def gather_pool_bwd(g: torch.Tensor, ids: torch.Tensor,
         )
     _check_launch(lib, rc, "gather_pool_bwd")
     gather_pool_bwd.launches += 1
+    gather_pool_bwd.launches_by_dim[dim] += 1
     return dtable
 
 
@@ -276,3 +280,6 @@ def gather_pool(table: torch.Tensor, ids: torch.Tensor,
 
 gather_pool.launches = 0
 gather_pool_bwd.launches = 0
+# the same launches by row width D, counted at the same two places
+gather_pool.launches_by_dim = collections.Counter()
+gather_pool_bwd.launches_by_dim = collections.Counter()

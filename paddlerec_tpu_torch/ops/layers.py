@@ -1,18 +1,27 @@
-"""Shared layers: the MLP tower and the FM second-order interaction.
+"""Shared layers of the rank models: the MLP tower, the FM terms, the three
+cross networks and CIN.
 
-Counterparts of ``MLP`` and ``fm_second_order`` in
-``paddlerec_tpu/ops/layers.py``.  Dense products stay ``nn.Linear`` (cuBLAS
-on the card), as the JAX package left them to XLA.
+Counterparts of ``MLP``, ``FMFirstOrder``, ``fm_second_order``,
+``FMInteraction``, ``CrossNet``, ``CrossNetV2``, ``CrossNetMix`` and ``CIN``
+in ``paddlerec_tpu/ops/layers.py``, with the flax tree's parameter names.
+Dense products stay ``nn.Linear`` / ``torch.einsum`` (cuBLAS on the card), as
+the JAX package left them to XLA outside any Pallas kernel; the one lookup
+here (``FMFirstOrder``) goes through kernel K1.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from paddlerec_tpu_torch.ops.packed_embedding import (
+    init_packed_table, packed_lookup,
+)
 
 _ACTIVATIONS = {
     "relu": F.relu,
@@ -24,6 +33,19 @@ _ACTIVATIONS = {
     "none": lambda x: x,
     "linear": lambda x: x,
 }
+
+
+def scaled_dense(in_dim: int, out_dim: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None) -> nn.Linear:
+    """A linear layer with normal(1/sqrt(fan_in)) weights and zero bias: the
+    init of the towers' layers."""
+    fc = nn.Linear(in_dim, out_dim, bias=bias, device=device, dtype=dtype)
+    with torch.no_grad():
+        fc.weight.normal_(0.0, 1.0 / math.sqrt(in_dim), generator=generator)
+        if bias:
+            fc.bias.zero_()
+    return fc
 
 
 class MLP(nn.Module):
@@ -45,12 +67,8 @@ class MLP(nn.Module):
         self.num_layers = len(layer_sizes)
         fan_in = in_dim
         for i, size in enumerate(layer_sizes):
-            fc = nn.Linear(fan_in, size, bias=use_bias, device=device, dtype=dtype)
-            with torch.no_grad():
-                fc.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
-                if use_bias:
-                    fc.bias.zero_()
-            self.add_module(f"fc_{i}", fc)
+            self.add_module(f"fc_{i}", scaled_dense(
+                fan_in, size, use_bias, dtype, device, generator))
             fan_in = size
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -61,17 +79,43 @@ class MLP(nn.Module):
 
 
 def flax_dense(in_dim: int, out_dim: int, device=None,
-               generator: Optional[torch.Generator] = None) -> nn.Linear:
+               generator: Optional[torch.Generator] = None,
+               bias: bool = True) -> nn.Linear:
     """A linear layer initialized as flax's ``Dense`` default:
     ``lecun_normal`` weights (a normal of variance 1/fan_in, truncated at
-    two standard deviations), zero bias."""
-    fc = nn.Linear(in_dim, out_dim, device=device)
+    two standard deviations), zero bias (or none: ``use_bias=False``)."""
+    fc = nn.Linear(in_dim, out_dim, bias=bias, device=device)
     with torch.no_grad():
         std = math.sqrt(1.0 / in_dim) / 0.87962566103423978
         nn.init.trunc_normal_(fc.weight, 0.0, std, -2 * std, 2 * std,
                               generator=generator)
-        fc.bias.zero_()
+        if bias:
+            fc.bias.zero_()
     return fc
+
+
+def normal_param(shape, stddev: float, device=None,
+                 generator: Optional[torch.Generator] = None) -> nn.Parameter:
+    """A float32 parameter drawn normal(0, stddev) from ``generator``."""
+    return nn.Parameter(
+        torch.randn(shape, generator=generator, device=device) * stddev)
+
+
+@functools.lru_cache(maxsize=None)
+def triu_pairs(n: int, offset: int,
+               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row and column indices of the upper triangle of an (n, n) matrix in
+    row-major order (``jnp.triu_indices(n, k=offset)``), on ``device``; built
+    once per device and kept."""
+    i, j = torch.triu_indices(n, n, offset=offset, device=device)
+    return i, j
+
+
+@functools.lru_cache(maxsize=None)
+def triu_mask(n: int, device: torch.device) -> torch.Tensor:
+    """The (n, n) float32 mask of the strict upper triangle, on ``device``;
+    built once per device and kept."""
+    return torch.triu(torch.ones((n, n), device=device), diagonal=1)
 
 
 def fm_second_order(emb: torch.Tensor) -> torch.Tensor:
@@ -83,3 +127,190 @@ def fm_second_order(emb: torch.Tensor) -> torch.Tensor:
     sum_sq = summed * summed
     sq_sum = (emb * emb).sum(dim=1)
     return 0.5 * (sum_sq - sq_sum).sum(dim=-1)
+
+
+class FMFirstOrder(nn.Module):
+    """First-order FM term: a rank-1 weight per sparse id, summed over the
+    slots, plus ``dense @ dense_w`` (with ``dense_dim > 0``) and a scalar
+    bias.  ``sparse_w`` is a packed table of logical width 1 (16 ids per
+    128-lane row), read through one K1 launch on its ``(R·16, 8)`` view.  As
+    in the JAX package it is a raw parameter, not a ``SlotEmbedding``: always
+    float32, never in external-update mode."""
+
+    def __init__(self, vocab_size: int, dense_dim: int = 0, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.sparse_w = nn.Parameter(init_packed_table(
+            vocab_size, 1, stddev=1e-4, generator=generator, device=device))
+        if dense_dim:
+            self.dense_w = normal_param((dense_dim,), 1e-4, device, generator)
+        self.bias = nn.Parameter(torch.zeros((), device=device))
+
+    def forward(self, sparse_ids: torch.Tensor,
+                dense: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ids = (sparse_ids % self.vocab_size).to(torch.int32)
+        first = packed_lookup(self.sparse_w, ids, 1).sum(dim=(-2, -1))  # (B,)
+        if dense is not None:
+            first = first + dense @ self.dense_w
+        return first + self.bias
+
+
+class FMInteraction(nn.Module):
+    """Second-order FM over field embeddings (B, S, E); returns (B,) or,
+    with ``reduce_dim=False``, the per-lane terms (B, E)."""
+
+    def __init__(self, reduce_dim: bool = True):
+        super().__init__()
+        self.reduce_dim = reduce_dim
+
+    def forward(self, emb: torch.Tensor) -> torch.Tensor:
+        summed = emb.sum(dim=1)
+        sq_sum = (emb * emb).sum(dim=1)
+        pair = 0.5 * (summed * summed - sq_sum)  # (B, E)
+        return pair.sum(dim=-1) if self.reduce_dim else pair
+
+
+class CrossNet(nn.Module):
+    """DCN-v1 cross layers: x_{l+1} = x0 * (x_l · w_l) + b_l + x_l.
+
+    ``share_weights``: one ``layer_w`` / ``layer_b`` for all layers (what
+    dcn uses); else ``w_i`` / ``b_i`` per layer.  With ``return_l2`` the
+    forward also returns Σ_layers Σ (x ⊙ w)², the per-batch product that
+    dcn's ``l2_reg_cross`` penalizes."""
+
+    def __init__(self, dim: int, num_layers: int, share_weights: bool = False,
+                 return_l2: bool = False, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_layers = num_layers
+        self.share_weights = share_weights
+        self.return_l2 = return_l2
+        std = 1.0 / math.sqrt(dim)
+        if share_weights:
+            self.layer_w = normal_param((dim,), std, device, generator)
+            self.layer_b = nn.Parameter(torch.zeros(dim, device=device))
+        else:
+            for i in range(num_layers):
+                setattr(self, f"w_{i}", normal_param((dim,), std, device, generator))
+                setattr(self, f"b_{i}",
+                        nn.Parameter(torch.zeros(dim, device=device)))
+
+    def forward(self, x0: torch.Tensor):
+        x = x0
+        l2 = x0.new_zeros(())
+        for i in range(self.num_layers):
+            if self.share_weights:
+                w, b = self.layer_w, self.layer_b
+            else:
+                w, b = getattr(self, f"w_{i}"), getattr(self, f"b_{i}")
+            prod = x * w
+            if self.return_l2:
+                l2 = l2 + torch.sum(prod ** 2)
+            x = x0 * prod.sum(dim=-1, keepdim=True) + b + x
+        if self.return_l2:
+            return x, l2
+        return x
+
+
+class CrossNetV2(nn.Module):
+    """DCN-v2 cross: x_{l+1} = x0 ⊙ (W_l x_l + b_l) + x_l, with full-rank
+    ``cross_i`` linear layers (weights normal(1/√d), zero bias)."""
+
+    def __init__(self, dim: int, num_layers: int, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"cross_{i}", scaled_dense(
+                dim, dim, device=device, generator=generator))
+
+    def forward(self, x0: torch.Tensor) -> torch.Tensor:
+        x = x0
+        for i in range(self.num_layers):
+            x = x0 * getattr(self, f"cross_{i}")(x) + x
+        return x
+
+
+class CrossNetMix(nn.Module):
+    """DCN-v2 low-rank mixture-of-experts cross layer:
+
+    x_{l+1} = Σ_e G_e(x_l) · (x0 ⊙ (U_e tanh(C_e tanh(V_eᵀ x_l)) + b)) + x_l
+
+    Raw parameters per layer ``U_l``, ``V_l`` (e, d, r), ``C_l`` (e, r, r),
+    ``b_l`` (d,), ``gate_l`` (e, d); all but the bias normal(1/√d), the JAX
+    package's own deviation from the Xavier init of its reference."""
+
+    def __init__(self, dim: int, num_layers: int, low_rank: int = 32,
+                 num_experts: int = 4, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_layers = num_layers
+        std = 1.0 / math.sqrt(dim)
+        e, r = num_experts, low_rank
+        for layer in range(num_layers):
+            # in the order the flax module creates them
+            setattr(self, f"U_{layer}", normal_param((e, dim, r), std, device, generator))
+            setattr(self, f"V_{layer}", normal_param((e, dim, r), std, device, generator))
+            setattr(self, f"C_{layer}", normal_param((e, r, r), std, device, generator))
+            setattr(self, f"b_{layer}",
+                    nn.Parameter(torch.zeros(dim, device=device)))
+            setattr(self, f"gate_{layer}", normal_param((e, dim), std, device, generator))
+
+    def forward(self, x0: torch.Tensor) -> torch.Tensor:
+        x = x0
+        for layer in range(self.num_layers):
+            u, v = getattr(self, f"U_{layer}"), getattr(self, f"V_{layer}")
+            c, b = getattr(self, f"C_{layer}"), getattr(self, f"b_{layer}")
+            gates = torch.softmax(x @ getattr(self, f"gate_{layer}").T, dim=-1)
+            vx = torch.tanh(torch.einsum("bd,edr->ebr", x, v))
+            cvx = torch.tanh(torch.einsum("ebr,ers->ebs", vx, c))
+            ux = torch.einsum("ebr,edr->ebd", cvx, u)  # (e, B, d)
+            expert_out = x0[None] * (ux + b)
+            x = torch.einsum("ebd,be->bd", expert_out, gates) + x
+        return x
+
+
+class CIN(nn.Module):
+    """Compressed Interaction Network (xDeepFM) over fields (B, F, E).
+
+    Layer k: X^k_h = Σ_{i,j} W^k_{h,i,j} (X^{k-1}_i ∘ X^0_j), with
+    ``cin_w_k`` (size, f_k, f_0) normal(1/√(f_k·f_0)).  As in the JAX
+    package the outer product ``z`` (B, f_k, f_0, E) is formed and then
+    contracted with W, two einsums, so the order of the sums is the
+    reference's; autograd keeps ``z`` for the backward pass.  With
+    ``split_half`` every layer but the last sends half of its maps on and
+    half to the output, and an odd size raises."""
+
+    def __init__(self, num_fields: int, layer_sizes: Sequence[int],
+                 split_half: bool = True, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.layer_sizes = list(layer_sizes)
+        self.split_half = split_half
+        fk = num_fields
+        for k, size in enumerate(self.layer_sizes):
+            setattr(self, f"cin_w_{k}", normal_param(
+                (size, fk, num_fields), 1.0 / math.sqrt(fk * num_fields),
+                device, generator))
+            if split_half and k < len(self.layer_sizes) - 1:
+                if size % 2:
+                    raise ValueError("split_half requires even CIN layer sizes")
+                fk = size // 2
+            else:
+                fk = size
+
+    def forward(self, emb: torch.Tensor) -> torch.Tensor:
+        x0 = xk = emb
+        outputs = []
+        last = len(self.layer_sizes) - 1
+        for k, size in enumerate(self.layer_sizes):
+            z = torch.einsum("bie,bje->bije", xk, x0)
+            xk_next = torch.einsum("bije,hij->bhe", z, getattr(self, f"cin_w_{k}"))
+            if self.split_half and k < last:
+                half = size // 2
+                direct, xk = xk_next[:, :half], xk_next[:, half:]
+            else:
+                direct = xk = xk_next
+            outputs.append(direct.sum(dim=-1))
+        return torch.cat(outputs, dim=-1)

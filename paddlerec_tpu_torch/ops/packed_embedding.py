@@ -21,7 +21,7 @@ import torch
 from paddlerec_tpu_torch.ops.gather_pool import gather_pool
 
 
-_INIT_BLOCK_ROWS = 1 << 20  # 512 MB of float32 per block
+_INIT_BLOCK_BYTES = 1 << 29  # float32 noise drawn at a time (2^20 packed rows)
 
 
 def sub_width(embedding_dim: int) -> int:
@@ -60,21 +60,29 @@ def packed_lookup(table: torch.Tensor, ids: torch.Tensor,
     return vecs[:, :embedding_dim].reshape(ids.shape + (embedding_dim,))
 
 
+def fill_normal(table: torch.Tensor, stddev: float,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """normal(0, stddev) into the 2-D ``table`` in place, drawn in float32
+    blocks of rows on the table's device (``generator`` must live there) and
+    cast block by block, so a table of gigabytes never has a float32 copy."""
+    rows, width = table.shape
+    step = max(_INIT_BLOCK_BYTES // (4 * max(width, 1)), 1)
+    for start in range(0, rows, step):
+        n = min(step, rows - start)
+        block = torch.randn((n, width), generator=generator, device=table.device)
+        table[start:start + n] = block.mul_(stddev)
+    return table
+
+
 def init_packed_table(vocab_size: int, embedding_dim: int,
                       stddev: float = 1e-2, dtype: torch.dtype = torch.float32,
                       generator: Optional[torch.Generator] = None,
                       device=None) -> torch.Tensor:
     """Normal·stddev packed table (pad lanes are initialized too — they are
-    never read).  ``generator`` must live on ``device``.  Drawn in float32
-    blocks of ``_INIT_BLOCK_ROWS`` rows on the device and cast into the table
-    block by block, so a table of gigabytes never has a float32 copy."""
-    rows, lanes = packed_shape(vocab_size, embedding_dim)
-    table = torch.empty((rows, lanes), dtype=dtype, device=device)
-    for start in range(0, rows, _INIT_BLOCK_ROWS):
-        n = min(_INIT_BLOCK_ROWS, rows - start)
-        block = torch.randn((n, lanes), generator=generator, device=device)
-        table[start:start + n] = block.mul_(stddev)
-    return table
+    never read).  ``generator`` must live on ``device``."""
+    shape = packed_shape(vocab_size, embedding_dim)
+    return fill_normal(torch.empty(shape, dtype=dtype, device=device),
+                       stddev, generator)
 
 
 def unpack_table(table: np.ndarray, vocab_size: int, embedding_dim: int) -> np.ndarray:

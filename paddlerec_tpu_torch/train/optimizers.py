@@ -35,6 +35,17 @@ bfloat16 table steps as it does there:
   with ``embedding`` in a component of its name) and ``optax.adam(lr)`` on
   the rest: rows of a leaf of rank >= 2 whose gradient is all zero keep
   their moments and take no step; one count serves both.
+* **GRDA** is ``grda`` of ``paddlerec_tpu/train/optimizers.py`` (generalized
+  regularized dual averaging, the gate optimizer of AutoFIS's search stage):
+  ``a += [t = 0]·p − lr·g``, ``ℓ1 += c·lr^(0.5+μ)·((t+1)^μ − t^μ)``,
+  ``p = sign(a)·max(|a| − ℓ1, 0)``, so weights reach zero exactly.  The
+  accumulator starts uniform(−0.1, 0.1), a permanent per-weight offset.  The
+  JAX package draws it from ``jax.random.PRNGKey(20211015)``; the port draws
+  its own from a ``torch.Generator`` seeded with the same constant, so a run
+  is reproducible, but the two packages' accumulators differ unless one is
+  carried across (``convert.grda_state_from_optax``).
+* ``MultiOptimizer`` is ``optax.multi_transform``: one optimizer per named
+  group of leaves, each with its own state under the group's label.
 * ``clip_by_global_norm`` is ``optax.clip_by_global_norm``, applied to the
   gradients before the step.  ``embedding_l2`` is
   ``optax.add_decayed_weights(-embedding_l2 * lr)`` on the embedding tables
@@ -230,6 +241,41 @@ def rmsprop_step(params: Tensors, grads: Tensors, state: OptState, lr: float,
     return updates
 
 
+GRDA_ACCUMULATOR_SEED = 20211015
+
+
+def grda_init(params: Tensors) -> OptState:
+    """The accumulator is drawn on the host, whatever the parameters' device,
+    so that a run on the card starts where the same run on the CPU does."""
+    gen = torch.Generator().manual_seed(GRDA_ACCUMULATOR_SEED)
+    acc = {k: torch.rand(p.shape, generator=gen).mul_(0.2).sub_(0.1)
+           .to(device=p.device, dtype=p.dtype) for k, p in params.items()}
+    return {"accumulator": acc, "l1_accumulation": 0.0, "count": 0}
+
+
+@torch.no_grad()
+def grda_step(params: Tensors, grads: Tensors, state: OptState, lr: float,
+              c: float = 0.0, mu: float = 0.7) -> Updates:
+    """GRDA on the named parameters; returns ``new_p − p``, so that adding
+    it lands on ``new_p`` (and on zero exactly where ``new_p`` is zero).  The
+    threshold is accumulated in float32 on the host, as the JAX package
+    accumulates it in a float32 scalar."""
+    t, mu32 = np.float32(state["count"]), np.float32(mu)
+    scale = np.float32(c * lr ** (0.5 + mu))
+    l1 = float(np.float32(state["l1_accumulation"])
+               + (scale * (t + np.float32(1.0)) ** mu32 - scale * t ** mu32))
+    updates = {}
+    for k, p in params.items():
+        a = state["accumulator"][k]
+        if state["count"] == 0:
+            a.add_(p)
+        a.sub_(lr * grads[k])
+        updates[k] = torch.sign(a) * torch.clamp(a.abs() - l1, min=0.0) - p
+    state["l1_accumulation"] = l1
+    state["count"] += 1
+    return updates
+
+
 def is_table_name(name: str) -> bool:
     """A ``state_dict`` name of an embedding table: the leaves
     ``embedding_l2`` decays (``is_embedding_path`` of the JAX package)."""
@@ -245,8 +291,10 @@ class Optimizer:
     def __init__(self, name: str, lr: float, clip: Optional[float] = None,
                  initial_accumulator_value: float = 0.1, lazy: bool = False,
                  weight_decay: float = 1e-4, embedding_l2: float = 0.0,
-                 runtime_inject: bool = False):
-        if name not in ("adam", "sgd", "adagrad", "rmsprop", "adamw"):
+                 runtime_inject: bool = False,
+                 mu_dtype: Optional[torch.dtype] = torch.float32,
+                 grda_c: float = 0.0, grda_mu: float = 0.7):
+        if name not in ("adam", "sgd", "adagrad", "rmsprop", "adamw", "grda"):
             raise ValueError(f"unknown optimizer {name!r}")
         self.name = name
         self.lr = float(lr)
@@ -256,11 +304,18 @@ class Optimizer:
         self.weight_decay = float(weight_decay) if name == "adamw" else 0.0
         self.embedding_l2 = float(embedding_l2)
         self.runtime_inject = bool(runtime_inject)
+        # plain Adam's first moment: float32 (``optax.adam(lr,
+        # mu_dtype=float32)``, what ``ModelDef.create_optimizer`` builds) or,
+        # with None, the parameter's dtype (``optax.adam(lr)``)
+        self.mu_dtype = mu_dtype
+        self.grda_c, self.grda_mu = float(grda_c), float(grda_mu)
 
     def init(self, params: Tensors) -> OptState:
         if self.name in ("adam", "adamw"):
             plain = self.name == "adam" and not self.lazy
-            state = adam_init(params, torch.float32 if plain else None)
+            state = adam_init(params, self.mu_dtype if plain else None)
+        elif self.name == "grda":
+            state = grda_init(params)
         elif self.name == "adagrad":
             state = adagrad_init(params, self.initial_accumulator_value)
         elif self.name == "rmsprop":
@@ -285,6 +340,8 @@ class Optimizer:
             updates = adam_step(dense, grads, state, lr)
             updates.update(lazy_adam_step(tables, grads, state, lr))
             return updates
+        if self.name == "grda":
+            return grda_step(params, grads, state, lr, self.grda_c, self.grda_mu)
         step = {"sgd": sgd_step, "adagrad": adagrad_step,
                 "rmsprop": rmsprop_step}[self.name]
         return step(params, grads, state, lr)
@@ -307,3 +364,29 @@ class Optimizer:
         # (p + u).to(p.dtype): a bfloat16 parameter adds in float32, rounds once
         torch._foreach_add_([params[k] for k in names],
                             [updates[k] for k in names])
+
+
+class MultiOptimizer:
+    """``optax.multi_transform``: ``groups`` maps a label to the
+    ``Optimizer`` of that group, ``label`` a parameter's ``state_dict`` name
+    to its label.  The state is ``{label: that optimizer's state}``, so it
+    passes through ``TrainState`` and the checkpoint as any other."""
+
+    def __init__(self, groups: Mapping[str, Optimizer], label):
+        self.groups = dict(groups)
+        self.label = label
+
+    def _split(self, tensors: Tensors) -> Dict[str, Dict[str, torch.Tensor]]:
+        out: Dict[str, Dict[str, torch.Tensor]] = {g: {} for g in self.groups}
+        for k, v in tensors.items():
+            out[self.label(k)][k] = v
+        return out
+
+    def init(self, params: Tensors) -> OptState:
+        split = self._split(params)
+        return {g: opt.init(split[g]) for g, opt in self.groups.items()}
+
+    def apply(self, params: Tensors, grads: Tensors, state: OptState) -> None:
+        split = self._split(params)
+        for g, opt in self.groups.items():
+            opt.apply(split[g], {k: grads[k] for k in split[g]}, state[g])

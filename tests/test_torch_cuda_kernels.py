@@ -27,17 +27,20 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dim,pool", [(16, 1), (128, 8), (10, 3), (16, 200)])
+@pytest.mark.parametrize("dim,pool", [(16, 1), (128, 8), (10, 3), (16, 200),
+                                      # lr's 8-lane view; ffm's 351-lane unpacked rows
+                                      (8, 1), (8, 3), (351, 1), (351, 3)])
 def test_gather_pool_kernel_matches_plain(cuda, dtype, dim, pool):
     rng = np.random.RandomState(dim + pool)
     table = torch.from_numpy(rng.randn(1000, dim).astype(np.float32)).to(cuda, dtype)
     ids = torch.from_numpy(rng.randint(-2, 1002, (13313, pool)).astype(np.int32)).to(cuda)
     mask = torch.from_numpy((rng.rand(13313, pool) < 0.7).astype(np.float32)).to(cuda)
     for m in (None, mask):
-        before = gather_pool.launches
+        before, wide = gather_pool.launches, gather_pool.launches_by_dim[dim]
         out = gather_pool(table, ids, m)
         torch.cuda.synchronize()
         assert gather_pool.launches == before + 1
+        assert gather_pool.launches_by_dim[dim] == wide + 1
         ref = gather_pool_plain(table, ids, m)
         assert out.dtype == dtype and out.shape == (13313, dim)
         if pool == 1:
@@ -98,7 +101,8 @@ def test_gather_pool_f32_output_from_bf16_table(cuda):
 @pytest.mark.parametrize("g_dtype,dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.float32, torch.bfloat16)])
-@pytest.mark.parametrize("dim,pool", [(16, 1), (128, 8), (10, 3), (16, 200)])
+@pytest.mark.parametrize("dim,pool", [(16, 1), (128, 8), (10, 3), (16, 200),
+                                      (8, 1), (8, 3), (351, 1), (351, 3)])
 def test_gather_pool_bwd_kernel_matches_plain(cuda, g_dtype, dtype, dim, pool):
     rng = np.random.RandomState(dim + pool)
     rows, n = 1000, 4099
@@ -106,10 +110,11 @@ def test_gather_pool_bwd_kernel_matches_plain(cuda, g_dtype, dtype, dim, pool):
     ids = torch.from_numpy(rng.randint(-2, rows + 2, (n, pool)).astype(np.int32)).to(cuda)
     mask = torch.from_numpy((rng.rand(n, pool) < 0.7).astype(np.float32)).to(cuda)
     for m in (None, mask):
-        before = gather_pool_bwd.launches
+        before, wide = gather_pool_bwd.launches, gather_pool_bwd.launches_by_dim[dim]
         out = gather_pool_bwd(g, ids, m, rows, dtype)
         torch.cuda.synchronize()
         assert gather_pool_bwd.launches == before + 1
+        assert gather_pool_bwd.launches_by_dim[dim] == wide + 1
         ref = gather_pool_bwd_plain(g, ids, m, rows, dtype)
         assert out.dtype == dtype and out.shape == (rows, dim)
         # every row takes n*pool/rows adds (4 to 800) of size ~1, by atomics
@@ -174,3 +179,26 @@ def test_slot_embedding_trains_on_cuda_like_cpu(cuda):
         (emb(ids.to(device)) ** 2).sum().backward()
         grads.append(emb.embedding.grad.cpu())
     torch.testing.assert_close(grads[1], grads[0], rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unpacked_slot_embedding_cuda_matches_cpu(cuda, dtype):
+    """ffm's table: 351-lane rows that are no multiple of 16 bytes, read and
+    trained through K1 and K1b on the table itself."""
+    rng = np.random.RandomState(3)
+    ids = torch.from_numpy(rng.randint(0, 10**6, (16, 26)))
+    outs, grads = [], []
+    for device in (torch.device("cpu"), cuda):
+        emb = SlotEmbedding(2000, 351, packed=False, dtype=dtype,
+                            generator=torch.Generator().manual_seed(0)).to(device)
+        fwd, bwd = gather_pool.launches, gather_pool_bwd.launches
+        out = emb(ids.to(device))
+        (out.float() ** 2).sum().backward()
+        assert (gather_pool.launches - fwd, gather_pool_bwd.launches - bwd) == (
+            (1, 1) if device.type == "cuda" else (0, 0))
+        outs.append(out.detach().cpu())
+        grads.append(emb.embedding.grad.float().cpu())
+    assert torch.equal(outs[0], outs[1])
+    tol = dict(rtol=1e-6, atol=1e-7) if dtype == torch.float32 else dict(rtol=2e-2, atol=1e-4)
+    torch.testing.assert_close(grads[1], grads[0], **tol)
