@@ -64,12 +64,26 @@ without a result line:
     launches by row width; dlrm beside the same run on the CPU (its loss may
     stay at log 2 only if the twin's head died too); dcn_v2 also with
     ``sparse_update: true`` (bfloat16 table, row-wise adagrad);
-    ``torch.profiler`` over the dcn_v2 and xdeepfm train step.
+    ``torch.profiler`` over the dcn_v2 and xdeepfm train step;
+13. the behaviour-sequence models (din, dien, bst, dsin, dmr, dpin): each
+    model's ``configs/rank/<model>/config.yaml`` at full width, a module on the
+    card and its twin on the CPU from one seed, one forward and three train
+    steps at the config's batch 32, predictions and losses card against CPU
+    (atol 1e-5), one K1 launch per ``Embed`` table and forward and one K1b per
+    table and step, asserted by row width;
+14. din and dien through the entry points on rows in ``DINDataset``'s format
+    written from ``--seed`` (a planted signal): ``Trainer.train()`` for two
+    epochs of 300 steps at batch 32, the loss falling, ``evaluate()`` from the
+    checkpoint, ``export_model`` and ``run_predict`` at batch 32 and 1024 card
+    against CPU (atol 1e-5), ``torch.profiler`` over one train step each; dmr
+    through ``tools.train`` on rows in its own format;
+15. K1 and K1b timed at the sequence models' shapes (fill mode).
 
-Phase 3 covers the two shapes the zoo adds to the main path: rows of 8 lanes
-(the view of lr's and ffm's width-1 packed table) and of 351 lanes (ffm's
-unpacked table, rows of 1,404 bytes: both kernels' scalar path); phase 7 times
-both kernels there.
+Phase 3 covers the shapes the zoo and the sequence models add to the main
+path: rows of 8 lanes (the view of lr's and ffm's width-1 packed table), of
+351 lanes (ffm's unpacked table, rows of 1,404 bytes: both kernels' scalar
+path), and the ``Embed`` tables in fill mode at D = 1, 4, 32 and 64 (ids out
+of range among them); phases 7 and 15 time both kernels there.
 
 Standard output: the ``nvidia-smi`` line, one JSON line per phase's result
 (each tagged with the card), the ``{"kernels": [...]}`` line, and last
@@ -196,17 +210,32 @@ def check_k1(gp, seed: int, card: str, wide: torch.Tensor) -> float:
         ("bf16 D351 L3 mask", wide_bf16, ids(4096, 3, wide.shape[0]), mask01(4096, 3),
          (1e-2, 1e-5)),
     ]
+    # the sequence models' tables (Embed: fill mode, plain float32 tables,
+    # one id per row, N = all ids of a call at batch 32): din's item table
+    # (history and target, D=64) and its 4-byte item bias (D=1, the scalar
+    # path), dsin's brand table (D=4, 16-byte rows), dmr's brand table
+    # (D=32); each also with ids out of range (a NaN row where jnp.take
+    # gives one)
+    for dim, rows, n in ((64, 63001, 32 * 128 + 32), (1, 63001, 32), (4, 461499, 32 + 1600),
+                         (32, 461529, 32 + 1600)):
+        table = torch.randn(rows, dim, device="cuda", generator=g)
+        cases.append((f"fill f32 D{dim} L1 N{n}", table, ids(n, 1, rows), None, "bitwise"))
+        cases.append((f"fill f32 D{dim} L1 out of range", table,
+                      ids(4096, 1, 3 * rows) - rows - 1, None, "bitwise"))
     results, main_err = [], 0.0
     for name, table, idx, mask, tol in cases:
         # "→f32": the float32 sum of bf16 rows, written unrounded
         out_dtype = torch.float32 if name.endswith("→f32") else None
-        out = gp.gather_pool(table, idx, mask, out_dtype)
+        mode = "fill" if name.startswith("fill") else "clip"
+        out = gp.gather_pool(table, idx, mask, out_dtype, mode=mode)
         torch.cuda.synchronize()
-        ref = gp.gather_pool_plain(table, idx, mask, out_dtype)
+        ref = gp.gather_pool_plain(table, idx, mask, out_dtype, mode=mode)
         torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        if tol == "bitwise":
-            ok = torch.equal(out, ref)
+        err = float((out.float() - ref.float()).nan_to_num().abs().max())
+        if mode == "fill" and not torch.equal(out.isnan(), ref.isnan()):
+            ok = False
+        elif tol == "bitwise":
+            ok = torch.equal(out.nan_to_num(), ref.nan_to_num())
         elif tol == "zero":
             ok = float(out.abs().max()) == 0.0
         else:
@@ -218,7 +247,7 @@ def check_k1(gp, seed: int, card: str, wide: torch.Tensor) -> float:
         })
         if not ok:
             raise AssertionError(f"K1 disagrees with its plain version: {results[-1]}")
-        if name.endswith(("L1 B512", "L1 B8192")):
+        if name.endswith(("L1 B512", "L1 B8192")) or name.startswith("fill"):
             main_err = max(main_err, err)
         del out, ref
     emit({"k1_checks": results, "card": card})
@@ -307,11 +336,20 @@ def check_k1b(gp, seed: int, card: str) -> float:
         ("bf16 D351 L3 mask", grad(4096, FFM_DIM, bf16), ids(4096, 3, 1000001),
          mask01(4096, 3), 1000001, None, (1e-2, 1e-6)),
     ]
+    # the sequence models' tables, as in check_k1: fill mode, so a negative id
+    # is wrapped once and one still outside [0, R) dropped
+    for dim, rows, n in ((64, 63001, 32 * 128 + 32), (1, 63001, 32), (4, 461499, 32 + 1600),
+                         (32, 461529, 32 + 1600)):
+        cases.append((f"fill f32 D{dim} L1 N{n}", grad(n, dim), ids(n, 1, rows), None,
+                      rows, None, (1e-5, 1e-6)))
+        cases.append((f"fill f32 D{dim} L1 out of range", grad(4096, dim),
+                      ids(4096, 1, 3 * rows) - rows - 1, None, rows, None, (1e-5, 1e-6)))
     results, main_err = [], 0.0
     for name, grad_out, idx, mask, rows, dtype, tol in cases:
-        out = gp.gather_pool_bwd(grad_out, idx, mask, rows, dtype)
+        mode = "fill" if name.startswith("fill") else "clip"
+        out = gp.gather_pool_bwd(grad_out, idx, mask, rows, dtype, mode=mode)
         torch.cuda.synchronize()
-        ref = gp.gather_pool_bwd_plain(grad_out, idx, mask, rows, dtype)
+        ref = gp.gather_pool_bwd_plain(grad_out, idx, mask, rows, dtype, mode=mode)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         if out.dtype != ref.dtype or out.shape != ref.shape:
@@ -329,7 +367,7 @@ def check_k1b(gp, seed: int, card: str) -> float:
         })
         if not ok:
             raise AssertionError(f"K1b disagrees with its plain version: {results[-1]}")
-        if name.endswith(("L1 B512", "L1 B8192")):
+        if name.endswith(("L1 B512", "L1 B8192")) or name.startswith("fill"):
             main_err = max(main_err, err)
         del out, ref
     del cases
@@ -462,6 +500,66 @@ def time_k1b(gp, seed: int, vocab: int, rows: int, dim: int = 16, batches=BATCHE
                     "share_of_bound": bound / device["ms"],
                     "zero_fill_bytes": rows * dim * 4, "call_ms": call})
     return out
+
+
+# the sequence models' lookups at batch 32, one K1 launch each (fill mode):
+# (model, table, rows, row width D, ids N per call)
+SEQ_SHAPES = (
+    ("din", "item_emb", 63001, 64, 32 * 128 + 32),  # history and target in one call
+    ("din", "item_b", 63001, 1, 32),  # 4-byte rows: both kernels' scalar path
+    ("dsin", "brand_emb", 461499, 4, 32 + 32 * 5 * 10),
+    ("dmr", "brand_emb", 461529, 32, 32 + 32 * 50),
+)
+
+
+def time_seq_shapes(gp, seed: int, iters: int = 400) -> tuple:
+    """Phase 15: K1 and K1b at the sequence models' shapes (``SEQ_SHAPES``):
+    the lookup of an ``Embed`` table in fill mode and the dense gradient of
+    it, beside their plain versions and one PyTorch call each
+    (``F.embedding``, what ``torch.nn.Embedding`` calls, and
+    ``embedding_dense_backward``), with the byte bound of the same work.
+    ``iters`` stays under the launch queue's depth (see
+    ``time_launch_floor``)."""
+    from torch.nn import functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    k1, k1b = [], []
+    for model, name, rows, dim, n in SEQ_SHAPES:
+        table = torch.randn(rows, dim, device="cuda", generator=g)
+        # enough distinct id sets that a cycle reads more rows than L2 holds
+        n_sets = max(4, min(64, math.ceil(50e6 / (n * max(dim, 16) * 4))))
+        sets = [torch.randint(0, rows, (n, 1), device="cuda", generator=g,
+                              dtype=torch.int32) for _ in range(n_sets)]
+        flat = {id(s): s.reshape(-1).long() for s in sets}
+        grad = torch.randn(n, dim, device="cuda", generator=g)
+        uniq = sum(int(torch.unique(s).numel()) for s in sets) / len(sets)
+        shape = {"shape": f"{model} {name}", "n": n, "pool": 1, "dim": dim, "rows": rows,
+                 "dtype": "float32", "mode": "fill", "touched_rows": uniq}
+        fns = {
+            "ms": lambda s: gp.gather_pool(table, s, mode="fill"),
+            "plain_ms": lambda s: gp.gather_pool_plain(table, s, mode="fill"),
+            "library_ms": lambda s: F.embedding(flat[id(s)], table),
+        }
+        device, call = _timed(fns, sets, iters)
+        nbytes = uniq * dim * 4 + n * 4 + n * dim * 4  # rows once, ids, output
+        k1.append({**shape, **device, "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                                      n * dim / F32_FLOPS) * 1e3,
+                   "bound_by": "bytes", "bytes": nbytes, "call_ms": call})
+        fns = {
+            "ms": lambda s: gp.gather_pool_bwd(grad, s, None, rows, mode="fill"),
+            "plain_ms": lambda s: gp.gather_pool_bwd_plain(grad, s, None, rows, mode="fill"),
+            "library_ms": lambda s: torch.ops.aten.embedding_dense_backward(
+                grad, flat[id(s)], rows, -1, False),
+        }
+        device, call = _timed(fns, sets, iters)
+        # the dense gradient written once, g and ids read once
+        nbytes = rows * dim * 4 + n * dim * 4 + n * 4
+        k1b.append({**shape, **device, "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                                       n * dim / F32_FLOPS) * 1e3,
+                    "bound_by": "bytes", "bytes": nbytes, "zero_fill_bytes": rows * dim * 4,
+                    "call_ms": call})
+        del table, sets, flat, grad
+    return k1, k1b
 
 
 def time_launch_floor(gp, iters: int = 500) -> float:
@@ -930,6 +1028,12 @@ def first_steps_vs_cpu(gp, cfg, seed: int, steps: int = 5) -> dict:
             "k1_launches": launches[0], "k1b_launches": launches[1]}
 
 
+def table_dtype(module) -> str:
+    """The dtype of the module's first embedding table."""
+    return next(str(p.dtype) for name, p in module.named_parameters()
+                if name.endswith("embedding"))
+
+
 def run_training(gp, cfg, seed: int, check_fall: bool = True, trainer=None,
                  min_steps: int = 8, tables: int = 1, check_auc: bool = True) -> dict:
     """``Trainer.train()`` then ``evaluate()`` through the normal entry
@@ -977,7 +1081,7 @@ def run_training(gp, cfg, seed: int, check_fall: bool = True, trainer=None,
         raise AssertionError(f"evaluate: {evaluated}")
     return {
         "batch_size": batch, "steps": steps, "epochs": epochs,
-        "table_dtype": str(trainer.state.module.embedding.embedding.dtype),
+        "table_dtype": table_dtype(trainer.state.module),
         "sparse_update": trainer.sparse,
         "logged_losses": losses,
         "avg_reader_cost_ms": 1e3 * float(np.mean(lines.reader_costs)),
@@ -1067,8 +1171,8 @@ def profile_train(cfg, batch_size: int, seed: int, iters: int = 20) -> dict:
     return {
         "model": cfg.runner("model"),
         "batch_size": batch_size, "steps": iters, "sparse_update": trainer.sparse,
-        "vocab": int(cfg.hyper("sparse_feature_number")),
-        "table_dtype": str(module.embedding.embedding.dtype),
+        "vocab": cfg.hyper("sparse_feature_number"),
+        "table_dtype": table_dtype(module),
         "wall_ms_per_step": wall_ms,
         "wall_ms_per_step_profiler_off": plain_wall_ms,
         "device_ms_per_step": device_ms if kernels else "not measured",
@@ -1286,6 +1390,279 @@ def zoo_paths(gp, work: str, data_dir: str, cpu_rows: int, seeds: dict,
     return {"k1_launches": totals[0], "k1b_launches": totals[1], "runs": runs}
 
 
+SEQ = ("din", "dien", "bst", "dsin", "dmr", "dpin")  # the behaviour-sequence models
+SEQ_BATCH = 32  # the batch of their configs
+SEQ_ROWS = 300 * SEQ_BATCH  # din's and dien's synthetic rows: 300 steps an epoch
+SEQ_SERVE = (SEQ_BATCH, 1024)
+
+
+def seq_tables(module):
+    """The module's ``Embed`` tables counted by row width: each is read once
+    per forward (one K1 launch) and trained once per step (one K1b)."""
+    import collections
+
+    from paddlerec_tpu_torch.ops.embedding import Embed
+
+    return collections.Counter(m.features for m in module.modules() if isinstance(m, Embed))
+
+
+def _counts(gp):
+    return (gp.gather_pool.launches, gp.gather_pool_bwd.launches,
+            dict(gp.gather_pool.launches_by_dim), dict(gp.gather_pool_bwd.launches_by_dim))
+
+
+def _reset(gp):
+    gp.gather_pool.launches = gp.gather_pool_bwd.launches = 0
+    gp.gather_pool.launches_by_dim.clear()
+    gp.gather_pool_bwd.launches_by_dim.clear()
+
+
+def seq_zoo(gp, seed: int, card: str) -> dict:
+    """Phase 13: din, dien, bst, dsin, dmr and dpin at the full width of their
+    configs, batch 32: a module on the card and its twin on the CPU from one
+    seed, one forward and three train steps on four of the model's example
+    batches; predictions and losses card against CPU (atol 1e-5); K1
+    launches per forward = the model's ``Embed`` tables, K1b launches per step
+    the same, both counted by row width."""
+    from paddlerec_tpu_torch.core.device import to_tensors
+    from paddlerec_tpu_torch.train.trainer import Trainer
+
+    results, failed = [], []
+    totals = {"k1": 0, "k1b": 0, "k1_by_dim": {}, "k1b_by_dim": {}}
+    for model in SEQ:
+        cfg = zoo_config(model)
+        t0 = time.perf_counter()
+        host = Trainer(cfg, device="cpu")
+        host.init_state(seed=seed)
+        chip = Trainer(cfg)
+        chip.init_state(seed=seed)
+        chip.state.module.load_state_dict(host.state.module.state_dict())
+        widths = seq_tables(chip.state.module)
+        rows = host.model_def.example_batch(4 * SEQ_BATCH)
+        batches = [{k: v[i * SEQ_BATCH:(i + 1) * SEQ_BATCH] for k, v in rows.items()}
+                   for i in range(4)]
+        preds, losses, launched = {}, {}, {}
+        for name, trainer in (("cuda", chip), ("cpu", host)):
+            _reset(gp)
+            with torch.no_grad():
+                aux = trainer.model_def.infer_forward(
+                    trainer.state.module, to_tensors(batches[0], trainer.device))
+            preds[name] = aux["predictions"].cpu().numpy()
+            forward = _counts(gp)
+            _reset(gp)
+            ms, losses[name] = trainer._init_metric_state(), []
+            for b in batches[1:]:
+                ms, loss = trainer.train_step(to_tensors(b, trainer.device), ms)
+                losses[name].append(float(loss))
+            launched[name] = (forward, _counts(gp))
+        steps = len(batches) - 1
+        tables = sum(widths.values())
+        per_step = {d: c * steps for d, c in widths.items()}
+        (f1, f1b, f1_dim, _), (s1, s1b, s1_dim, s1b_dim) = launched["cuda"]
+        counted = (f1 == tables and f1b == 0 and f1_dim == dict(widths)
+                   and s1 == s1b == tables * steps and s1_dim == s1b_dim == per_step)
+        if not counted or launched["cpu"][0][:2] + launched["cpu"][1][:2] != (0, 0, 0, 0):
+            raise AssertionError(f"{model}: K1, K1b launches {launched}, "
+                                 f"expected {tables} tables {dict(widths)}")
+        for key, got in (("k1", f1 + s1), ("k1b", s1b)):
+            totals[key] += got
+        for key, got in (("k1_by_dim", f1_dim), ("k1_by_dim", s1_dim), ("k1b_by_dim", s1b_dim)):
+            for d, c in got.items():
+                totals[key][d] = totals[key].get(d, 0) + c
+        pred_err = float(np.abs(preds["cuda"] - preds["cpu"]).max())
+        loss_err = float(np.abs(np.array(losses["cuda"]) - np.array(losses["cpu"])).max())
+        ok = bool(np.all(np.isfinite(preds["cuda"])) and np.all(np.isfinite(losses["cuda"]))
+                  and np.ptp(preds["cuda"]) > 0 and len(set(losses["cuda"])) > 1
+                  and pred_err <= ZOO_ATOL and loss_err <= ZOO_ATOL)
+        results.append({
+            "model": model, "ok": ok, "atol": ZOO_ATOL, "seed": seed,
+            "max_abs_err_predictions": pred_err,
+            "predictions_spread": float(np.ptp(preds["cuda"])),
+            "max_abs_err_loss": loss_err, "loss_cuda": losses["cuda"],
+            "tables_by_dim": dict(widths), "k1_per_forward": f1,
+            "k1b_per_step": s1b // steps,
+            "parameters": sum(p.numel() for p in chip.state.module.parameters()),
+            "seconds": time.perf_counter() - t0})
+        if not ok:
+            failed.append(model)
+        del host, chip, trainer, ms, aux, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"seq_zoo": results, "batch_size": SEQ_BATCH, "card": card})
+    if failed:
+        raise AssertionError(f"card and CPU disagree for {failed}")
+    return totals
+
+
+def write_din_data(data_dir: str, rows: int, seed: int, items: int = 63001,
+                   cats: int = 801, t: int = 128, files: int = 4) -> None:
+    """Rows in ``DINDataset``'s format (``hist_items;hist_cats;item;cat;
+    label``) with a planted signal: each row's user has three favourite
+    categories, four in five of the history's events come from them, the
+    target is an item of one of them half of the time and then clicked with
+    probability 0.8, otherwise any item, clicked with probability 0.1."""
+    os.makedirs(data_dir)
+    rng = np.random.RandomState(seed)
+    item_cat = (np.arange(items) * 7919) % (cats - 1) + 1
+    order = np.argsort(item_cat, kind="stable")
+    start = np.searchsorted(item_cat[order], np.arange(cats + 1))
+
+    def pick(c):  # an item of each category in c
+        return order[start[c] + (rng.rand(len(c)) * (start[c + 1] - start[c])).astype(int)]
+
+    for f in range(files):
+        lines = []
+        for _ in range(rows // files):
+            fav = rng.randint(1, cats, 3)
+            n = rng.randint(1, t + 1)
+            hist = np.where(rng.rand(n) < 0.8, pick(fav[rng.randint(0, 3, n)]),
+                            rng.randint(1, items, n))
+            liked = rng.rand() < 0.5
+            target = pick(fav[rng.randint(0, 3, 1)])[0] if liked else rng.randint(1, items)
+            label = int(rng.rand() < (0.8 if liked else 0.1))
+            lines.append(f"{' '.join(map(str, hist))};{' '.join(map(str, item_cat[hist]))};"
+                         f"{target};{item_cat[target]};{label}")
+        with open(os.path.join(data_dir, f"part-{f}"), "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+
+
+def write_dmr_data(data_dir: str, rows: int, seed: int, cfg) -> None:
+    """Rows in ``DMRDataset``'s format at the full width of ``cfg``: 5·T
+    history columns (btag, cate, brand, mask, match_mask; histories
+    right-aligned), 16 ids, the price at column 5·T + 14, the label last,
+    clicked with probability 0.6 where the target category is in the history
+    and 0.2 elsewhere."""
+    from paddlerec_tpu_torch.core.registry import load_model_def
+
+    model_def = load_model_def(cfg)
+    v, t = model_def.vocab, model_def.history_length
+    os.makedirs(data_dir)
+    rng = np.random.RandomState(seed)
+    lines = []
+    for _ in range(rows):
+        n = rng.randint(1, t + 1)
+        mask = (np.arange(t) >= t - n).astype(int)
+        cate = rng.randint(0, v["cate"], t)
+        cols = [rng.randint(0, v["btag"], t), cate, rng.randint(0, v["brand"], t), mask, mask]
+        target_cate = cate[-1] if rng.rand() < 0.5 else rng.randint(0, v["cate"])
+        scalars = [rng.randint(0, v["user"])]
+        scalars += [rng.randint(0, v[name]) for name in (
+            "cms_segid", "cms_group_id", "final_gender_code", "age_level", "pvalue_level",
+            "shopping_level", "occupation", "new_user_class_level")]
+        scalars += [rng.randint(0, v["adgroup_id"]), target_cate,
+                    rng.randint(0, v["campaign_id"]), rng.randint(0, v["customer"]),
+                    rng.randint(0, v["brand"])]
+        clicked = rng.rand() < (0.6 if target_cate in cate[t - n:] else 0.2)
+        vals = [str(x) for c in cols for x in c] + [str(x) for x in scalars]
+        vals += [f"{rng.rand():.6f}", str(rng.randint(0, v["pid"])), str(int(clicked))]
+        lines.append(",".join(vals))
+    with open(os.path.join(data_dir, "part-0"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def seq_paths(gp, work: str, seed: int, card: str) -> dict:
+    """Phase 14: din and dien at the full width of their configs through the
+    entry points, on rows in ``DINDataset``'s format written from ``seed``:
+    ``Trainer.train()`` for two epochs at the config's batch 32 (a checkpoint
+    each), the last logged loss below the first and the second epoch's mean
+    below the first's, ``evaluate()`` from the checkpoint, one K1 launch per
+    table and forward, one K1b per table and step; ``export_model`` of the
+    checkpoint and ``run_predict`` at batch 32 and 1024 against the port's CPU
+    run of the artifact (atol 1e-5), with p50/p99; ``torch.profiler`` over
+    the din and dien train step.  Then dmr through ``tools.train`` on rows in
+    its own format."""
+    from paddlerec_tpu_torch.core.config import Config
+    from paddlerec_tpu_torch.core.registry import load_model_def
+    from paddlerec_tpu_torch.tools import train as train_cli
+    from paddlerec_tpu_torch.tools.export import export_model
+    from paddlerec_tpu_torch.tools.predict import run_predict
+
+    data = os.path.join(work, "din_data")
+    write_din_data(data, SEQ_ROWS, seed + 14)
+    out = {"k1": 0, "k1b": 0, "k1_by_dim": {}, "k1b_by_dim": {}, "runs": {}}
+
+    def add(run):
+        out["k1"] += run["k1_launches"] + run["eval"]["k1_launches"]
+        out["k1b"] += run["k1b_launches"]
+        for key in ("k1_by_dim", "k1b_by_dim"):
+            for d, c in run[f"{key[:-7]}_launches_by_dim"].items():
+                out[key][d] = out[key].get(d, 0) + c
+
+    for model in ("din", "dien"):
+        ckpt = os.path.join(work, f"ckpt_{model}")
+        run_cfg = Config({**zoo_config(model).to_dict(),
+                          "runner.train_data_dir": data, "runner.test_data_dir": data,
+                          "runner.model_save_path": ckpt, "runner.infer_load_path": ckpt,
+                          "runner.epochs": 2, "runner.print_interval": 25})
+        tables = sum(seq_tables(load_model_def(run_cfg).make_module(device="meta")).values())
+        run = run_training(gp, run_cfg, seed, tables=tables,
+                           min_steps=2 * SEQ_ROWS // SEQ_BATCH)
+        losses = run["logged_losses"]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{model}: the last logged loss is not below the first: "
+                                 f"{losses}")
+        run["model"] = model
+        add(run)
+        out["runs"][model] = run
+        emit({"train": run, "card": card})
+
+        export_dir = os.path.join(work, f"export_{model}")
+        t0 = time.perf_counter()
+        export_model(Config({**run_cfg.to_dict(),
+                             "runner.model_init_path": os.path.join(ckpt, "1")}), export_dir)
+        shutil.rmtree(ckpt)
+        cpu_preds = np.concatenate(run_predict(export_dir, data, SEQ_SERVE[-1], device="cpu")[0])
+        for batch in SEQ_SERVE:
+            _reset(gp)
+            served, report = run_predict(export_dir, data, batch)
+            launched = gp.gather_pool.launches
+            preds = np.concatenate(served)
+            err = float(np.abs(preds - cpu_preds).max())
+            if launched != tables * math.ceil(SEQ_ROWS / batch):
+                raise AssertionError(f"{model}: {launched} K1 launches at batch {batch}")
+            if preds.shape != (SEQ_ROWS,) or not np.ptp(preds) > 0 or err > ZOO_ATOL:
+                raise AssertionError(f"{model}: served predictions, card vs CPU max err {err}")
+            out["k1"] += launched
+            for d, c in gp.gather_pool.launches_by_dim.items():
+                out["k1_by_dim"][d] = out["k1_by_dim"].get(d, 0) + c
+            emit({"predict": {"model": model, "batch_size": batch, **report,
+                              "max_abs_err_vs_cpu": err, "k1_launches": launched,
+                              "seconds_export_and_predict": time.perf_counter() - t0},
+                  "card": card})
+        shutil.rmtree(export_dir)
+        # dien's step launches ~7,000 kernels: the profiler's own bookkeeping
+        # of 20 such steps takes minutes, so it profiles fewer
+        emit({"profile_train": profile_train(run_cfg, SEQ_BATCH, seed,
+                                             iters=20 if model == "din" else 5),
+              "card": card})
+
+    # dmr through the train CLI, on rows in its own format
+    cfg = zoo_config("dmr")
+    dmr_data = os.path.join(work, "dmr_data")
+    write_dmr_data(dmr_data, 40 * SEQ_BATCH, seed + 15, cfg)
+    tables = sum(seq_tables(load_model_def(cfg).make_module(device="meta")).values())
+    _reset(gp)
+    t0 = time.perf_counter()
+    metrics = train_cli.main([
+        "-m", os.path.join(ROOT, "configs", "rank", "dmr", "config.yaml"), "-o",
+        f"runner.train_data_dir={dmr_data}", f"runner.test_data_dir={dmr_data}",
+        "runner.model_save_path=None", "runner.print_interval=10"])
+    steps = 40
+    launched = _counts(gp)
+    if launched[:2] != (tables * steps, tables * steps) or not np.isfinite(metrics["auc"]):
+        raise AssertionError(f"dmr through tools.train: K1, K1b {launched[:2]}, {metrics}")
+    out["k1"] += launched[0]
+    out["k1b"] += launched[1]
+    for key, got in (("k1_by_dim", launched[2]), ("k1b_by_dim", launched[3])):
+        for d, c in got.items():
+            out[key][d] = out[key].get(d, 0) + c
+    emit({"train_cli": {"model": "dmr", "steps": steps, "batch_size": SEQ_BATCH,
+                        "seconds": time.perf_counter() - t0, "auc": metrics["auc"],
+                        "examples_per_s": metrics["ips"], "k1_launches": launched[0],
+                        "k1b_launches": launched[1], "tables": tables}, "card": card})
+    return out
+
+
 def profile_forward(model_def, module, batch_size: int, iters: int = 20) -> dict:
     """Phase 8: ``torch.profiler`` over ``iters`` DeepFM forwards at one
     batch size: device time per forward, the card's idle share of the wall
@@ -1469,6 +1846,11 @@ def main(argv=None) -> int:
             emit({"profile_train": profile_train(
                 train_config(zoo_config(model), work, BATCHES[-1]), BATCHES[-1],
                 args.seed), "card": card})
+        gc.collect()
+        torch.cuda.empty_cache()
+        seq = seq_zoo(gp, args.seed, card)  # phase 13
+        seq_runs = seq_paths(gp, work, args.seed, card)  # phase 14
+        seq_cases, seq_bwd_cases = time_seq_shapes(gp, args.seed)  # phase 15
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for case, batch in zip(cases, BATCHES):
@@ -1485,31 +1867,41 @@ def main(argv=None) -> int:
     if not all(case["launches"] > 0 for case in zoo_cases + zoo_bwd_cases):
         raise AssertionError(f"ffm's run launched no kernel at a zoo shape: "
                              f"{ffm_run['k1_launches_by_dim']}")
+    # the sequence models' phases 13 and 14, counted by row width at the launch
+    for cases_at, key in ((seq_cases, "k1_by_dim"), (seq_bwd_cases, "k1b_by_dim")):
+        for case in cases_at:
+            case["launches"] = seq[key].get(case["dim"], 0) + seq_runs[key].get(case["dim"], 0)
+    if not all(case["launches"] > 0 for case in seq_cases + seq_bwd_cases):
+        raise AssertionError(f"the sequence models launched no kernel at a shape: "
+                             f"{seq['k1_by_dim']} {seq_runs['k1_by_dim']}")
     all_runs = list(train_runs.values()) + list(sparse["runs"].values())
     k1_launches = (sum(launches.values()) + first["k1_launches"]
                    + sparse["first"]["k1_launches"] + sparse["served_launches"]
                    + sum(r["k1_launches"] + r["eval"]["k1_launches"] for r in all_runs)
-                   + zoo["k1_launches"] + paths["k1_launches"])
+                   + zoo["k1_launches"] + paths["k1_launches"] + seq["k1"] + seq_runs["k1"])
     k1b_launches = (first["k1b_launches"] + sparse["first"]["k1b_launches"]
                     + sum(r["k1b_launches"] for r in all_runs)
-                    + zoo["k1b_launches"] + paths["k1b_launches"])
+                    + zoo["k1b_launches"] + paths["k1b_launches"] + seq["k1b"]
+                    + seq_runs["k1b"])
     if k1_launches < 1 or k1b_launches < 1:
         raise AssertionError("the main path launched a kernel no time")
     kernels = []
     for name, source, replaces, count, err, timed, top in (
         ("gather_pool", "paddlerec_tpu_torch/csrc/gather_pool.cu",
          "paddlerec_tpu/ops/pallas_embedding.py:37", k1_launches,
-         max(main_err, sparse["lookup"]["k1_err"]), cases + zoo_cases, cases[-1]),
+         max(main_err, sparse["lookup"]["k1_err"]), cases + zoo_cases + seq_cases,
+         cases[-1]),
         # the JAX package has no kernel for the gradient: K1b takes the
         # place of the XLA scatter-add of _packed_lookup_bwd
         ("gather_pool_bwd", "paddlerec_tpu_torch/csrc/gather_pool_bwd.cu",
          "paddlerec_tpu/ops/packed_embedding.py:94", k1b_launches,
          max(bwd_err, sparse["lookup"]["k1b_err"]),
-         bwd_cases + zoo_bwd_cases + compact_cases, compact_cases[-1]),
+         bwd_cases + zoo_bwd_cases + compact_cases + seq_bwd_cases, compact_cases[-1]),
     ):
         # the headline numbers (top) are those of the training batch, 8192, at
         # DeepFM's shape (K1b: at the sparse step's compact shape,
-        # config_bigdata.yaml's); the zoo's shapes stand among the cases
+        # config_bigdata.yaml's); the zoo's and the sequence models' shapes
+        # stand among the cases
         for case in timed:
             # what the kernel can reach: its byte bound, or the launch floor
             # where that is higher

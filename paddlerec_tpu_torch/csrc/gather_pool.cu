@@ -5,6 +5,10 @@
 //
 //     out[n, :] = sum_l table[clip(ids[n, l], 0, R - 1), :] * mask[n, l]
 //
+// or, with `fill` set, as `jnp.take`'s default mode (what flax's `nn.Embed`
+// looks rows up with): a negative id is wrapped once (id + R), and an id still
+// outside [0, R) reads a row of NaN.
+//
 // table (R, D) float32 or bfloat16, row-major; ids (N, L) int32; mask (N, L)
 // float32, or null for weight 1 (no mask is read); out (N, D) in the table's
 // dtype, or float32 from a bfloat16 table (the f32 sum written unrounded:
@@ -102,7 +106,7 @@ template <typename T, typename O, bool kVec>
 __global__ void __launch_bounds__(256)
 gather_pool_kernel(const T* __restrict__ table, int64_t rows, int64_t dim,
                    const int32_t* __restrict__ ids, const float* __restrict__ mask,
-                   int64_t n, int64_t pool, O* __restrict__ out) {
+                   int64_t n, int64_t pool, int fill, O* __restrict__ out) {
   constexpr int V = Lanes<T>::kWidth;
   const int64_t chunks = (dim + V - 1) / V;
   const int64_t total = n * chunks;
@@ -117,10 +121,16 @@ gather_pool_kernel(const T* __restrict__ table, int64_t rows, int64_t dim,
     for (int k = 0; k < V; ++k) acc[k] = 0.f;
     for (int64_t l = 0; l < pool; ++l) {
       int64_t id = __ldg(ids + r * pool + l);
-      id = id < 0 ? 0 : (id >= rows ? rows - 1 : id);
+      if (fill && id < 0) id += rows;  // wrapped once, as jnp.take does
+      const bool inside = id >= 0 && id < rows;
+      if (!fill) id = id < 0 ? 0 : (id >= rows ? rows - 1 : id);
       const T* src = table + id * dim + col;
       float v[V];
-      if (kVec) {
+      if (fill && !inside) {
+        // a row of NaN; nothing is read
+#pragma unroll
+        for (int k = 0; k < V; ++k) v[k] = __int_as_float(0x7fc00000);
+      } else if (kVec) {
         Lanes<T>::load16(src, v);
       } else {
 #pragma unroll
@@ -149,7 +159,7 @@ gather_pool_kernel(const T* __restrict__ table, int64_t rows, int64_t dim,
 
 template <typename T, typename O>
 void launch(const void* table, int64_t rows, int64_t dim, const int32_t* ids,
-            const float* mask, int64_t n, int64_t pool, void* out,
+            const float* mask, int64_t n, int64_t pool, int fill, void* out,
             cudaStream_t stream) {
   constexpr int kThreads = 256;
   constexpr int V = Lanes<T>::kWidth;
@@ -161,28 +171,30 @@ void launch(const void* table, int64_t rows, int64_t dim, const int32_t* ids,
   const T* t = static_cast<const T*>(table);
   O* o = static_cast<O*>(out);
   if (vec) {
-    gather_pool_kernel<T, O, true><<<blocks, kThreads, 0, stream>>>(t, rows, dim, ids, mask, n, pool, o);
+    gather_pool_kernel<T, O, true><<<blocks, kThreads, 0, stream>>>(t, rows, dim, ids, mask, n, pool, fill, o);
   } else {
-    gather_pool_kernel<T, O, false><<<blocks, kThreads, 0, stream>>>(t, rows, dim, ids, mask, n, pool, o);
+    gather_pool_kernel<T, O, false><<<blocks, kThreads, 0, stream>>>(t, rows, dim, ids, mask, n, pool, fill, o);
   }
 }
 
 }  // namespace
 
 // dtype, out_dtype: 0 = float32, 1 = bfloat16; out_dtype is the table's, or
-// float32 from a bfloat16 table.  Returns cudaGetLastError() after the launch
+// float32 from a bfloat16 table.  fill: 0 clips ids, 1 wraps and fills with
+// NaN (see the top of the file).  Returns cudaGetLastError() after the launch
 // (0 = success).  Launches on `stream` and allocates nothing.
 extern "C" int pr_gather_pool(const void* table, int dtype, int64_t rows, int64_t dim,
                               const int32_t* ids, const float* mask, int64_t n,
-                              int64_t pool, void* out, int out_dtype, void* stream) {
+                              int64_t pool, int fill, void* out, int out_dtype,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || dim <= 0 || n <= 0 || pool <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && out_dtype == 0) {
-    launch<float, float>(table, rows, dim, ids, mask, n, pool, out, s);
+    launch<float, float>(table, rows, dim, ids, mask, n, pool, fill, out, s);
   } else if (dtype == 1 && out_dtype == 1) {
-    launch<__nv_bfloat16, __nv_bfloat16>(table, rows, dim, ids, mask, n, pool, out, s);
+    launch<__nv_bfloat16, __nv_bfloat16>(table, rows, dim, ids, mask, n, pool, fill, out, s);
   } else if (dtype == 1 && out_dtype == 0) {
-    launch<__nv_bfloat16, float>(table, rows, dim, ids, mask, n, pool, out, s);
+    launch<__nv_bfloat16, float>(table, rows, dim, ids, mask, n, pool, fill, out, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

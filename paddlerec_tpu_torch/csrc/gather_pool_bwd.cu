@@ -6,7 +6,9 @@
 // g (N, D) float32 or bfloat16, row-major; ids (N, L) int32; mask (N, L)
 // float32, or null for weight 1; dtable (R, D) float32 or bfloat16 (a
 // bfloat16 g only into a bfloat16 dtable).  An id outside [0, R) adds nothing
-// (it is dropped).
+// (it is dropped).  With `fill` set (the gradient of K1's fill mode, flax's
+// `nn.Embed`) a negative id is first wrapped once (id + R), as the forward
+// read it.
 //
 // The JAX package has no kernel for this: K1 (`gather_pool` of
 // paddlerec_tpu/ops/pallas_embedding.py) is forward only, and the lookup's
@@ -90,7 +92,7 @@ template <typename G, bool kRound, bool kVec>
 __global__ void __launch_bounds__(256)
 scatter_add_kernel(const G* __restrict__ g, const int32_t* __restrict__ ids,
                    const float* __restrict__ mask, int64_t n, int64_t pool,
-                   int64_t dim, int64_t rows, float* __restrict__ acc) {
+                   int64_t dim, int64_t rows, int fill, float* __restrict__ acc) {
   constexpr int W = kVec ? 4 : 1;
   const int64_t chunks = dim / W;  // kVec: dim is a multiple of 4
   const int64_t total = n * chunks;
@@ -107,7 +109,8 @@ scatter_add_kernel(const G* __restrict__ g, const int32_t* __restrict__ ids,
       v[0] = to_float(src[0]);
     }
     for (int64_t l = 0; l < pool; ++l) {
-      const int64_t id = __ldg(ids + r * pool + l);
+      int64_t id = __ldg(ids + r * pool + l);
+      if (fill && id < 0) id += rows;  // wrapped once, as the forward's fill mode
       if (id < 0 || id >= rows) continue;  // dropped, as the JAX scatter's mode="drop"
       float c[W];
       if (mask != nullptr) {
@@ -148,7 +151,7 @@ int64_t blocks_for(int64_t total, int threads) {
 
 template <typename G, bool kRound>
 void launch_scatter(const void* g, const int32_t* ids, const float* mask, int64_t n,
-                    int64_t pool, int64_t dim, int64_t rows, float* acc,
+                    int64_t pool, int64_t dim, int64_t rows, int fill, float* acc,
                     cudaStream_t stream) {
   constexpr int kThreads = 256;
   const bool vec = dim % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
@@ -158,22 +161,23 @@ void launch_scatter(const void* g, const int32_t* ids, const float* mask, int64_
   const G* gp = static_cast<const G*>(g);
   if (vec) {
     scatter_add_kernel<G, kRound, true><<<blocks, kThreads, 0, stream>>>(
-        gp, ids, mask, n, pool, dim, rows, acc);
+        gp, ids, mask, n, pool, dim, rows, fill, acc);
   } else {
     scatter_add_kernel<G, kRound, false><<<blocks, kThreads, 0, stream>>>(
-        gp, ids, mask, n, pool, dim, rows, acc);
+        gp, ids, mask, n, pool, dim, rows, fill, acc);
   }
 }
 
 }  // namespace
 
 // g_dtype, table_dtype: 0 = float32, 1 = bfloat16; a bfloat16 g into a
-// float32 dtable is refused.  dtable (rows, dim) is overwritten.  scratch: float32 (rows, dim), needed for a bfloat16 dtable
+// float32 dtable is refused.  fill: 1 wraps negative ids once (K1's fill
+// mode), 0 drops them.  dtable (rows, dim) is overwritten.  scratch: float32 (rows, dim), needed for a bfloat16 dtable
 // and ignored for a float32 one.  Returns the first CUDA error (0 =
 // success).  Works on `stream` and allocates nothing.
 extern "C" int pr_gather_pool_bwd(const void* g, int g_dtype, const int32_t* ids,
                                   const float* mask, int64_t n, int64_t pool,
-                                  int64_t dim, int64_t rows, void* dtable,
+                                  int64_t dim, int64_t rows, int fill, void* dtable,
                                   int table_dtype, float* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || dim <= 0 || n <= 0 || pool <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -188,12 +192,12 @@ extern "C" int pr_gather_pool_bwd(const void* g, int g_dtype, const int32_t* ids
   cudaError_t err = cudaMemsetAsync(acc, 0, static_cast<size_t>(total) * sizeof(float), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (table_dtype == 0) {
-    launch_scatter<float, false>(g, ids, mask, n, pool, dim, rows, acc, s);
+    launch_scatter<float, false>(g, ids, mask, n, pool, dim, rows, fill, acc, s);
   } else {
     if (g_dtype == 0) {
-      launch_scatter<float, true>(g, ids, mask, n, pool, dim, rows, acc, s);
+      launch_scatter<float, true>(g, ids, mask, n, pool, dim, rows, fill, acc, s);
     } else {
-      launch_scatter<__nv_bfloat16, true>(g, ids, mask, n, pool, dim, rows, acc, s);
+      launch_scatter<__nv_bfloat16, true>(g, ids, mask, n, pool, dim, rows, fill, acc, s);
     }
   }
   err = cudaGetLastError();

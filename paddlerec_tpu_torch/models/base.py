@@ -268,7 +268,39 @@ class ModelDef:
         return aux
 
 
-class CTRModelDef(ModelDef):
+class LogitModelDef(ModelDef):
+    """A binary-CTR model whose module maps ``model_inputs(batch)`` to logits
+    (B,), trained with ``binary_logloss`` under the batch's mask: what the JAX
+    package's ``CTRModelDef`` and the sequence models (din, bst, dsin) each
+    write out in their ``train_forward``."""
+
+    @staticmethod
+    def _aux(logits: torch.Tensor, batch: Batch) -> Aux:
+        aux = {
+            "predictions": torch.sigmoid(logits),
+            "labels": batch["label"].reshape(-1).to(torch.float32),
+        }
+        if "mask" in batch:
+            aux["mask"] = batch["mask"]
+        return aux
+
+    def _logits_and_aux(self, module: nn.Module,
+                        batch: Batch) -> Tuple[torch.Tensor, Aux]:
+        logits = module(*self.model_inputs(batch)).reshape(-1)
+        return logits, self._aux(logits, batch)
+
+    def train_forward(self, module: nn.Module,
+                      batch: Batch) -> Tuple[torch.Tensor, Aux]:
+        logits, aux = self._logits_and_aux(module, batch)
+        return binary_logloss(logits, aux["labels"], aux.get("mask")), aux
+
+    def infer_forward(self, module: nn.Module, batch: Batch) -> Aux:
+        # the JAX package takes train_forward's aux and lets XLA drop the
+        # unused loss; eager PyTorch would compute it, so it is left out here
+        return self._logits_and_aux(module, batch)[1]
+
+
+class CTRModelDef(LogitModelDef):
     """Base for binary-CTR models over (sparse ids, dense) features: the
     module maps (sparse_ids (B,S)[,L], dense (B,D)) → logits (B,)."""
 
@@ -334,28 +366,3 @@ class CTRModelDef(ModelDef):
             dense_dim=max(self.dense_dim, 1),
             vocab=self.vocab_size,
         )
-
-    @staticmethod
-    def _aux(logits: torch.Tensor, batch: Batch) -> Aux:
-        aux = {
-            "predictions": torch.sigmoid(logits),
-            "labels": batch["label"].reshape(-1).to(torch.float32),
-        }
-        if "mask" in batch:
-            aux["mask"] = batch["mask"]
-        return aux
-
-    def _logits_and_aux(self, module: nn.Module,
-                        batch: Batch) -> Tuple[torch.Tensor, Aux]:
-        logits = module(*self.model_inputs(batch)).reshape(-1)
-        return logits, self._aux(logits, batch)
-
-    def train_forward(self, module: nn.Module,
-                      batch: Batch) -> Tuple[torch.Tensor, Aux]:
-        logits, aux = self._logits_and_aux(module, batch)
-        return binary_logloss(logits, aux["labels"], aux.get("mask")), aux
-
-    def infer_forward(self, module: nn.Module, batch: Batch) -> Aux:
-        # the JAX package takes train_forward's aux and lets XLA drop the
-        # unused loss; eager PyTorch would compute it, so it is left out here
-        return self._logits_and_aux(module, batch)[1]

@@ -1,4 +1,6 @@
-"""Shared embedding table over all sparse slots, with pooled lookup.
+"""Embedding tables: ``SlotEmbedding``, the shared table over all sparse
+slots with pooled lookup, and ``Embed``, the counterpart of flax's
+``nn.Embed`` that the behaviour-sequence models look their tables up with.
 
 The local packed path of ``paddlerec_tpu/ops/embedding.py`` ``SlotEmbedding``:
 one ``(R, 128)`` packed table (parameter ``embedding``) shared by every
@@ -31,7 +33,8 @@ steps it, also in a sparse run.
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -173,3 +176,56 @@ class SlotEmbedding(nn.Module):
                                    device=ids.device)
             pooled = pooled / torch.clamp(denom, min=1.0)
         return pooled
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: a plain ``(num_embeddings, features)`` float32
+    parameter ``embedding``, drawn as flax's default does (a normal of std
+    ``1/sqrt(features)``, not truncated) or zeros (``zeros=True``, flax's
+    ``initializers.zeros``).
+
+    ``emb(ids)`` looks up ids of any shape → ``ids.shape + (features,)``,
+    one K1 launch, its gradient one K1b launch.  ``emb(a, b, ...)`` looks up
+    several id tensors of one table in the same single launch and returns one
+    result per tensor: a model that reads a table twice in a forward (history
+    and target) so pays one K1 and one K1b launch for it, not two, and
+    zero-fills its dense gradient once.
+
+    Ids out of range behave as ``jnp.take`` in the JAX module: a negative id
+    is wrapped once, an id still outside ``[0, num_embeddings)`` reads a row
+    of NaN and gives no gradient (K1's ``mode="fill"``).  Ids that are not
+    int32 are first clamped to ``[-num_embeddings - 1, num_embeddings]``, so
+    that the cast to the kernel's int32 keeps an out-of-range id out of
+    range.
+
+    ``attend(x)`` is ``x @ embedding.T``: a plain product (cuBLAS on the card).
+    """
+
+    def __init__(self, num_embeddings: int, features: int, zeros: bool = False,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_embeddings = num_embeddings
+        self.features = features
+        table = torch.empty((num_embeddings, features), device=device)
+        if zeros:
+            table.zero_()
+        else:
+            fill_normal(table, 1.0 / math.sqrt(features), generator)
+        self.embedding = nn.Parameter(table)
+
+    def forward(self, *ids: torch.Tensor
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        flat = [i.reshape(-1) for i in ids]
+        flat = flat[0] if len(flat) == 1 else torch.cat(flat)
+        if flat.dtype != torch.int32:
+            v = self.num_embeddings
+            flat = flat.clamp(-v - 1, v).to(torch.int32)
+        vecs = gather_pool(self.embedding, flat[:, None], mode="fill")
+        if len(ids) == 1:
+            return vecs.reshape(ids[0].shape + (self.features,))
+        parts = vecs.split([i.numel() for i in ids])
+        return tuple(p.reshape(i.shape + (self.features,))
+                     for p, i in zip(parts, ids))
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.embedding.T

@@ -23,9 +23,14 @@ the backward pass, or raises; ``gather_pool.launches`` and
 ``gather_pool_bwd.launches`` count the launches (``launches_by_dim`` of each
 counts the same launches by row width D).
 
-Ids out of range: the forward clips them to ``[0, R-1]``; the backward drops
-them (they add nothing to ``dtable``), negative ids included, on the CPU and
-on the card alike.
+Ids out of range, ``mode="clip"`` (the default, what ``SlotEmbedding``
+reads with): the forward clips them to ``[0, R-1]``; the backward drops them
+(they add nothing to ``dtable``), negative ids included.  ``mode="fill"`` is
+``jnp.take``'s default mode, which flax's ``nn.Embed`` (``ops/embedding.py``
+``Embed``) looks rows up with: a negative id is wrapped once (``id + R``), an
+id still outside ``[0, R)`` reads a row of NaN and gives the table no
+gradient.  Both modes hold on the CPU and on the card alike, each a flag of
+the same launch.
 """
 
 from __future__ import annotations
@@ -46,12 +51,13 @@ _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGTYPES = {
     "gather_pool": {
         "pr_gather_pool": [
-            _PTR, _INT, _I64, _I64, _PTR, _PTR, _I64, _I64, _PTR, _INT, _PTR],
+            _PTR, _INT, _I64, _I64, _PTR, _PTR, _I64, _I64, _INT, _PTR, _INT, _PTR],
         "pr_empty_launch": [_PTR],
     },
     "gather_pool_bwd": {
         "pr_gather_pool_bwd": [
-            _PTR, _INT, _PTR, _PTR, _I64, _I64, _I64, _I64, _PTR, _INT, _PTR, _PTR],
+            _PTR, _INT, _PTR, _PTR, _I64, _I64, _I64, _I64, _INT, _PTR, _INT, _PTR,
+            _PTR],
     },
 }
 
@@ -67,20 +73,35 @@ def _out_dtype(table: torch.Tensor, out_dtype: Optional[torch.dtype]) -> torch.d
     )
 
 
+def _fill(mode: str) -> bool:
+    if mode not in ("clip", "fill"):
+        raise ValueError(f"mode must be 'clip' or 'fill', not {mode!r}")
+    return mode == "fill"
+
+
 def gather_pool_plain(table: torch.Tensor, ids: torch.Tensor,
                       mask: Optional[torch.Tensor] = None,
-                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Plain PyTorch version: ``index_select`` (ids clipped to [0, R-1]),
-    multiply by the mask, sum over L in float32, cast to the output dtype.
-    Where a gradient is recorded, rows read through a clipped id are
-    detached, so an id outside [0, R) gives the table no gradient."""
+                      out_dtype: Optional[torch.dtype] = None,
+                      mode: str = "clip") -> torch.Tensor:
+    """Plain PyTorch version: ``index_select`` (ids clipped to [0, R-1];
+    with ``mode="fill"`` negative ids wrapped once first, and the rows of ids
+    still outside [0, R) replaced by NaN), multiply by the mask, sum over L in
+    float32, cast to the output dtype.  Where a gradient is recorded, rows
+    read through a clipped id are detached, so an id outside [0, R) gives the
+    table no gradient."""
+    fill = _fill(mode)
     out_dtype = _out_dtype(table, out_dtype)
     n, pool = ids.shape
     raw = ids.reshape(-1).long()
+    if fill:
+        raw = torch.where(raw < 0, raw + table.shape[0], raw)
     idx = raw.clamp(0, table.shape[0] - 1)
     rows = table.index_select(0, idx)
+    inside = (raw == idx)[:, None]
     if torch.is_grad_enabled() and table.requires_grad:
-        rows = torch.where((raw == idx)[:, None], rows, rows.detach())
+        rows = torch.where(inside, rows, rows.detach())
+    if fill:
+        rows = rows.masked_fill(~inside, float("nan"))
     rows = rows.reshape(n, pool, -1).float()
     if mask is not None:
         rows = rows * mask.float()[..., None]
@@ -89,13 +110,17 @@ def gather_pool_plain(table: torch.Tensor, ids: torch.Tensor,
 
 def gather_pool_bwd_plain(g: torch.Tensor, ids: torch.Tensor,
                           mask: Optional[torch.Tensor], rows: int,
-                          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                          dtype: Optional[torch.dtype] = None,
+                          mode: str = "clip") -> torch.Tensor:
     """Plain PyTorch version of K1b: g (N, D), ids (N, L), mask (N, L) or
     None → dtable (rows, D) in ``dtype`` (default: g's).  Zeros plus one
     ``index_add_`` of ``g[n]·mask[n,l]``, accumulated in float32 and cast
     once; for a bfloat16 ``dtype`` each contribution is rounded to bfloat16
     first, as the JAX package casts the incoming gradient to the table dtype
-    before its scatter-add.  Ids outside [0, rows) are dropped."""
+    before its scatter-add.  Ids outside [0, rows) are dropped; with
+    ``mode="fill"`` negative ids are wrapped once first, as the forward of
+    that mode reads them."""
+    fill = _fill(mode)
     dtype = g.dtype if dtype is None else dtype
     n, pool = ids.shape
     contrib = g.float()[:, None, :].expand(n, pool, g.shape[1])
@@ -104,6 +129,8 @@ def gather_pool_bwd_plain(g: torch.Tensor, ids: torch.Tensor,
     if dtype == torch.bfloat16:
         contrib = contrib.to(torch.bfloat16).float()
     idx = ids.reshape(-1).long()
+    if fill:
+        idx = torch.where(idx < 0, idx + rows, idx)
     # dropped ids land in one extra row, cut off below (no host sync)
     idx = torch.where((idx >= 0) & (idx < rows), idx, rows)
     acc = torch.zeros((rows + 1, g.shape[1]), dtype=torch.float32, device=g.device)
@@ -149,7 +176,7 @@ def _check_ids_mask(ids: torch.Tensor, mask: Optional[torch.Tensor],
 
 def _gather_pool_cuda(table: torch.Tensor, ids: torch.Tensor,
                       mask: Optional[torch.Tensor],
-                      out_dtype: torch.dtype) -> torch.Tensor:
+                      out_dtype: torch.dtype, fill: bool) -> torch.Tensor:
     """Launch K1.  ``ids`` and ``mask`` are already checked."""
     n, pool = ids.shape
     rows, dim = table.shape
@@ -166,7 +193,7 @@ def _gather_pool_cuda(table: torch.Tensor, ids: torch.Tensor,
         rc = lib.pr_gather_pool(
             table.data_ptr(), _DTYPE_CODE[table.dtype], rows, dim,
             ids.data_ptr(), None if mask is None else mask.data_ptr(),
-            n, pool, out.data_ptr(), _DTYPE_CODE[out_dtype], stream,
+            n, pool, int(fill), out.data_ptr(), _DTYPE_CODE[out_dtype], stream,
         )
     _check_launch(lib, rc, "gather_pool")
     gather_pool.launches += 1
@@ -187,15 +214,17 @@ def empty_launch(device: torch.device) -> None:
 
 def gather_pool_bwd(g: torch.Tensor, ids: torch.Tensor,
                     mask: Optional[torch.Tensor], rows: int,
-                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                    dtype: Optional[torch.dtype] = None,
+                    mode: str = "clip") -> torch.Tensor:
     """K1b: g (N, D) f32/bf16; ids (N, L) int32; mask (N, L) or None →
     dtable (rows, D) in ``dtype`` (default: g's; a bf16 g only into a bf16
-    dtable), accumulated in float32.
+    dtable), accumulated in float32; ``mode`` as the forward's.
     CPU tensors take ``gather_pool_bwd_plain``; CUDA tensors launch the
     kernel or raise."""
+    fill = _fill(mode)
     dtype = g.dtype if dtype is None else dtype
     if g.device.type == "cpu":
-        return gather_pool_bwd_plain(g, ids, mask, rows, dtype)
+        return gather_pool_bwd_plain(g, ids, mask, rows, dtype, mode)
     if g.device.type != "cuda":
         raise ValueError(f"gather_pool_bwd runs on cpu or cuda, not {g.device}")
     if g.dim() != 2:
@@ -226,7 +255,7 @@ def gather_pool_bwd(g: torch.Tensor, ids: torch.Tensor,
         rc = lib.pr_gather_pool_bwd(
             g.data_ptr(), _DTYPE_CODE[g.dtype], ids.data_ptr(),
             None if mask is None else mask.data_ptr(), n, pool, dim, rows,
-            dtable.data_ptr(), _DTYPE_CODE[dtype],
+            int(fill), dtable.data_ptr(), _DTYPE_CODE[dtype],
             None if scratch is None else scratch.data_ptr(), stream,
         )
     _check_launch(lib, rc, "gather_pool_bwd")
@@ -240,28 +269,31 @@ class _GatherPoolCuda(torch.autograd.Function):
     integers, and ``gather_pool`` refuses a mask that would need one."""
 
     @staticmethod
-    def forward(ctx, table, ids, mask, out_dtype):
+    def forward(ctx, table, ids, mask, out_dtype, mode):
         ctx.save_for_backward(ids, mask)
-        ctx.rows, ctx.table_dtype = table.shape[0], table.dtype
-        return _gather_pool_cuda(table, ids, mask, out_dtype)
+        ctx.rows, ctx.table_dtype, ctx.mode = table.shape[0], table.dtype, mode
+        return _gather_pool_cuda(table, ids, mask, out_dtype, mode == "fill")
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         ids, mask = ctx.saved_tensors
-        return gather_pool_bwd(g, ids, mask, ctx.rows, ctx.table_dtype), None, None, None
+        dtable = gather_pool_bwd(g, ids, mask, ctx.rows, ctx.table_dtype, ctx.mode)
+        return dtable, None, None, None, None
 
 
 def gather_pool(table: torch.Tensor, ids: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None,
+                mode: str = "clip") -> torch.Tensor:
     """table (R, D) f32/bf16; ids (N, L) int32; mask (N, L) or None (weight
     1) → (N, D), summed in float32, in the table dtype or (``out_dtype``)
-    float32 from a bfloat16 table.  Ids are clipped to [0, R-1].  CPU
-    tensors take ``gather_pool_plain``; CUDA tensors launch K1, and K1b when
-    a gradient flows back to the table."""
+    float32 from a bfloat16 table.  Ids out of range as ``mode`` says (see
+    the module docstring).  CPU tensors take ``gather_pool_plain``; CUDA
+    tensors launch K1, and K1b when a gradient flows back to the table."""
+    _fill(mode)
     if table.device.type == "cpu":
-        return gather_pool_plain(table, ids, mask, out_dtype)
+        return gather_pool_plain(table, ids, mask, out_dtype, mode)
     if table.device.type != "cuda":
         raise ValueError(f"gather_pool runs on cpu or cuda, not {table.device}")
     if table.dim() != 2 or not table.is_contiguous():
@@ -275,7 +307,7 @@ def gather_pool(table: torch.Tensor, ids: torch.Tensor,
             "or multiply by it outside the lookup"
         )
     ids, mask = _check_ids_mask(ids, mask, table.device)
-    return _GatherPoolCuda.apply(table, ids, mask, out_dtype)
+    return _GatherPoolCuda.apply(table, ids, mask, out_dtype, mode)
 
 
 gather_pool.launches = 0

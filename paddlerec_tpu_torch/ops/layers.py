@@ -1,9 +1,10 @@
 """Shared layers of the rank models: the MLP tower, the FM terms, the three
-cross networks and CIN.
+cross networks, CIN, DIN's target attention and flax's ``LayerNorm``.
 
 Counterparts of ``MLP``, ``FMFirstOrder``, ``fm_second_order``,
-``FMInteraction``, ``CrossNet``, ``CrossNetV2``, ``CrossNetMix`` and ``CIN``
-in ``paddlerec_tpu/ops/layers.py``, with the flax tree's parameter names.
+``FMInteraction``, ``CrossNet``, ``CrossNetV2``, ``CrossNetMix``, ``CIN`` and
+``TargetAttention`` in ``paddlerec_tpu/ops/layers.py`` and of flax's
+``nn.LayerNorm``, with the flax tree's parameter names.
 Dense products stay ``nn.Linear`` / ``torch.einsum`` (cuBLAS on the card), as
 the JAX package left them to XLA outside any Pallas kernel; the one lookup
 here (``FMFirstOrder``) goes through kernel K1.
@@ -314,3 +315,52 @@ class CIN(nn.Module):
                 direct = xk = xk_next
             outputs.append(direct.sum(dim=-1))
         return torch.cat(outputs, dim=-1)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis: parameters ``scale`` (ones)
+    and ``bias`` (zeros), and flax's epsilon, 1e-6 (PyTorch's default is
+    1e-5)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, x.shape[-1:], self.scale, self.bias, self.eps)
+
+
+class TargetAttention(nn.Module):
+    """DIN-style target attention over a behaviour history: scores from
+    ``att_mlp`` (sigmoid between its layers, none after the last) over
+    ``concat[h, t, h - t, h * t]`` per position, optionally scaled by
+    ``E^-0.5`` (``scale_scores``), then a softmax over the positions whose
+    mask is set (``use_softmax``; the others filled with -1e9, a finite value
+    as in the JAX layer, so a row with no valid position gets uniform weights,
+    not NaN) or the raw scores times the mask; the weighted sum of the
+    history.  history (B, T, E), target (B, E), mask (B, T) → (B, E)."""
+
+    def __init__(self, dim: int, hidden_sizes: Sequence[int] = (80, 40),
+                 use_softmax: bool = True, scale_scores: bool = False,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.use_softmax = use_softmax
+        self.scale_scores = scale_scores
+        self.att_mlp = MLP(4 * dim, list(hidden_sizes) + [1], activation="sigmoid",
+                           output_activation="none", device=device,
+                           generator=generator)
+
+    def forward(self, history: torch.Tensor, target: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        tgt = target[:, None, :].expand_as(history)
+        feat = torch.cat([history, tgt, history - tgt, history * tgt], dim=-1)
+        scores = self.att_mlp(feat)[..., 0]  # (B, T)
+        if self.scale_scores:
+            scores = scores * history.shape[-1] ** -0.5
+        if self.use_softmax:
+            weights = torch.softmax(scores.masked_fill(mask <= 0, -1e9), dim=-1)
+        else:
+            weights = scores * mask
+        return torch.einsum("bt,bte->be", weights, history)

@@ -1,8 +1,9 @@
 """Batch inference from an exported artifact, with a latency report.
 
 Counterpart of ``paddlerec_tpu/tools/predict.py``: load the artifact (its
-parameters go to the device once), stream slot-text batches through
-``infer_forward``, drop mask-padded tail rows from the outputs, and report
+parameters go to the device once), stream batches through ``infer_forward``
+(the model's own reader where it has one, ``make_dataset``; slot text
+otherwise), drop mask-padded tail rows from the outputs, and report
 avg/p50/p90/p99 latency and qps over the full batches after the warm-up.
 A batch's time runs from the forward to the predictions on the host, after
 ``torch.cuda.synchronize()``.
@@ -36,10 +37,13 @@ def run_predict(export_dir: str, data_dir: str, batch_size: int,
     timed)."""
     device = resolve_device(device)
     model_def, module = load_exported(export_dir, device)
-    dataset = SlotDataset(
-        list_data_files(data_dir), schema_from_config(model_def.config),
-        batch_size, drop_last=False,
-    )
+    if hasattr(model_def, "make_dataset"):
+        dataset = model_def.make_dataset(data_dir, batch_size)
+    else:
+        dataset = SlotDataset(
+            list_data_files(data_dir), schema_from_config(model_def.config),
+            batch_size, drop_last=False,
+        )
 
     latencies = []
     total = 0
@@ -53,13 +57,14 @@ def run_predict(export_dir: str, data_dir: str, batch_size: int,
             torch.cuda.synchronize(device)
         arr = aux["predictions"].cpu().numpy()
         elapsed = time.perf_counter() - t0
-        # drop mask-padded tail rows so prediction lines align 1:1 with
-        # input instances
-        mask = host_batch["mask"].reshape(-1) > 0
-        if arr.shape[0] == mask.shape[0]:
-            arr = arr[mask]
+        if "mask" in host_batch:
+            # drop mask-padded tail rows so prediction lines align 1:1 with
+            # input instances
+            mask = host_batch["mask"].reshape(-1) > 0
+            if arr.shape[0] == mask.shape[0]:
+                arr = arr[mask]
         outputs.append(arr)
-        rows = int(host_batch["mask"].sum())
+        rows = int(host_batch["mask"].sum()) if "mask" in host_batch else batch_size
         full = host_batch["label"].shape[0] == batch_size
         if i >= warmup and full:
             latencies.append(elapsed)

@@ -231,6 +231,17 @@ class Trainer:
     # -- data ---------------------------------------------------------------------
     def make_dataset(self, data_dir: str, batch_size: int, shuffle=False,
                      drop_last: bool = True):
+        if hasattr(self.model_def, "make_dataset"):
+            # a model with its own text format reads it (din, dsin, dmr, ...)
+            try:
+                return self.model_def.make_dataset(
+                    data_dir, batch_size, shuffle, drop_last=drop_last
+                )
+            except TypeError:
+                # the models' datasets take no drop_last (their own tail
+                # policy applies), as in the JAX package
+                return self.model_def.make_dataset(data_dir, batch_size,
+                                                   shuffle)
         schema = schema_from_config(self.config)
         files = list_data_files(data_dir)
         reader_type = str(self.config.runner("reader_type", "")).lower()

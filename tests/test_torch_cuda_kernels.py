@@ -202,3 +202,95 @@ def test_unpacked_slot_embedding_cuda_matches_cpu(cuda, dtype):
     assert torch.equal(outs[0], outs[1])
     tol = dict(rtol=1e-6, atol=1e-7) if dtype == torch.float32 else dict(rtol=2e-2, atol=1e-4)
     torch.testing.assert_close(grads[1], grads[0], **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim,pool", [(1, 1), (4, 1), (32, 1), (64, 1), (64, 3), (10, 3)])
+def test_fill_mode_matches_plain(cuda, dtype, dim, pool):
+    """K1 and K1b in fill mode (what ``Embed`` reads with): negative ids
+    wrapped once, the rest outside [0, R) NaN rows in the forward and dropped
+    in the backward, against the plain versions on the card."""
+    rng = np.random.RandomState(dim * 10 + pool)
+    rows, n = 1000, 4099
+    table = torch.from_numpy(rng.randn(rows, dim).astype(np.float32)).to(cuda, dtype)
+    ids = torch.from_numpy(rng.randint(-rows - 3, rows + 3, (n, pool)).astype(np.int32)).to(cuda)
+    mask = torch.from_numpy((rng.rand(n, pool) < 0.7).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.randn(n, dim).astype(np.float32)).to(cuda, dtype)
+    for m in (None, mask):
+        out = gather_pool(table, ids, m, mode="fill")
+        ref = gather_pool_plain(table, ids, m, mode="fill")
+        assert torch.equal(torch.isnan(out), torch.isnan(ref))
+        if pool == 1:
+            assert torch.equal(torch.nan_to_num(out), torch.nan_to_num(ref))
+        else:
+            torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-5,
+                                       equal_nan=True)
+        got = gather_pool_bwd(g, ids, m, rows, dtype, mode="fill")
+        want = gather_pool_bwd_plain(g, ids, m, rows, dtype, mode="fill")
+        rtol = 1e-5 if dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_embed_trains_on_cuda_like_cpu(cuda):
+    """``Embed`` on the card: one K1 launch for several id tensors, one K1b
+    in the backward, out-of-range ids as on the CPU."""
+    from paddlerec_tpu_torch.ops.embedding import Embed
+
+    rng = np.random.RandomState(5)
+    a = torch.from_numpy(rng.randint(-1, 3001, (8, 20)).astype(np.int64))
+    b = torch.from_numpy(rng.randint(0, 3000, (8,)).astype(np.int64))
+    outs, grads = [], []
+    for device in (torch.device("cpu"), cuda):
+        emb = Embed(3000, 64, generator=torch.Generator().manual_seed(0)).to(device)
+        fwd, bwd = gather_pool.launches, gather_pool_bwd.launches
+        va, vb = emb(a.to(device), b.to(device))
+        (torch.nan_to_num(va) ** 2).sum().add((vb ** 3).sum()).backward()
+        assert (gather_pool.launches - fwd, gather_pool_bwd.launches - bwd) == (
+            (1, 1) if device.type == "cuda" else (0, 0))
+        outs.append(torch.cat([va.reshape(-1), vb.reshape(-1)]).detach().cpu())
+        grads.append(emb.embedding.grad.cpu())
+    assert torch.equal(torch.isnan(outs[0]), torch.isnan(outs[1]))
+    assert torch.equal(torch.nan_to_num(outs[0]), torch.nan_to_num(outs[1]))
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["rank.din", "rank.dien", "rank.bst", "rank.dsin",
+                                   "rank.dmr", "rank.dpin"])
+def test_sequence_model_on_cuda_matches_cpu(cuda, model):
+    """A small config of each sequence model, its forward and one train step
+    on the card against the CPU from the same parameters: atol 1e-5."""
+    from paddlerec_tpu_torch.core.config import Config
+    from paddlerec_tpu_torch.core.device import to_tensors
+    from paddlerec_tpu_torch.train.trainer import Trainer
+
+    small = {
+        "rank.din": {"max_seq_len": 8},
+        "rank.dien": {"max_seq_len": 8, "gru_hidden": 16},
+        "rank.bst": {"max_seq_len": 8},
+        "rank.dsin": {"user_size": 1000, "adgroup_size": 1000, "campaign_size": 1000,
+                      "customer_size": 1000, "brand_size": 1000},
+        "rank.dmr": {"user_size": 1000, "adgroup_id_size": 1000, "campaign_id_size": 1000,
+                     "customer_size": 1000, "brand_size": 1000, "history_length": 8},
+        "rank.dpin": {"num_blocks": 2, "max_item": 1000, "max_context": 1000},
+    }[model]
+    cfg = Config({"runner.model": model, "runner.seed": 0,
+                  **{f"hyper_parameters.{k}": v for k, v in small.items()}})
+    trainers = {d: Trainer(cfg, device=d) for d in ("cpu", "cuda")}
+    trainers["cpu"].init_state(seed=0)
+    trainers["cuda"].init_state(seed=0)
+    trainers["cuda"].state.module.load_state_dict(trainers["cpu"].state.module.state_dict())
+    batch = trainers["cpu"].model_def.example_batch(32)
+    preds, losses = {}, {}
+    for name, tr in trainers.items():
+        b = to_tensors(batch, tr.device)
+        with torch.no_grad():
+            preds[name] = tr.model_def.infer_forward(tr.state.module, b)["predictions"].cpu()
+        ms = tr._init_metric_state()
+        _, loss = tr.train_step(b, ms)
+        _, loss = tr.train_step(b, ms)
+        losses[name] = float(loss)
+    torch.testing.assert_close(preds["cuda"], preds["cpu"], rtol=0, atol=1e-5)
+    assert abs(losses["cuda"] - losses["cpu"]) < 1e-5

@@ -143,11 +143,12 @@ def test_port_imports_nothing_of_jax():
     for name in ("train.trainer", "train.optimizers", "train.checkpoint", "train.state",
                  "core.metrics", "data.wire", "data.binary", "data.superbatch",
                  "tools.train", "tools.infer", "utils.fs", "ops.sparse_update",
-                 "models.rank.dnn.model", "models.rank.wide_deep.model",
+                 "models.rank.dnn.model", "models.rank.wide_deep.model", "ops.sequence",
                  *(f"models.rank.{m}.model" for m in (
                      "lr", "fm", "slot_dnn", "dcn", "dcn_v2", "dlrm", "xdeepfm",
                      "autoint", "gatenet", "flen", "deepfefm", "difm", "ffm",
-                     "fat_deepffm", "fgcnn", "autofis"))):
+                     "fat_deepffm", "fgcnn", "autofis",
+                     "din", "dien", "bst", "dsin", "dmr", "dpin"))):
         assert f"paddlerec_tpu_torch.{name}" in walked, name
 
 
