@@ -77,7 +77,24 @@ without a result line:
     checkpoint, ``export_model`` and ``run_predict`` at batch 32 and 1024 card
     against CPU (atol 1e-5), ``torch.profiler`` over one train step each; dmr
     through ``tools.train`` on rows in its own format;
-15. K1 and K1b timed at the sequence models' shapes (fill mode).
+15. K1 and K1b timed at the sequence models' shapes (fill mode);
+16. the rest of the rank family (deeprec, iprec, naml, fastformer, sign,
+    bert4rec): each model's ``configs/rank/<model>/config.yaml`` at full width,
+    card against a CPU twin from one seed as in 13 (sign's gates from the same
+    noise; bert4rec compared on its logits), one K1 launch per ``Embed`` table
+    and forward and one K1b per table and step (deeprec 0, iprec 3, naml 3,
+    fastformer 5, sign 2, bert4rec 3);
+17. naml (planted signal) and bert4rec (Markov-chain sequences) through
+    ``Trainer.train()`` for two epochs of 100 steps and ``evaluate()``
+    (AUC above 0.5; accuracy above five times chance), the loss falling;
+    deeprec, iprec, fastformer and sign through ``tools.train`` for two
+    epochs of 100 steps; iprec, naml and fastformer exported and served by
+    ``run_predict`` at batch 32 and 1024 card against CPU (atol 1e-5);
+    ``torch.profiler`` over the iprec and fastformer train step;
+18. K1 and K1b at their new shapes (a 102-row word table under 19,200 ids,
+    bert4rec's sentence table with every id 0, fastformer's 400-wide position
+    rows, iprec's 554,238-row user table under 65,312 ids), each held against
+    its plain version, then timed.
 
 Phase 3 covers the shapes the zoo and the sequence models add to the main
 path: rows of 8 lanes (the view of lr's and ffm's width-1 packed table), of
@@ -503,38 +520,50 @@ def time_k1b(gp, seed: int, vocab: int, rows: int, dim: int = 16, batches=BATCHE
 
 
 # the sequence models' lookups at batch 32, one K1 launch each (fill mode):
-# (model, table, rows, row width D, ids N per call)
+# (shape, rows, row width D, ids N per call, how the ids fall)
 SEQ_SHAPES = (
-    ("din", "item_emb", 63001, 64, 32 * 128 + 32),  # history and target in one call
-    ("din", "item_b", 63001, 1, 32),  # 4-byte rows: both kernels' scalar path
-    ("dsin", "brand_emb", 461499, 4, 32 + 32 * 5 * 10),
-    ("dmr", "brand_emb", 461529, 32, 32 + 32 * 50),
+    ("din item_emb", 63001, 64, 32 * 128 + 32, "uniform"),  # history and target in one call
+    ("din item_b", 63001, 1, 32, "uniform"),  # 4-byte rows: both kernels' scalar path
+    ("dsin brand_emb", 461499, 4, 32 + 32 * 5 * 10, "uniform"),
+    ("dmr brand_emb", 461529, 32, 32 + 32 * 50, "uniform"),
 )
 
 
-def time_seq_shapes(gp, seed: int, iters: int = 400) -> tuple:
-    """Phase 15: K1 and K1b at the sequence models' shapes (``SEQ_SHAPES``):
-    the lookup of an ``Embed`` table in fill mode and the dense gradient of
-    it, beside their plain versions and one PyTorch call each
+def _fill_ids(kind: str, rows: int, n: int, g) -> torch.Tensor:
+    """(n, 1) int32 ids of a ``*_SHAPES`` entry: ``uniform`` over the table,
+    ``zeros``, or ``period P`` (0..P-1 repeated: (B, T) position ids)."""
+    if kind == "zeros":
+        return torch.zeros((n, 1), dtype=torch.int32, device="cuda")
+    if kind.startswith("period"):
+        period = int(kind.split()[1])
+        return (torch.arange(n, device="cuda", dtype=torch.int32) % period)[:, None]
+    return torch.randint(0, rows, (n, 1), device="cuda", generator=g, dtype=torch.int32)
+
+
+def time_fill_shapes(gp, seed: int, shapes, iters: int = 400) -> tuple:
+    """Phases 15 and 18: K1 and K1b at the ``shapes`` of an ``Embed`` table
+    (``SEQ_SHAPES``, ``REST_SHAPES``): the lookup in fill mode and the dense
+    gradient of it, beside their plain versions and one PyTorch call each
     (``F.embedding``, what ``torch.nn.Embedding`` calls, and
     ``embedding_dense_backward``), with the byte bound of the same work.
-    ``iters`` stays under the launch queue's depth (see
+    Uniform ids come in enough distinct sets that a cycle reads more rows
+    than L2 holds.  ``iters`` stays under the launch queue's depth (see
     ``time_launch_floor``)."""
     from torch.nn import functional as F
 
-    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     k1, k1b = [], []
-    for model, name, rows, dim, n in SEQ_SHAPES:
+    for name, rows, dim, n, kind in shapes:
         table = torch.randn(rows, dim, device="cuda", generator=g)
-        # enough distinct id sets that a cycle reads more rows than L2 holds
-        n_sets = max(4, min(64, math.ceil(50e6 / (n * max(dim, 16) * 4))))
-        sets = [torch.randint(0, rows, (n, 1), device="cuda", generator=g,
-                              dtype=torch.int32) for _ in range(n_sets)]
+        n_sets = (max(4, min(64, math.ceil(50e6 / (n * max(dim, 16) * 4))))
+                  if kind == "uniform" else 1)
+        sets = [_fill_ids(kind, rows, n, g) for _ in range(n_sets)]
         flat = {id(s): s.reshape(-1).long() for s in sets}
         grad = torch.randn(n, dim, device="cuda", generator=g)
         uniq = sum(int(torch.unique(s).numel()) for s in sets) / len(sets)
-        shape = {"shape": f"{model} {name}", "n": n, "pool": 1, "dim": dim, "rows": rows,
-                 "dtype": "float32", "mode": "fill", "touched_rows": uniq}
+        shape = {"shape": name, "n": n, "pool": 1, "dim": dim, "rows": rows,
+                 "dtype": "float32", "mode": "fill", "touched_rows": uniq,
+                 "most_adds_per_row": int(torch.bincount(flat[id(sets[0])]).max())}
         fns = {
             "ms": lambda s: gp.gather_pool(table, s, mode="fill"),
             "plain_ms": lambda s: gp.gather_pool_plain(table, s, mode="fill"),
@@ -1039,7 +1068,10 @@ def run_training(gp, cfg, seed: int, check_fall: bool = True, trainer=None,
     """``Trainer.train()`` then ``evaluate()`` through the normal entry
     points; the kernels' counts are read around each: one K1 launch per
     forward and one K1b launch per step for each of the model's ``tables``.
-    ``check_auc`` is switched off only for a run whose CPU twin's head died."""
+    The model's metric (``auc``, or ``acc`` for an accuracy model) must be
+    above 0.5 or 0; ``check_auc`` is switched off only for a run whose CPU
+    twin's head died."""
+    from paddlerec_tpu_torch.core.config import resolve_path
     from paddlerec_tpu_torch.train.trainer import Trainer, logger
 
     batch = int(cfg.runner("train_batch_size"))
@@ -1073,11 +1105,16 @@ def run_training(gp, cfg, seed: int, check_fall: bool = True, trainer=None,
     saved = bool(cfg.runner("model_save_path"))
     evaluated = trainer.evaluate(epoch_tag=epochs - 1 if saved else None)
     eval_launches = (gp.gather_pool.launches, gp.gather_pool_bwd.launches)
-    eval_batches = math.ceil(evaluated["total_ins"] / batch)
+    # the host batches evaluate() read, tail included
+    eval_batches = sum(1 for _ in trainer.make_dataset(
+        resolve_path(cfg, "runner.test_data_dir"), int(cfg.runner("infer_batch_size", 32)),
+        drop_last=False))
     if eval_launches != (tables * eval_batches, 0):
-        raise AssertionError(f"evaluate launched K1, K1b {eval_launches}")
-    if not (np.isfinite(evaluated["auc"])
-            and (evaluated["auc"] > 0.5 or not check_auc)):
+        raise AssertionError(f"{eval_batches} eval batches launched K1, K1b {eval_launches}")
+    metric = trainer.model_def.metrics
+    floor = 0.5 if metric == "auc" else 0.0
+    if not (np.isfinite(evaluated[metric])
+            and (evaluated[metric] > floor or not check_auc)):
         raise AssertionError(f"evaluate: {evaluated}")
     return {
         "batch_size": batch, "steps": steps, "epochs": epochs,
@@ -1089,13 +1126,14 @@ def run_training(gp, cfg, seed: int, check_fall: bool = True, trainer=None,
         "last_epoch_seconds": metrics["epoch_time"],
         "last_epoch_examples_per_s": metrics["ips"],
         "last_epoch_steps_per_s": metrics["ips"] / batch,
-        "examples": examples, "train_auc_last_epoch": metrics["auc"],
+        "examples": examples, f"train_{metric}_last_epoch": metrics[metric],
         "k1_launches": launches[0], "k1b_launches": launches[1],
         # train() and evaluate() together, by the row width D of the launch
         "k1_launches_by_dim": dict(gp.gather_pool.launches_by_dim),
         "k1b_launches_by_dim": dict(gp.gather_pool_bwd.launches_by_dim),
-        "eval": {"auc": evaluated["auc"], "total_ins": evaluated["total_ins"],
-                 "examples_per_s": evaluated["ips"], "k1_launches": eval_launches[0]},
+        "eval": {metric: evaluated[metric], "total_ins": evaluated.get("total_ins"),
+                 "examples_per_s": evaluated["ips"], "batches": eval_batches,
+                 "k1_launches": eval_launches[0]},
     }
 
 
@@ -1161,7 +1199,7 @@ def profile_train(cfg, batch_size: int, seed: int, iters: int = 20) -> dict:
     if trainer.state.extra is not None:
         parts["row_update"], _ = looped(lambda: model_def.apply_sparse_updates(
             module, trainer.state.extra, aux["delta_grads"], batch,
-            rng=trainer._round_rng))
+            rng=trainer._step_rng))
     parts["metrics"], _ = looped(lambda: model_def.update_metric_state(ms, aux))
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
@@ -1417,19 +1455,65 @@ def _reset(gp):
     gp.gather_pool_bwd.launches_by_dim.clear()
 
 
-def seq_zoo(gp, seed: int, card: str) -> dict:
-    """Phase 13: din, dien, bst, dsin, dmr and dpin at the full width of their
-    configs, batch 32: a module on the card and its twin on the CPU from one
-    seed, one forward and three train steps on four of the model's example
-    batches; predictions and losses card against CPU (atol 1e-5); K1
-    launches per forward = the model's ``Embed`` tables, K1b launches per step
-    the same, both counted by row width."""
+def _add_dims(out: dict, key: str, counts) -> None:
+    for d, c in counts.items():
+        out[key][d] = out[key].get(d, 0) + c
+
+
+def _add_launched(out: dict, launched) -> None:
+    """Add ``_counts(gp)`` to a phase's totals."""
+    out["k1"] += launched[0]
+    out["k1b"] += launched[1]
+    _add_dims(out, "k1_by_dim", launched[2])
+    _add_dims(out, "k1b_by_dim", launched[3])
+
+
+def _add_run(out: dict, run: dict) -> None:
+    """Add a ``run_training`` result's launches to a phase's totals."""
+    out["k1"] += run["k1_launches"] + run["eval"]["k1_launches"]
+    out["k1b"] += run["k1b_launches"]
+    _add_dims(out, "k1_by_dim", run["k1_launches_by_dim"])
+    _add_dims(out, "k1b_by_dim", run["k1b_launches_by_dim"])
+
+
+def _same_noise(model_def, trainer, seed: int) -> None:
+    """sign on the card and its CPU twin draw the same gates: uniform noise
+    from ``RandomState(seed + step)`` in place of the trainer's generator."""
+    def draw(generator, shape, device):
+        noise = np.random.RandomState(seed + trainer.state.step).rand(*shape)
+        return torch.from_numpy(noise.astype(np.float32)).to(device)
+
+    model_def.draw_noise = draw
+
+
+def _twin_output(model_def, module, batch) -> np.ndarray:
+    """What a forward is compared on: the predictions, deeprec's
+    reconstruction, bert4rec's logits (its aux holds only 0/1 flags), both
+    of sign's clipped outputs (its predictions are the second alone)."""
+    with torch.no_grad():
+        if model_def.registry_name == "rank.bert4rec":
+            return module(*model_def.model_inputs(batch)).cpu().numpy()
+        if model_def.registry_name == "rank.sign":
+            return module(*model_def.model_inputs(batch))[0].cpu().numpy()
+        aux = model_def.infer_forward(module, batch)
+    return aux.get("predictions", aux.get("outputs")).cpu().numpy()
+
+
+def twin_zoo(gp, seed: int, card: str, models, name: str) -> dict:
+    """Phases 13 and 16: each of ``models`` at the full width of its config,
+    batch 32: a module on the card and its twin on the CPU from one seed, one
+    forward and three train steps on four of the model's example batches (a
+    stochastic model's noise the same on both); outputs (``_twin_output``)
+    and losses card against CPU (atol 1e-5); K1 launches per forward = the
+    model's ``Embed`` tables (for the rank family's rest, as many as
+    ``REST_TABLES`` says), K1b launches per step the same, both counted by
+    row width.  Emits one line under ``name``."""
     from paddlerec_tpu_torch.core.device import to_tensors
     from paddlerec_tpu_torch.train.trainer import Trainer
 
     results, failed = [], []
     totals = {"k1": 0, "k1b": 0, "k1_by_dim": {}, "k1b_by_dim": {}}
-    for model in SEQ:
+    for model in models:
         cfg = zoo_config(model)
         t0 = time.perf_counter()
         host = Trainer(cfg, device="cpu")
@@ -1438,25 +1522,28 @@ def seq_zoo(gp, seed: int, card: str) -> dict:
         chip.init_state(seed=seed)
         chip.state.module.load_state_dict(host.state.module.state_dict())
         widths = seq_tables(chip.state.module)
+        tables = sum(widths.values())
+        if tables != REST_TABLES.get(model, tables):
+            raise AssertionError(f"{model}: {dict(widths)} tables, not {REST_TABLES[model]}")
+        if host.stochastic:
+            for trainer in (host, chip):
+                _same_noise(trainer.model_def, trainer, seed + 16)
         rows = host.model_def.example_batch(4 * SEQ_BATCH)
         batches = [{k: v[i * SEQ_BATCH:(i + 1) * SEQ_BATCH] for k, v in rows.items()}
                    for i in range(4)]
-        preds, losses, launched = {}, {}, {}
-        for name, trainer in (("cuda", chip), ("cpu", host)):
+        outs, losses, launched = {}, {}, {}
+        for device, trainer in (("cuda", chip), ("cpu", host)):
             _reset(gp)
-            with torch.no_grad():
-                aux = trainer.model_def.infer_forward(
-                    trainer.state.module, to_tensors(batches[0], trainer.device))
-            preds[name] = aux["predictions"].cpu().numpy()
+            outs[device] = _twin_output(trainer.model_def, trainer.state.module,
+                                        to_tensors(batches[0], trainer.device))
             forward = _counts(gp)
             _reset(gp)
-            ms, losses[name] = trainer._init_metric_state(), []
+            ms, losses[device] = trainer._init_metric_state(), []
             for b in batches[1:]:
                 ms, loss = trainer.train_step(to_tensors(b, trainer.device), ms)
-                losses[name].append(float(loss))
-            launched[name] = (forward, _counts(gp))
+                losses[device].append(float(loss))
+            launched[device] = (forward, _counts(gp))
         steps = len(batches) - 1
-        tables = sum(widths.values())
         per_step = {d: c * steps for d, c in widths.items()}
         (f1, f1b, f1_dim, _), (s1, s1b, s1_dim, s1b_dim) = launched["cuda"]
         counted = (f1 == tables and f1b == 0 and f1_dim == dict(widths)
@@ -1464,20 +1551,17 @@ def seq_zoo(gp, seed: int, card: str) -> dict:
         if not counted or launched["cpu"][0][:2] + launched["cpu"][1][:2] != (0, 0, 0, 0):
             raise AssertionError(f"{model}: K1, K1b launches {launched}, "
                                  f"expected {tables} tables {dict(widths)}")
-        for key, got in (("k1", f1 + s1), ("k1b", s1b)):
-            totals[key] += got
-        for key, got in (("k1_by_dim", f1_dim), ("k1_by_dim", s1_dim), ("k1b_by_dim", s1b_dim)):
-            for d, c in got.items():
-                totals[key][d] = totals[key].get(d, 0) + c
-        pred_err = float(np.abs(preds["cuda"] - preds["cpu"]).max())
+        _add_launched(totals, (f1 + s1, s1b, {}, s1b_dim))
+        _add_dims(totals, "k1_by_dim", f1_dim)
+        _add_dims(totals, "k1_by_dim", s1_dim)
+        out_err = float(np.abs(outs["cuda"] - outs["cpu"]).max())
         loss_err = float(np.abs(np.array(losses["cuda"]) - np.array(losses["cpu"])).max())
-        ok = bool(np.all(np.isfinite(preds["cuda"])) and np.all(np.isfinite(losses["cuda"]))
-                  and np.ptp(preds["cuda"]) > 0 and len(set(losses["cuda"])) > 1
-                  and pred_err <= ZOO_ATOL and loss_err <= ZOO_ATOL)
+        ok = bool(np.all(np.isfinite(outs["cuda"])) and np.all(np.isfinite(losses["cuda"]))
+                  and np.ptp(outs["cuda"]) > 0 and len(set(losses["cuda"])) > 1
+                  and out_err <= ZOO_ATOL and loss_err <= ZOO_ATOL)
         results.append({
             "model": model, "ok": ok, "atol": ZOO_ATOL, "seed": seed,
-            "max_abs_err_predictions": pred_err,
-            "predictions_spread": float(np.ptp(preds["cuda"])),
+            "max_abs_err_outputs": out_err, "outputs_spread": float(np.ptp(outs["cuda"])),
             "max_abs_err_loss": loss_err, "loss_cuda": losses["cuda"],
             "tables_by_dim": dict(widths), "k1_per_forward": f1,
             "k1b_per_step": s1b // steps,
@@ -1485,10 +1569,10 @@ def seq_zoo(gp, seed: int, card: str) -> dict:
             "seconds": time.perf_counter() - t0})
         if not ok:
             failed.append(model)
-        del host, chip, trainer, ms, aux, loss
+        del host, chip, trainer, ms, loss
         gc.collect()
         torch.cuda.empty_cache()
-    emit({"seq_zoo": results, "batch_size": SEQ_BATCH, "card": card})
+    emit({name: results, "batch_size": SEQ_BATCH, "card": card})
     if failed:
         raise AssertionError(f"card and CPU disagree for {failed}")
     return totals
@@ -1581,13 +1665,6 @@ def seq_paths(gp, work: str, seed: int, card: str) -> dict:
     write_din_data(data, SEQ_ROWS, seed + 14)
     out = {"k1": 0, "k1b": 0, "k1_by_dim": {}, "k1b_by_dim": {}, "runs": {}}
 
-    def add(run):
-        out["k1"] += run["k1_launches"] + run["eval"]["k1_launches"]
-        out["k1b"] += run["k1b_launches"]
-        for key in ("k1_by_dim", "k1b_by_dim"):
-            for d, c in run[f"{key[:-7]}_launches_by_dim"].items():
-                out[key][d] = out[key].get(d, 0) + c
-
     for model in ("din", "dien"):
         ckpt = os.path.join(work, f"ckpt_{model}")
         run_cfg = Config({**zoo_config(model).to_dict(),
@@ -1602,7 +1679,7 @@ def seq_paths(gp, work: str, seed: int, card: str) -> dict:
             raise AssertionError(f"{model}: the last logged loss is not below the first: "
                                  f"{losses}")
         run["model"] = model
-        add(run)
+        _add_run(out, run)
         out["runs"][model] = run
         emit({"train": run, "card": card})
 
@@ -1623,8 +1700,7 @@ def seq_paths(gp, work: str, seed: int, card: str) -> dict:
             if preds.shape != (SEQ_ROWS,) or not np.ptp(preds) > 0 or err > ZOO_ATOL:
                 raise AssertionError(f"{model}: served predictions, card vs CPU max err {err}")
             out["k1"] += launched
-            for d, c in gp.gather_pool.launches_by_dim.items():
-                out["k1_by_dim"][d] = out["k1_by_dim"].get(d, 0) + c
+            _add_dims(out, "k1_by_dim", gp.gather_pool.launches_by_dim)
             emit({"predict": {"model": model, "batch_size": batch, **report,
                               "max_abs_err_vs_cpu": err, "k1_launches": launched,
                               "seconds_export_and_predict": time.perf_counter() - t0},
@@ -1651,16 +1727,310 @@ def seq_paths(gp, work: str, seed: int, card: str) -> dict:
     launched = _counts(gp)
     if launched[:2] != (tables * steps, tables * steps) or not np.isfinite(metrics["auc"]):
         raise AssertionError(f"dmr through tools.train: K1, K1b {launched[:2]}, {metrics}")
-    out["k1"] += launched[0]
-    out["k1b"] += launched[1]
-    for key, got in (("k1_by_dim", launched[2]), ("k1b_by_dim", launched[3])):
-        for d, c in got.items():
-            out[key][d] = out[key].get(d, 0) + c
+    _add_launched(out, launched)
     emit({"train_cli": {"model": "dmr", "steps": steps, "batch_size": SEQ_BATCH,
                         "seconds": time.perf_counter() - t0, "auc": metrics["auc"],
                         "examples_per_s": metrics["ips"], "k1_launches": launched[0],
                         "k1b_launches": launched[1], "tables": tables}, "card": card})
     return out
+
+
+REST = ("deeprec", "iprec", "naml", "fastformer", "sign", "bert4rec")  # the rest of the rank family
+# K1 launches per forward and K1b per step: one per Embed table
+REST_TABLES = {"deeprec": 0, "iprec": 3, "naml": 3, "fastformer": 5, "sign": 2, "bert4rec": 3}
+REST_SERVED = ("iprec", "naml", "fastformer")
+REST_SERVE_ROWS = 11 * 1024 + 64  # ten timed batches of 1024 after the warm-up
+REST_TWIN_ROWS = 512  # the served rows the CPU twin predicts too (rows are independent)
+REST_TRAIN_ROWS = 100 * SEQ_BATCH  # naml's and bert4rec's rows: 100 steps an epoch
+CHAIN_ITEMS = 200  # bert4rec's Markov chain
+# the four models driven through tools.train: two epochs of 100 steps, the
+# second timed
+REST_CLI_ROWS = 100 * SEQ_BATCH
+
+
+def _write_lines(data_dir: str, lines) -> None:
+    os.makedirs(data_dir, exist_ok=True)
+    with open(os.path.join(data_dir, "part-0"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def write_news_data(data_dir: str, rows: int, seed: int, md) -> None:
+    """Rows in ``NewsDataset``'s format at the widths of ``md`` with a planted
+    signal: a user browses news of one favourite category; the positive
+    candidate shares it, the negatives come from the other categories; each
+    news' title and content words are drawn mostly from its category's
+    own tenth of the vocabulary."""
+    rng = np.random.RandomState(seed)
+    s, v = md.neg_size + 1, md.browse_size
+    cats, words = md.category_size, md.word_dict_size
+    band = words // 10
+
+    def text(c, length):  # words of news of categories c, 70% from their band
+        own = (c[:, None] * band + rng.randint(0, band, (len(c), length))) % words
+        return np.where(rng.rand(len(c), length) < 0.7, own,
+                        rng.randint(0, words, (len(c), length)))
+
+    def news(c):  # (cate, sub_cate, title, content) of news of categories c
+        return (c, (c * 2 + rng.randint(0, 2, len(c))) % (md.sub_category_size + 1),
+                text(c, md.title_size), text(c, md.content_size))
+
+    lines = []
+    for _ in range(rows):
+        fav = rng.randint(1, cats + 1)
+        others = np.array([c for c in range(1, cats + 1) if c != fav])
+        pos = rng.randint(0, s)
+        cand = others[rng.randint(0, len(others), s)]
+        cand[pos] = fav
+        labels = np.zeros(s, int)
+        labels[pos] = 1
+        sample, visit = news(cand), news(np.full(v, fav))
+        groups = [labels] + [g for pair in zip(sample, visit) for g in pair]
+        lines.append(";".join(",".join(map(str, g.reshape(-1))) for g in groups))
+    _write_lines(data_dir, lines)
+
+
+def write_bert4rec_data(data_dir: str, rows: int, seed: int, items: int = CHAIN_ITEMS) -> None:
+    """``uid item...`` sequences of 10 to 50 items from a Markov chain over
+    ``items`` items that starts at item 1: the next item is ``(7·i + 3) %
+    items + 1`` nine times in ten, else any item.  The fixed start ties
+    early positions to items, which bert4rec learns within an epoch; from a
+    random start it can sit at the unigram loss (ln ``items``) for thousands
+    of steps before it learns the transitions."""
+    rng = np.random.RandomState(seed)
+    lines = []
+    for u in range(rows):
+        seq = [1]
+        for _ in range(rng.randint(10, 51) - 1):
+            seq.append((7 * seq[-1] + 3) % items + 1 if rng.rand() < 0.9
+                       else rng.randint(1, items + 1))
+        lines.append(" ".join(map(str, [u] + seq)))
+    _write_lines(data_dir, lines)
+
+
+def write_deeprec_data(data_dir: str, rows: int, seed: int, n_items: int) -> None:
+    """``idx:rating`` lines, 20 to 200 ratings a user."""
+    rng = np.random.RandomState(seed)
+    _write_lines(data_dir, [
+        " ".join(f"{i}:{rng.randint(1, 6)}"
+                 for i in rng.choice(n_items, rng.randint(20, 201), replace=False))
+        for _ in range(rows)])
+
+
+def write_iprec_data(data_dir: str, rows: int, seed: int, md) -> None:
+    """JSON lines at the widths of ``md``: each list filled to a random
+    length up to its maximum, packages of ``[item, biz, friends...]``."""
+    rng = np.random.RandomState(seed)
+    w = md.f_max_len + 2
+
+    def ids(hi, most):
+        return rng.randint(1, hi, rng.randint(1, most + 1)).tolist()
+
+    def packs(most):
+        n = rng.randint(0, most + 1)
+        out = np.zeros((n, w), np.int64)
+        out[:, 0] = rng.randint(1, md.num_items, n)
+        out[:, 1] = rng.randint(1, md.num_bizs, n)
+        out[:, 2:] = rng.randint(1, md.num_users, (n, w - 2)) * (rng.rand(n, w - 2) < 0.6)
+        return out.reshape(-1).tolist()
+
+    lines = []
+    for _ in range(rows):
+        lines.append(json.dumps({
+            "user": int(rng.randint(1, md.num_users)), "item": int(rng.randint(1, md.num_items)),
+            "biz": int(rng.randint(1, md.num_bizs)), "friends": ids(md.num_users, md.f_max_len),
+            "user_items": ids(md.num_items, md.u_max_i), "user_bizs": ids(md.num_bizs, md.u_max_i),
+            "user_friends": ids(md.num_users, md.u_max_f),
+            "user_packages": packs(md.u_max_pack), "pack_neighbors_b": packs(md.pack_max_nei_b),
+            "pack_neighbors_f": packs(md.pack_max_nei_f),
+            "label1": int(rng.rand() < 0.3), "label2": 0}))
+    _write_lines(data_dir, lines)
+
+
+def write_sign_data(data_dir: str, rows: int, seed: int, md) -> None:
+    """``label feat...`` lines of ``num_nodes`` features."""
+    rng = np.random.RandomState(seed)
+    _write_lines(data_dir, [
+        " ".join(map(str, [int(rng.rand() < 0.5)]
+                 + rng.randint(0, md.n_feature, md.num_nodes).tolist()))
+        for _ in range(rows)])
+
+
+def rank_rest_paths(gp, work: str, seed: int, card: str) -> dict:
+    """Phase 17, the rest of the rank family through the entry points at the
+    full width of their configs, batch 32:
+      * naml (planted signal: the positive shares the browsed category) and
+        bert4rec (Markov-chain sequences): ``Trainer.train()`` for two
+        epochs of 100 steps, the loss falling, ``evaluate()`` reporting AUC
+        above 0.5 / an accuracy above five times chance;
+      * deeprec, iprec, fastformer and sign: ``tools.train`` for two epochs
+        of 100 steps each on rows in their format, every logged loss
+        finite, the second epoch's examples/s;
+      * iprec, naml and fastformer served: ``export_model`` (naml from its
+        checkpoint, the others from a seed) and ``run_predict`` at batch 32
+        and 1024, the first 512 rows against the port's CPU run (atol
+        1e-5), with p50/p99;
+      * ``torch.profiler`` over the iprec and fastformer train step.
+    K1 and K1b launches are asserted per table, forward and step."""
+    from paddlerec_tpu_torch.core.config import Config
+    from paddlerec_tpu_torch.core.registry import load_model_def
+    from paddlerec_tpu_torch.tools import train as train_cli
+    from paddlerec_tpu_torch.tools.export import export_model
+    from paddlerec_tpu_torch.tools.predict import run_predict
+    from paddlerec_tpu_torch.train.trainer import logger
+
+    out = {"k1": 0, "k1b": 0, "k1_by_dim": {}, "k1b_by_dim": {}, "runs": {}}
+    defs = {m: load_model_def(zoo_config(m)) for m in REST}
+    writers = {
+        "naml": lambda d, n, s: write_news_data(d, n, s, defs["naml"]),
+        "fastformer": lambda d, n, s: write_news_data(d, n, s, defs["fastformer"]),
+        "bert4rec": lambda d, n, s: write_bert4rec_data(d, n, s),
+        "deeprec": lambda d, n, s: write_deeprec_data(d, n, s, defs["deeprec"].layer_sizes[0]),
+        "iprec": lambda d, n, s: write_iprec_data(d, n, s, defs["iprec"]),
+        "sign": lambda d, n, s: write_sign_data(d, n, s, defs["sign"]),
+    }
+    naml_ckpt = os.path.join(work, "ckpt_naml")
+    for i, model in enumerate(("naml", "bert4rec")):
+        data = os.path.join(work, f"{model}_data")
+        writers[model](data, REST_TRAIN_ROWS, seed + 17 + i)
+        # naml is served from its checkpoint; bert4rec saves none
+        ckpt = naml_ckpt if model == "naml" else None
+        run_cfg = Config({**zoo_config(model).to_dict(),
+                          "runner.train_data_dir": data, "runner.test_data_dir": data,
+                          "runner.model_save_path": ckpt, "runner.infer_load_path": ckpt,
+                          "runner.epochs": 2, "runner.print_interval": 20})
+        run = run_training(gp, run_cfg, seed, tables=REST_TABLES[model],
+                           min_steps=2 * REST_TRAIN_ROWS // SEQ_BATCH)
+        losses = run["logged_losses"]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{model}: the last logged loss is not below the first: "
+                                 f"{losses}")
+        if model == "bert4rec" and not run["eval"]["acc"] > 5 / CHAIN_ITEMS:
+            raise AssertionError(f"bert4rec did not learn the chain: {run['eval']}")
+        run["model"] = model
+        _add_run(out, run)
+        out["runs"][model] = run
+        emit({"train": run, "card": card})
+
+    for model in ("deeprec", "iprec", "fastformer", "sign"):
+        data = os.path.join(work, f"{model}_cli")
+        writers[model](data, REST_CLI_ROWS, seed + 18)
+        lines = LossLines()
+        logger.addHandler(lines)
+        _reset(gp)
+        t0 = time.perf_counter()
+        try:
+            metrics = train_cli.main([
+                "-m", os.path.join(ROOT, "configs", "rank", model, "config.yaml"), "-o",
+                f"runner.train_data_dir={data}", f"runner.test_data_dir={data}",
+                "runner.model_save_path=None", "runner.epochs=2",
+                "runner.print_interval=20"])
+        finally:
+            logger.removeHandler(lines)
+        steps = 2 * REST_CLI_ROWS // SEQ_BATCH
+        launched = _counts(gp)
+        tables = REST_TABLES[model]
+        if (launched[:2] != (tables * steps, tables * steps) or len(lines.losses) < 4
+                or not np.all(np.isfinite(lines.losses))):
+            raise AssertionError(f"{model} through tools.train: K1, K1b {launched[:2]}, "
+                                 f"losses {lines.losses}")
+        _add_launched(out, launched)
+        emit({"train_cli": {"model": model, "steps": steps, "batch_size": SEQ_BATCH,
+                            "seconds": time.perf_counter() - t0,
+                            "logged_losses": lines.losses,
+                            "last_epoch_examples_per_s": metrics["ips"],
+                            "k1_launches": launched[0], "k1b_launches": launched[1],
+                            "tables": tables}, "card": card})
+
+    for model in REST_SERVED:
+        data = os.path.join(work, f"{model}_serve")
+        writers[model](data, REST_SERVE_ROWS, seed + 19)
+        export_dir = os.path.join(work, f"export_{model}")
+        flat = zoo_config(model).to_dict()
+        t0 = time.perf_counter()
+        if model == "naml":
+            flat["runner.model_init_path"] = os.path.join(naml_ckpt, "1")
+        export_model(Config(flat), export_dir, seed=seed)
+        # the CPU twin predicts the first rows only: a row's prediction does
+        # not depend on the others in its batch.  A news model scores 1 + 4
+        # candidates a row, and its padded tail rows too (the mask is per
+        # row): keep the real rows' scores
+        twin = f"{data}_head"
+        with open(os.path.join(data, "part-0")) as fh:
+            _write_lines(twin, [fh.readline().rstrip("\n") for _ in range(REST_TWIN_ROWS)])
+        keep = REST_TWIN_ROWS * (defs[model].neg_size + 1 if model != "iprec" else 1)
+        cpu_preds = np.concatenate(
+            run_predict(export_dir, twin, REST_TWIN_ROWS // 2, device="cpu")[0])[:keep]
+        tables = REST_TABLES[model]
+        for batch in SEQ_SERVE:
+            _reset(gp)
+            served, report = run_predict(export_dir, data, batch)
+            launched = gp.gather_pool.launches
+            preds = np.concatenate(served)[:keep]
+            err = float(np.abs(preds - cpu_preds).max())
+            if launched != tables * math.ceil(REST_SERVE_ROWS / batch):
+                raise AssertionError(f"{model}: {launched} K1 launches at batch {batch}")
+            if (preds.shape != cpu_preds.shape or not np.ptp(preds) > 0
+                    or not np.all(np.isfinite(preds)) or err > ZOO_ATOL):
+                raise AssertionError(f"{model}: served predictions, card vs CPU max err {err}")
+            out["k1"] += launched
+            _add_dims(out, "k1_by_dim", gp.gather_pool.launches_by_dim)
+            emit({"predict": {"model": model, "batch_size": batch, "rows": REST_SERVE_ROWS,
+                              **report, "max_abs_err_vs_cpu": err, "k1_launches": launched,
+                              "seconds_export_and_predict": time.perf_counter() - t0},
+                  "card": card})
+        shutil.rmtree(export_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for model in ("iprec", "fastformer"):
+        emit({"profile_train": profile_train(zoo_config(model), SEQ_BATCH, seed),
+              "card": card})
+    return out
+
+
+# the rest of the rank family's lookups at batch 32, one K1 launch each (fill
+# mode), as SEQ_SHAPES
+REST_SHAPES = (
+    ("naml/fastformer word2vec_embedding, title + content", 102, 30, 32 * 15 * 40, "uniform"),
+    ("bert4rec sent_embedding, every id 0", 2, 64, 32 * 50, "zeros"),
+    ("bert4rec word_embedding", 54546, 64, 32 * 50, "uniform"),
+    ("bert4rec pos_embedding", 50, 64, 32 * 50, "period 50"),
+    ("fastformer title position_emb", 256, 400, 32 * 15 * 10, "period 10"),
+    ("fastformer content position_emb", 256, 400, 32 * 15 * 30, "period 30"),
+    # user, friends, and the friends of 1 + 50 + 20 + 20 packages
+    ("iprec user_emb, three lookups in one", 554238, 64, 32 + 32 * 220 + 32 * 91 * 20,
+     "uniform"),
+)
+
+
+def check_fill_shapes(gp, seed: int, card: str, shapes) -> None:
+    """Phase 18, before the timing: K1 and K1b at each of ``shapes`` against
+    their plain versions: K1 bitwise (a gather); K1b rtol 1e-5 and atol 1e-6
+    times the most adds any row takes, since atomics add in another order
+    and a reordered float32 sum's rounding grows with its terms (1e-6 where
+    rows take one add)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    checks = []
+    for name, rows, dim, n, kind in shapes:
+        table = torch.randn(rows, dim, device="cuda", generator=g)
+        ids = _fill_ids(kind, rows, n, g)
+        grad = torch.randn(n, dim, device="cuda", generator=g)
+        adds = int(torch.bincount(ids.reshape(-1).long()).max())
+        out = gp.gather_pool(table, ids, mode="fill")
+        ref = gp.gather_pool_plain(table, ids, mode="fill")
+        dt = gp.gather_pool_bwd(grad, ids, None, rows, mode="fill")
+        dt_ref = gp.gather_pool_bwd_plain(grad, ids, None, rows, mode="fill")
+        torch.cuda.synchronize()
+        atol = 1e-6 * adds
+        check = {"shape": name, "n": n, "dim": dim, "rows": rows, "most_adds_per_row": adds,
+                 "k1_bitwise": bool(torch.equal(out, ref)),
+                 "k1b_max_abs_err": float((dt - dt_ref).abs().max()),
+                 "k1b_tolerance": {"rtol": 1e-5, "atol": atol},
+                 "k1b_ok": bool(torch.allclose(dt, dt_ref, rtol=1e-5, atol=atol))}
+        checks.append(check)
+        if not (check["k1_bitwise"] and check["k1b_ok"]):
+            raise AssertionError(f"a kernel disagrees with its plain version: {check}")
+        del table, ids, grad, out, ref, dt, dt_ref
+    emit({"rank_rest_kernel_checks": checks, "card": card})
 
 
 def profile_forward(model_def, module, batch_size: int, iters: int = 20) -> dict:
@@ -1848,9 +2218,15 @@ def main(argv=None) -> int:
                 args.seed), "card": card})
         gc.collect()
         torch.cuda.empty_cache()
-        seq = seq_zoo(gp, args.seed, card)  # phase 13
+        seq = twin_zoo(gp, args.seed, card, SEQ, "seq_zoo")  # phase 13
         seq_runs = seq_paths(gp, work, args.seed, card)  # phase 14
-        seq_cases, seq_bwd_cases = time_seq_shapes(gp, args.seed)  # phase 15
+        seq_cases, seq_bwd_cases = time_fill_shapes(gp, args.seed + 13, SEQ_SHAPES)  # phase 15
+        gc.collect()
+        torch.cuda.empty_cache()
+        rest = twin_zoo(gp, args.seed, card, REST, "rank_rest_zoo")  # phase 16
+        rest_runs = rank_rest_paths(gp, work, args.seed, card)  # phase 17
+        check_fill_shapes(gp, args.seed + 18, card, REST_SHAPES)  # phase 18
+        rest_cases, rest_bwd_cases = time_fill_shapes(gp, args.seed + 18, REST_SHAPES)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for case, batch in zip(cases, BATCHES):
@@ -1874,29 +2250,38 @@ def main(argv=None) -> int:
     if not all(case["launches"] > 0 for case in seq_cases + seq_bwd_cases):
         raise AssertionError(f"the sequence models launched no kernel at a shape: "
                              f"{seq['k1_by_dim']} {seq_runs['k1_by_dim']}")
+    # the rest of the rank family's phases 16 and 17, counted the same way
+    for cases_at, key in ((rest_cases, "k1_by_dim"), (rest_bwd_cases, "k1b_by_dim")):
+        for case in cases_at:
+            case["launches"] = rest[key].get(case["dim"], 0) + rest_runs[key].get(case["dim"], 0)
+    if not all(case["launches"] > 0 for case in rest_cases + rest_bwd_cases):
+        raise AssertionError(f"the rank family launched no kernel at a shape: "
+                             f"{rest['k1_by_dim']} {rest_runs['k1_by_dim']}")
     all_runs = list(train_runs.values()) + list(sparse["runs"].values())
     k1_launches = (sum(launches.values()) + first["k1_launches"]
                    + sparse["first"]["k1_launches"] + sparse["served_launches"]
                    + sum(r["k1_launches"] + r["eval"]["k1_launches"] for r in all_runs)
-                   + zoo["k1_launches"] + paths["k1_launches"] + seq["k1"] + seq_runs["k1"])
+                   + zoo["k1_launches"] + paths["k1_launches"] + seq["k1"] + seq_runs["k1"]
+                   + rest["k1"] + rest_runs["k1"])
     k1b_launches = (first["k1b_launches"] + sparse["first"]["k1b_launches"]
                     + sum(r["k1b_launches"] for r in all_runs)
                     + zoo["k1b_launches"] + paths["k1b_launches"] + seq["k1b"]
-                    + seq_runs["k1b"])
+                    + seq_runs["k1b"] + rest["k1b"] + rest_runs["k1b"])
     if k1_launches < 1 or k1b_launches < 1:
         raise AssertionError("the main path launched a kernel no time")
     kernels = []
     for name, source, replaces, count, err, timed, top in (
         ("gather_pool", "paddlerec_tpu_torch/csrc/gather_pool.cu",
          "paddlerec_tpu/ops/pallas_embedding.py:37", k1_launches,
-         max(main_err, sparse["lookup"]["k1_err"]), cases + zoo_cases + seq_cases,
-         cases[-1]),
+         max(main_err, sparse["lookup"]["k1_err"]),
+         cases + zoo_cases + seq_cases + rest_cases, cases[-1]),
         # the JAX package has no kernel for the gradient: K1b takes the
         # place of the XLA scatter-add of _packed_lookup_bwd
         ("gather_pool_bwd", "paddlerec_tpu_torch/csrc/gather_pool_bwd.cu",
          "paddlerec_tpu/ops/packed_embedding.py:94", k1b_launches,
          max(bwd_err, sparse["lookup"]["k1b_err"]),
-         bwd_cases + zoo_bwd_cases + compact_cases + seq_bwd_cases, compact_cases[-1]),
+         bwd_cases + zoo_bwd_cases + compact_cases + seq_bwd_cases + rest_bwd_cases,
+         compact_cases[-1]),
     ):
         # the headline numbers (top) are those of the training batch, 8192, at
         # DeepFM's shape (K1b: at the sparse step's compact shape,

@@ -5,7 +5,9 @@ key ``tower.fc_0.weight``, and every other leaf keeps its name with ``/``
 read as ``.``.  A flax ``Dense`` kernel is ``(in, out)`` and an
 ``nn.Linear`` weight ``(out, in)``, so kernels are transposed; a flax
 ``Conv`` kernel is ``(H, W, in, out)`` and an ``nn.Conv2d`` weight
-``(out, in, H, W)``, so 4-D kernels are permuted.  Values are copied bit for
+``(out, in, H, W)``, so 4-D kernels are permuted; a 1-D ``Conv`` kernel
+``(W, in, out)`` becomes the ``nn.Conv1d`` weight ``(out, in, W)``, its
+axes reversed.  Values are copied bit for
 bit both ways, bfloat16 included.
 
 Optax's Adam moments (``ScaleByAdamState.mu`` / ``.nu``) are trees of the
@@ -68,7 +70,7 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def _kernel_to_weight(kernel: np.ndarray) -> np.ndarray:
     """flax ``Dense`` (in, out) → (out, in); ``Conv`` (H, W, in, out) →
-    (out, in, H, W)."""
+    (out, in, H, W); 1-D ``Conv`` (W, in, out) → (out, in, W)."""
     if kernel.ndim == 4:
         return np.transpose(kernel, (3, 2, 0, 1))
     return kernel.T

@@ -1,7 +1,8 @@
-"""Streaming metrics: histogram-bucket AUC + the full CTR bundle.
+"""Streaming metrics: histogram-bucket AUC + the full CTR bundle, and the
+streaming accuracy of the classification models.
 
-Counterpart of ``paddlerec_tpu/core/metrics.py`` (AUC family; the accuracy
-family waits for the multitask models):
+Counterpart of ``paddlerec_tpu/core/metrics.py`` (the AUC and accuracy
+families; the ranking metrics of the match and recall models wait for them):
 
   * AUC from 2^12 threshold buckets of positive/negative counts (reverse
     trapezoid sweep over buckets).  Buckets are plain int32 tensors, so a
@@ -16,6 +17,10 @@ and returns the state.  The float sums carry Kahan compensation terms
 function, a compiler may simplify the compensation away.  The host-side
 functions (``auc_from_buckets``, ``bucket_error``, ``compute_metrics``,
 ``metrics_str``) are numpy copies of the reference's.
+
+The accuracy state (``init_acc_state``, ``update_acc_state``,
+``compute_acc``) is two float32 scalars, ``correct`` and ``total``, as the
+reference keeps them: sums of 0/1 flags, exact up to 2^24 examples.
 """
 
 from __future__ import annotations
@@ -194,3 +199,32 @@ def metrics_str(metrics: Dict[str, float], prefix: str = "") -> str:
         f"MEAN Q_VALUE={metrics.get('mean_q', 0.0):.6f} "
         f"Ins number={int(metrics.get('total_ins', 0))}"
     )
+
+
+# ---------------------------------------------------------------------------
+# Streaming accuracy (classification models: bert4rec; dselect_k and maml in
+# the JAX package)
+# ---------------------------------------------------------------------------
+
+def init_acc_state(device=None) -> MetricState:
+    return {
+        "correct": torch.zeros((), dtype=torch.float32, device=device),
+        "total": torch.zeros((), dtype=torch.float32, device=device),
+    }
+
+
+@torch.no_grad()
+def update_acc_state(state: MetricState, correct: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None) -> MetricState:
+    """Accumulate per-example correctness flags (floats in {0,1}), in place."""
+    correct = correct.reshape(-1).to(torch.float32)
+    mask = (torch.ones_like(correct) if mask is None
+            else mask.reshape(-1).to(torch.float32))
+    state["correct"] = state["correct"] + torch.sum(correct * mask)
+    state["total"] = state["total"] + torch.sum(mask)
+    return state
+
+
+def compute_acc(state: MetricState) -> float:
+    total = float(state["total"])
+    return float(state["correct"]) / total if total > 0 else 0.0

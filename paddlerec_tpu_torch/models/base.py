@@ -12,9 +12,14 @@ also owns the row-wise side of a step: the host dedup of a batch
 gradients (``clip_grads``) and the row-wise optimizer step on every table
 in external-update mode (``apply_sparse_updates``).
 
-Not ported yet: the accuracy metric family (``AccuracyModelDef``), the
-multi-process dedup (``global_dedup_arrays``), ``touched_tables`` and the
-row-sharded sparse rules; nothing the single-device trainer reaches.
+``AccuracyModelDef`` swaps the AUC hooks for the streaming accuracy of the
+classification models.  A model with ``stochastic = True`` takes the
+trainer's per-step ``torch.Generator`` in ``train_forward(module, batch,
+generator=...)``; evaluation and serving pass none, the deterministic path.
+
+Not ported yet: the multi-process dedup (``global_dedup_arrays``),
+``touched_tables`` and the row-sharded sparse rules; nothing the
+single-device trainer reaches.
 """
 
 from __future__ import annotations
@@ -56,6 +61,9 @@ class ModelDef:
     metrics: str = "auc"
     # per-task metric names; multitask models override
     metric_names = ("auc",)
+    # models with stochastic layers (sign's L0 gates) take the trainer's
+    # per-step generator in train_forward
+    stochastic: bool = False
 
     def __init__(self, config: Config):
         self.config = config
@@ -266,6 +274,35 @@ class ModelDef:
     def infer_forward(self, module: nn.Module, batch: Batch) -> Aux:
         _, aux = self.train_forward(module, batch)
         return aux
+
+
+class AccuracyModelDef(ModelDef):
+    """Base for classification models tracked by streaming accuracy
+    (bert4rec).  ``metric_updates`` must return name → (correct_flags,
+    mask)."""
+
+    metrics = "acc"
+
+    def init_metric_state(self, device=None):
+        return {name: metrics_lib.init_acc_state(device=device)
+                for name in self.metric_names}
+
+    def update_metric_state(self, metric_state, aux: Aux):
+        out = dict(metric_state)
+        for name, (correct, mask) in self.metric_updates(aux).items():
+            out[name] = metrics_lib.update_acc_state(out[name], correct, mask)
+        return out
+
+    def compute_metric_bundle(self, metric_state) -> Dict[str, float]:
+        return {
+            f"acc_{name}" if len(self.metric_names) > 1 else "acc":
+                metrics_lib.compute_acc(metric_state[name])
+            for name in self.metric_names
+        }
+
+    def metric_log_str(self, metric_state) -> str:
+        bundle = self.compute_metric_bundle(metric_state)
+        return ", ".join(f"{k}: {v:.6f}" for k, v in bundle.items()) + ", "
 
 
 class LogitModelDef(ModelDef):

@@ -181,8 +181,11 @@ class SlotEmbedding(nn.Module):
 class Embed(nn.Module):
     """flax ``nn.Embed``: a plain ``(num_embeddings, features)`` float32
     parameter ``embedding``, drawn as flax's default does (a normal of std
-    ``1/sqrt(features)``, not truncated) or zeros (``zeros=True``, flax's
-    ``initializers.zeros``).
+    ``1/sqrt(features)``, not truncated), or with another ``embedding_init``
+    of the JAX models: zeros (``zeros=True``, ``initializers.zeros``), a
+    normal of std ``stddev`` (``initializers.normal(stddev)``), or with
+    ``truncated=True`` as well ``initializers.truncated_normal(stddev)``:
+    ``stddev`` times a standard normal cut at ±2.
 
     ``emb(ids)`` looks up ids of any shape → ``ids.shape + (features,)``,
     one K1 launch, its gradient one K1b launch.  ``emb(a, b, ...)`` looks up
@@ -202,15 +205,20 @@ class Embed(nn.Module):
     """
 
     def __init__(self, num_embeddings: int, features: int, zeros: bool = False,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 stddev: Optional[float] = None, truncated: bool = False):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.features = features
         table = torch.empty((num_embeddings, features), device=device)
+        std = 1.0 / math.sqrt(features) if stddev is None else stddev
         if zeros:
             table.zero_()
+        elif truncated:
+            nn.init.trunc_normal_(table, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
         else:
-            fill_normal(table, 1.0 / math.sqrt(features), generator)
+            fill_normal(table, std, generator)
         self.embedding = nn.Parameter(table)
 
     def forward(self, *ids: torch.Tensor

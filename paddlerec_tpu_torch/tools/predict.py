@@ -6,7 +6,11 @@ parameters go to the device once), stream batches through ``infer_forward``
 otherwise), drop mask-padded tail rows from the outputs, and report
 avg/p50/p90/p99 latency and qps over the full batches after the warm-up.
 A batch's time runs from the forward to the predictions on the host, after
-``torch.cuda.synchronize()``.
+``torch.cuda.synchronize()``.  The predictions are the aux's
+``predictions``, or else the first of ``probs``, ``scores``, ``ctr``,
+``outputs`` (deeprec's reconstruction) and ``sim_pos``, as the JAX tool
+picks them; a model with none of these (bert4rec's accuracy flags) writes
+nothing and its batches are only timed.
 
 Usage:
     python -m paddlerec_tpu_torch.tools.predict --export_dir exported_model \
@@ -28,6 +32,9 @@ from paddlerec_tpu_torch.data.slot_reader import SlotDataset, list_data_files
 from paddlerec_tpu_torch.tools.export import load_exported
 
 logger = logging.getLogger("paddlerec_tpu_torch")
+
+# the aux keys a model's predictions go under, in the order they are tried
+PREDICTION_KEYS = ("predictions", "probs", "scores", "ctr", "outputs", "sim_pos")
 
 
 def run_predict(export_dir: str, data_dir: str, batch_size: int,
@@ -55,17 +62,20 @@ def run_predict(export_dir: str, data_dir: str, batch_size: int,
             aux = model_def.infer_forward(module, batch)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        arr = aux["predictions"].cpu().numpy()
+        preds = next((aux[k] for k in PREDICTION_KEYS if k in aux), None)
+        arr = None if preds is None else preds.cpu().numpy()
         elapsed = time.perf_counter() - t0
-        if "mask" in host_batch:
-            # drop mask-padded tail rows so prediction lines align 1:1 with
-            # input instances
-            mask = host_batch["mask"].reshape(-1) > 0
-            if arr.shape[0] == mask.shape[0]:
-                arr = arr[mask]
-        outputs.append(arr)
+        if arr is not None:
+            if "mask" in host_batch:
+                # drop mask-padded tail rows so prediction lines align 1:1
+                # with input instances
+                mask = host_batch["mask"].reshape(-1) > 0
+                if arr.shape[0] == mask.shape[0]:
+                    arr = arr[mask]
+            outputs.append(arr)
         rows = int(host_batch["mask"].sum()) if "mask" in host_batch else batch_size
-        full = host_batch["label"].shape[0] == batch_size
+        full = (host_batch["label"].shape[0] if "label" in host_batch
+                else rows) == batch_size
         if i >= warmup and full:
             latencies.append(elapsed)
             total += rows  # only timed rows count toward qps

@@ -21,6 +21,14 @@ metrics.  The feed thread dedups each batch's rows on the host
 (``augment_batch_host``) before the wire encoding, and adds the count of
 unique rows as a host value, so the step need not read it from the device.
 
+A model with ``stochastic = True`` (sign's hard-concrete gates) draws its
+noise from a ``torch.Generator`` on the device that the step reseeds from
+``runner.seed`` and the step count before it runs, as the JAX trainer folds
+the step into ``PRNGKey(runner.seed)``: a resumed run draws what it would
+have drawn.  The two packages' generators differ, so their noise does too.
+Evaluation and serving pass no generator, the deterministic path.
+``metrics = "none"`` (deeprec) runs no streaming metric at all.
+
 Not ported yet (their config keys raise ``NotImplementedError`` when the
 trainer is built): meshes with ``mp > 1`` and multi-process runs (and with
 them the row-sharded sparse rules and the global dedup), the geo and fl sync
@@ -115,9 +123,11 @@ class Trainer:
         self.tx = model_def.create_optimizer()
         self.state: Optional[TrainState] = None
         self.sparse = bool(model_def.sparse_update_enabled())
-        # noise of the stochastic rounding: reseeded from runner.seed and
-        # the step at every step, so a resumed run draws what it would have
-        self._round_rng: Optional[torch.Generator] = None
+        # the noise of a stochastic model and of the stochastic rounding:
+        # reseeded from runner.seed and the step before each use, so a
+        # resumed run draws what it would have
+        self.stochastic = bool(getattr(model_def, "stochastic", False))
+        self._step_rng: Optional[torch.Generator] = None
         self.use_auc = bool(config.runner("use_auc", True)) and (
             model_def.metrics in ("auc", "acc")
         )
@@ -130,7 +140,7 @@ class Trainer:
                                             generator=generator)
         self.state = TrainState.create(
             module, self.tx, extra=self.model_def.init_sparse_state(module))
-        self._round_rng = torch.Generator(device=self.device)
+        self._step_rng = torch.Generator(device=self.device)
         return self.state
 
     def set_hyperparams(self, **values: float) -> None:
@@ -188,7 +198,14 @@ class Trainer:
         state, model_def = self.state, self.model_def
         batch = decode_batch(batch)  # no-op unless wire-encoded
         state.module.zero_grad(set_to_none=True)
-        loss, aux = model_def.train_forward(state.module, batch)
+        seed = int(self.config.runner("seed", 2023))
+        if self.stochastic:
+            # the step before this update, as JAX's fold_in(key, state.step)
+            self._step_rng.manual_seed(step_seed(seed, state.step))
+            loss, aux = model_def.train_forward(state.module, batch,
+                                                generator=self._step_rng)
+        else:
+            loss, aux = model_def.train_forward(state.module, batch)
         loss.backward()
         if self.sparse:
             delta_grads = {
@@ -201,11 +218,10 @@ class Trainer:
         if state.extra is not None:
             # row-wise sparse embedding update (the dense optimizer above
             # never sees the tapped tables)
-            seed = int(self.config.runner("seed", 2023))
-            self._round_rng.manual_seed(((seed << 32) + state.step) % (1 << 63))
+            self._step_rng.manual_seed(step_seed(seed, state.step))
             model_def.apply_sparse_updates(
                 state.module, state.extra, delta_grads, batch,
-                rng=self._round_rng)
+                rng=self._step_rng)
         if self.use_auc:
             metric_state = model_def.update_metric_state(metric_state, aux)
         return metric_state, loss.detach()
@@ -518,6 +534,18 @@ class Trainer:
             )
         metrics["ips"] = total / max(elapsed, 1e-9)
         return metrics
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of a step's generator from ``runner.seed`` and the step: the
+    splitmix64 mix of ``(seed << 32) + step``.  Mixed, because the CPU
+    generator keeps only the low 32 bits of its seed (the card's keeps all
+    64): unmixed, every ``runner.seed`` would draw the same noise there."""
+    mask = (1 << 64) - 1
+    z = (((seed << 32) + step) + 0x9E3779B97F4A7C15) & mask
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
+    return (z ^ (z >> 31)) % (1 << 63)
 
 
 def _count_uniq(batch):

@@ -148,7 +148,8 @@ def test_port_imports_nothing_of_jax():
                      "lr", "fm", "slot_dnn", "dcn", "dcn_v2", "dlrm", "xdeepfm",
                      "autoint", "gatenet", "flen", "deepfefm", "difm", "ffm",
                      "fat_deepffm", "fgcnn", "autofis",
-                     "din", "dien", "bst", "dsin", "dmr", "dpin"))):
+                     "din", "dien", "bst", "dsin", "dmr", "dpin",
+                     "deeprec", "iprec", "naml", "fastformer", "sign", "bert4rec"))):
         assert f"paddlerec_tpu_torch.{name}" in walked, name
 
 
