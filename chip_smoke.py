@@ -94,7 +94,30 @@ without a result line:
 18. K1 and K1b at their new shapes (a 102-row word table under 19,200 ids,
     bert4rec's sentence table with every id 0, fastformer's 400-wide position
     rows, iprec's 554,238-row user table under 65,312 ids), each held against
-    its plain version, then timed.
+    its plain version, then timed;
+19. the multitask family (share_bottom, mmoe, ple, esmm, aitm, escm2,
+    dselect_k, maml, metaheac): each model's ``configs/multitask/<model>/
+    config.yaml`` at the ModelDef's default widths, card against a CPU twin
+    from one seed, one inference forward and three train steps at batch 32
+    (atol 1e-5; maml and metaheac on their meta-losses after the inner loop;
+    maml's steps each from the twin's state, in float64 over one step at
+    1e-5 and in float32 at 1e-3, its conditioning: see ``MT_FLOAT64``),
+    K1 and K1b launches per forward and step asserted (none for the census
+    models, dselect_k and maml; one and one for esmm, aitm, escm2; metaheac's
+    20 tables × 5 tasks × support, query and the second order);
+20. every multitask model through ``Trainer.train()`` for two epochs and
+    ``evaluate()`` on rows in its reader's format with a planted signal (the
+    loss falling, every AUC above 0.5, dselect_k's accuracies above 0.1,
+    maml's 5-way accuracy after adaptation above 0.2); mmoe and esmm served
+    at batch 32 and 1024 and metaheac at batch 32 (its inference adapts,
+    with gradients on), card against CPU; ``torch.profiler`` over the esmm,
+    metaheac and maml train step;
+21. the second order through K1 and K1b (``autograd.grad`` of
+    ``autograd.grad``, ids out of range among them) against the plain
+    version at metaheac's ``dynamic_3`` shape and the Ali-CCP table's view;
+22. K1 and K1b at the multitask family's shapes (the Ali-CCP view under a
+    masked L = 3 pool at batch 32 and 1024, ``dynamic_3`` in fill mode, and
+    K1 as K1b's backward), each held against its plain version, then timed.
 
 Phase 3 covers the shapes the zoo and the sequence models add to the main
 path: rows of 8 lanes (the view of lr's and ffm's width-1 packed table), of
@@ -1059,8 +1082,8 @@ def first_steps_vs_cpu(gp, cfg, seed: int, steps: int = 5) -> dict:
 
 def table_dtype(module) -> str:
     """The dtype of the module's first embedding table."""
-    return next(str(p.dtype) for name, p in module.named_parameters()
-                if name.endswith("embedding"))
+    return next((str(p.dtype) for name, p in module.named_parameters()
+                 if name.endswith("embedding")), None)
 
 
 def run_training(gp, cfg, seed: int, check_fall: bool = True, trainer=None,
@@ -2033,6 +2056,596 @@ def check_fill_shapes(gp, seed: int, card: str, shapes) -> None:
     emit({"rank_rest_kernel_checks": checks, "card": card})
 
 
+# -- the multitask family (phases 19-22) ---------------------------------------
+MULTITASK = ("share_bottom", "mmoe", "ple", "esmm", "aitm", "escm2", "dselect_k", "maml",
+             "metaheac")
+ALI_CCP_MODELS = ("esmm", "aitm", "escm2")
+MT_TRAIN_STEPS = 100  # steps an epoch at the configs' batch 32
+MT_EPISODES = 20  # maml's episodes an epoch (each a batch of 32 tasks)
+MT_SERVE_ROWS = REST_SERVE_ROWS  # ten timed batches of 1024 after the warm-up
+MT_SERVE_BATCHES = 11  # metaheac's served batches: a warm-up and ten timed
+
+
+def mt_config(model: str, **extra):
+    from paddlerec_tpu_torch.core.config import Config, load_config
+
+    cfg = load_config(os.path.join(ROOT, "configs", "multitask", model, "config.yaml"))
+    return Config({**cfg.to_dict(), **extra}) if extra else cfg
+
+
+def mt_launches(model_def) -> tuple:
+    """(K1, K1b) launches of one inference forward and of one train step.
+    esmm, aitm, escm2: their one table, read once and trained once.
+    metaheac: for each task, its n tables read by the support and the query
+    and the support's inner gradient; a train step keeps that gradient's
+    graph, and its backward runs K1b for the query, K1 as the backward of
+    the inner K1b, and K1b back through the support's lookup.  The other
+    models have no table."""
+    name = model_def.registry_name.split(".")[1]
+    if name in ALI_CCP_MODELS:
+        return (1, 0), (1, 1)
+    if name == "metaheac":
+        n = model_def.task_count * (len(model_def.static_vocabs) + len(model_def.dynamic_vocabs)
+                                    + len(model_def.ad_vocabs))
+        return (2 * n, n), (3 * n, 3 * n)
+    return (0, 0), (0, 0)
+
+
+def _split_batch(batch: dict, parts: int, axis: int) -> list:
+    size = next(iter(batch.values())).shape[axis] // parts
+    return [{k: np.take(v, range(i * size, (i + 1) * size), axis=axis)
+             for k, v in batch.items()} for i in range(parts)]
+
+
+def _mt_output(model_def, module, batch) -> np.ndarray:
+    """What a forward is compared on: every probability of the aux
+    (inference forward: metaheac's after its inner step), maml's meta-loss
+    after its inner loop (its aux holds only 0/1 flags)."""
+    with model_def.infer_context():
+        if model_def.registry_name == "multitask.maml":
+            return np.array([float(model_def.train_forward(module, batch)[0].detach())])
+        aux = model_def.infer_forward(module, batch)
+    return np.concatenate([aux[k].detach().float().cpu().numpy().reshape(-1)
+                           for k in ("probs", "ctr", "cvr", "ctcvr", "predictions") if k in aux])
+
+
+# maml's meta-loss after five inner SGD steps at lr 0.1, on example batches of
+# random images with random labels, is ill-conditioned in float32: the same
+# batch's meta-loss read 3.4632785 and 3.4632912 on the card in two contexts
+# (the convolution algorithm cuDNN picks) and 3.4632778 on the CPU.  And
+# Adam's first step moves every weight by ±lr whatever its gradient's size,
+# so the entries whose near-zero gradient has opposite signs on the two
+# devices step apart, and the inner loop amplifies that: 9e-5 of meta-loss
+# after three float64 steps, 0.032 after one float32 step.  So each of
+# maml's steps starts from the twin's parameters and Adam state, and maml is
+# held in float64 at ``ZOO_ATOL`` (the two devices agree there within
+# 1e-15) and in float32 at ``MT_F32_ATOL``, two orders of magnitude above
+# the 7e-5 that its conditioning gives.
+MT_FLOAT64 = ("maml",)
+MT_F32_ATOL = 1e-3
+
+
+def _mt_twin(gp, model: str, seed: int, dtype=torch.float32, resync: bool = False,
+             steps: int = 3):
+    """One forward and ``steps`` train steps of ``model`` on the card and on a
+    CPU twin from one seed (``dtype``: the parameters' and the batches' float
+    type; ``resync``: each step starts from the twin's parameters and Adam
+    state).  Returns the outputs, the losses and the launches by device."""
+    from paddlerec_tpu_torch.core.device import to_tensors
+    from paddlerec_tpu_torch.train.trainer import Trainer, _copy_into
+
+    cfg = mt_config(model)
+    trainers = {"cuda": Trainer(cfg), "cpu": Trainer(cfg, device="cpu")}
+    for trainer in trainers.values():
+        trainer.init_state(seed=seed)
+        if dtype != torch.float32:
+            trainer.state.module.to(dtype)
+            trainer.state.opt_state = trainer.tx.init(trainer.state.params)
+    chip, host = trainers["cuda"], trainers["cpu"]
+    chip.state.module.load_state_dict(host.state.module.state_dict())
+    batches = _split_batch(host.model_def.example_batch((steps + 1) * SEQ_BATCH), steps + 1,
+                           axis=1 if model == "metaheac" else 0)
+
+    def tensors(batch, device):
+        return {k: v.to(dtype) if v.is_floating_point() else v
+                for k, v in to_tensors(batch, device).items()}
+
+    outs, losses = {}, {"cuda": [], "cpu": []}
+    launched = {d: {"k1": 0, "k1b": 0, "k1_by_dim": {}, "k1b_by_dim": {}} for d in trainers}
+    for device, trainer in trainers.items():
+        _reset(gp)
+        outs[device] = _mt_output(trainer.model_def, trainer.state.module,
+                                  tensors(batches[0], trainer.device))
+        _add_launched(launched[device], _counts(gp))
+    forward = (launched["cuda"]["k1"], launched["cuda"]["k1b"])
+    ms = {d: t._init_metric_state() for d, t in trainers.items()}
+    for b in batches[1:]:
+        if resync:
+            chip.state.module.load_state_dict(host.state.module.state_dict())
+            _copy_into(chip.state.opt_state, host.state.opt_state, "opt_state")
+        for device, trainer in trainers.items():
+            _reset(gp)
+            ms[device], loss = trainer.train_step(tensors(b, trainer.device), ms[device])
+            losses[device].append(float(loss))
+            _add_launched(launched[device], _counts(gp))
+    params = sum(p.numel() for p in chip.state.module.parameters())
+    return outs, losses, launched, forward, len(batches) - 1, host.model_def, params
+
+
+def multitask_zoo(gp, seed: int, card: str) -> dict:
+    """Phase 19: each multitask model at the ModelDef's default widths from
+    its ``configs/multitask/<model>/config.yaml``, batch 32 (32 tasks for
+    maml, 5 tasks of 32 rows for metaheac): a module on the card and its twin
+    on the CPU from one seed, one inference forward and three train steps on
+    four of the model's example batches (``_mt_twin``); outputs
+    (``_mt_output``) and losses card against CPU, atol 1e-5 (maml's and
+    metaheac's losses are their meta-losses after the inner loop; maml in
+    float64 over one step, and in float32 at ``MT_F32_ATOL``: see
+    ``MT_FLOAT64``); K1 and
+    K1b launches per forward and per step as ``mt_launches`` says, none on
+    the CPU."""
+    results, failed = [], []
+    totals = {"k1": 0, "k1b": 0, "k1_by_dim": {}, "k1b_by_dim": {}}
+    for model in MULTITASK:
+        runs = [(torch.float32, ZOO_ATOL, False, 3)]
+        if model in MT_FLOAT64:
+            # the float64 twin (the CPU's float64 convolutions take ~15 s a
+            # step at this width) takes one step
+            runs = [(torch.float64, ZOO_ATOL, True, 1), (torch.float32, MT_F32_ATOL, True, 3)]
+        for dtype, atol, resync, steps in runs:
+            t0 = time.perf_counter()
+            outs, losses, launched, forward, steps, md, params = _mt_twin(
+                gp, model, seed, dtype, resync, steps)
+            (fwd_k1, fwd_k1b), (step_k1, step_k1b) = mt_launches(md)
+            on_card = launched["cuda"]
+            counted = (forward == (fwd_k1, fwd_k1b)
+                       and (on_card["k1"], on_card["k1b"]) == (fwd_k1 + step_k1 * steps,
+                                                               fwd_k1b + step_k1b * steps))
+            if not counted or (launched["cpu"]["k1"], launched["cpu"]["k1b"]) != (0, 0):
+                raise AssertionError(f"{model}: K1, K1b launches {launched}, expected "
+                                     f"{(fwd_k1, fwd_k1b)} a forward, "
+                                     f"{(step_k1, step_k1b)} a step")
+            _add_launched(totals, (on_card["k1"], on_card["k1b"], on_card["k1_by_dim"],
+                                   on_card["k1b_by_dim"]))
+            out_err = float(np.abs(outs["cuda"] - outs["cpu"]).max())
+            loss_err = float(np.abs(np.array(losses["cuda"]) - np.array(losses["cpu"])).max())
+            spread = float(np.ptp(outs["cuda"])) if outs["cuda"].size > 1 else 1.0
+            ok = bool(np.all(np.isfinite(outs["cuda"])) and np.all(np.isfinite(losses["cuda"]))
+                      and spread > 0 and (steps == 1 or len(set(losses["cuda"])) > 1)
+                      and out_err <= atol and loss_err <= atol)
+            results.append({
+                "model": model, "dtype": str(dtype), "ok": ok, "atol": atol, "seed": seed,
+                "max_abs_err_outputs": out_err, "outputs_spread": spread,
+                "max_abs_err_loss": loss_err, "loss_cuda": losses["cuda"],
+                "loss_cpu": losses["cpu"], "steps_from_the_twin_state": resync,
+                "k1_per_forward": forward[0], "k1b_per_forward": forward[1],
+                "k1_per_step": (on_card["k1"] - forward[0]) // steps,
+                "k1b_per_step": (on_card["k1b"] - forward[1]) // steps,
+                "parameters": params, "seconds": time.perf_counter() - t0})
+            if not ok:
+                failed.append(f"{model} {dtype}")
+            gc.collect()
+            torch.cuda.empty_cache()
+    emit({"multitask_zoo": results, "batch_size": SEQ_BATCH, "card": card})
+    if failed:
+        raise AssertionError(f"card and CPU disagree for {failed}")
+    return totals
+
+
+def write_census_data(data_dir: str, rows: int, seed: int) -> None:
+    """Census CSV rows (marital, income, 499 features), the features 0/1
+    indicators as the census' one-hot columns are (about 40 set a row);
+    the labels follow a few of them: income that one of features 0-9 is
+    set, marital that two of features 10-29 are, each flipped for a tenth
+    of the rows."""
+    rng = np.random.RandomState(seed)
+    feats = (rng.rand(rows, 499) < 0.08).astype(np.float32)
+    flip = rng.rand(rows, 2) < 0.1
+    income = (feats[:, :10].sum(1) > 0) ^ flip[:, 0]
+    marital = (feats[:, 10:30].sum(1) >= 2) ^ flip[:, 1]
+    table = np.concatenate([marital[:, None], income[:, None], feats], axis=1)
+    os.makedirs(data_dir, exist_ok=True)
+    np.savetxt(os.path.join(data_dir, "part-0"), table, fmt="%d", delimiter=",")
+
+
+def write_aliccp_data(data_dir: str, rows: int, seed: int) -> None:
+    """Ali-CCP lines over the 23 fields, 1 to 3 ids a field from a pool of
+    50 raw ids per field (spread over 3× the vocabulary, so they are hashed);
+    the click follows the first id of field 101 (ids of the pool's first
+    half click with probability 0.8, the rest 0.2), the conversion of a
+    click the first id of field 205 the same way."""
+    from paddlerec_tpu_torch.models.multitask.base import ALI_CCP_FIELDS
+
+    rng = np.random.RandomState(seed)
+    pools = rng.randint(0, 3 * 737946, (len(ALI_CCP_FIELDS), 50))
+    lines = []
+    for i in range(rows):
+        picks = [rng.randint(0, 50, rng.randint(1, 4)) for _ in ALI_CCP_FIELDS]
+        click = rng.rand() < (0.8 if picks[0][0] < 25 else 0.2)
+        conv = click and rng.rand() < (0.8 if picks[ALI_CCP_FIELDS.index("205")][0] < 25
+                                       else 0.2)
+        feats = [f"{f}:{pools[j, p]}" for j, f in enumerate(ALI_CCP_FIELDS) for p in picks[j]]
+        lines.append(",".join([str(i), str(int(click)), str(int(conv)), "0"] + feats))
+    _write_lines(data_dir, lines)
+
+
+def write_multimnist_data(data_dir: str, rows: int, seed: int) -> None:
+    """MultiMNIST pickles: a 36×36 image is the left digit's fixed template
+    (a random pattern per class) in its left half and the right digit's in
+    its right half, plus noise; labels (left, right)."""
+    import pickle
+
+    rng = np.random.RandomState(seed)
+    templates = rng.rand(2, 10, 36, 18) < 0.3
+    y = rng.randint(0, 10, (rows, 2))
+    img = np.concatenate([templates[0][y[:, 0]], templates[1][y[:, 1]]], axis=2) * 0.7
+    img = np.clip(img + rng.rand(rows, 36, 36) * 0.3, 0, 1)
+    os.makedirs(data_dir, exist_ok=True)
+    with open(os.path.join(data_dir, "part-0.pickle"), "wb") as f:
+        pickle.dump(((img * 255).astype(np.uint8).reshape(rows, -1), y), f)
+
+
+def write_omniglot_data(data_dir: str, chars: int, seed: int, per_char: int = 20) -> None:
+    """An Omniglot tree of 28×28 ``.npy`` images: each character a fixed
+    random template plus noise."""
+    rng = np.random.RandomState(seed)
+    for c in range(chars):
+        sub = os.path.join(data_dir, f"alphabet_{c // 10}", f"character{c:02d}")
+        os.makedirs(sub)
+        template = (rng.rand(28, 28) < 0.3) * 0.7
+        for j in range(per_char):
+            img = np.clip(template + rng.rand(28, 28) * 0.3, 0, 1).astype(np.float32)
+            np.save(os.path.join(sub, f"{j:02d}.npy"), img)
+
+
+def write_lookalike_data(data_dir: str, rows: int, seed: int, md) -> None:
+    """Lookalike rows as a pickled ``np.ndarray``: label, aid, 7 static, 50
+    dynamic ids, 7 lengths, 6 ad fields within ``max_idxs``; the label
+    follows the first ad field (ids in its lower half click with
+    probability 0.9, the rest 0.1)."""
+    import pickle
+
+    rng = np.random.RandomState(seed)
+    spans = [(hi - lo) for lo, hi in ((0, 10), (10, 20), (20, 30), (30, 35), (35, 40),
+                                      (40, 45), (45, 50))]
+    ad = np.stack([rng.randint(0, v + 1, rows) for v in md.ad_vocabs], -1)
+    label = rng.rand(rows) < np.where(ad[:, 0] <= md.ad_vocabs[0] // 2, 0.9, 0.1)
+    cols = [label[:, None], (np.arange(rows) // (2 * SEQ_BATCH))[:, None],
+            np.stack([rng.randint(0, v + 1, rows) for v in md.static_vocabs], -1),
+            np.concatenate([rng.randint(1, v + 1, (rows, w))
+                            for v, w in zip(md.dynamic_vocabs, spans)], -1),
+            np.stack([rng.randint(1, w + 1, rows) for w in spans], -1), ad]
+    os.makedirs(data_dir, exist_ok=True)
+    with open(os.path.join(data_dir, "train.pkl"), "wb") as f:
+        pickle.dump(np.concatenate(cols, -1).astype(np.int64), f)
+
+
+def _mt_data(model: str, data_dir: str, rows: int, seed: int, md) -> None:
+    if model in ("share_bottom", "mmoe", "ple"):
+        write_census_data(data_dir, rows, seed)
+    elif model in ALI_CCP_MODELS:
+        write_aliccp_data(data_dir, rows, seed)
+    elif model == "dselect_k":
+        write_multimnist_data(data_dir, rows, seed)
+    elif model == "maml":
+        write_omniglot_data(data_dir, 50, seed)
+    else:
+        write_lookalike_data(data_dir, rows, seed, md)
+
+
+def _mt_rows(model: str, md) -> int:
+    """Rows of one epoch: ``MT_TRAIN_STEPS`` batches of 32 (metaheac: a
+    quarter as many steps, each of 5 tasks of 32 support and 32 query rows)."""
+    if model == "metaheac":
+        return MT_TRAIN_STEPS // 4 * 2 * SEQ_BATCH * md.task_count
+    return MT_TRAIN_STEPS * SEQ_BATCH
+
+
+def multitask_paths(gp, work: str, seed: int, card: str) -> dict:
+    """Phase 20, the multitask family through the entry points at the
+    ModelDefs' default widths, batch 32, on rows written in each reader's
+    format with a planted signal (``write_*_data``):
+      * every model: ``Trainer.train()`` for two epochs (100 steps each;
+        metaheac 25 steps of 5 tasks, maml 20 episodes of 32 tasks), the
+        mean of the second half of the logged losses below the first half's,
+        then ``evaluate()`` from the checkpoint: every AUC above 0.5,
+        dselect_k's accuracies above 0.1, maml's 5-way query accuracy after
+        adaptation above 0.2 (chance); K1 and K1b launches per step and per
+        evaluated batch as ``mt_launches`` says;
+      * mmoe and esmm exported from their checkpoints and served by
+        ``run_predict`` at batch 32 and 1024 (ten timed batches of 1024),
+        the first 512 rows against the port's CPU run (atol 1e-5); metaheac
+        served at batch 32 through its grad-enabled inference, every
+        prediction against the CPU run;
+      * ``torch.profiler`` over the esmm, metaheac and maml train step."""
+    from paddlerec_tpu_torch.core.registry import load_model_def
+    from paddlerec_tpu_torch.tools.export import export_model
+    from paddlerec_tpu_torch.tools.predict import run_predict
+    from paddlerec_tpu_torch.train.trainer import Trainer, logger
+
+    out = {"k1": 0, "k1b": 0, "k1_by_dim": {}, "k1b_by_dim": {}, "runs": {}}
+    data_dirs, cfgs = {}, {}
+    for i, model in enumerate(MULTITASK):
+        md = load_model_def(mt_config(model))
+        data = data_dirs[model] = os.path.join(work, f"mt_{model}")
+        _mt_data(model, data, _mt_rows(model, md), seed + 20 + i, md)
+        ckpt = os.path.join(work, f"ckpt_{model}")
+        cfg = cfgs[model] = mt_config(
+            model, **{"runner.train_data_dir": data, "runner.test_data_dir": data,
+                      "runner.model_save_path": ckpt, "runner.infer_load_path": ckpt,
+                      "runner.epochs": 2, "runner.print_interval": 2,
+                      "runner.episodes_per_epoch": MT_EPISODES})
+        trainer = Trainer(cfg)
+        trainer.init_state(seed=seed)
+        (fwd_k1, fwd_k1b), (step_k1, step_k1b) = mt_launches(trainer.model_def)
+        lines = LossLines()
+        logger.addHandler(lines)
+        _reset(gp)
+        try:
+            t0 = time.perf_counter()
+            metrics = trainer.train()
+            seconds = time.perf_counter() - t0
+        finally:
+            logger.removeHandler(lines)
+        steps = trainer.state.step
+        launched = _counts(gp)
+        losses = lines.losses
+        half = len(losses) // 2
+        if launched[:2] != (step_k1 * steps, step_k1b * steps) or steps < 2 * MT_EPISODES:
+            raise AssertionError(f"{model}: {steps} steps launched K1, K1b {launched[:2]}")
+        if (len(losses) < 4 or not np.all(np.isfinite(losses))
+                or not np.mean(losses[half:]) < np.mean(losses[:half])):
+            raise AssertionError(f"{model}: the loss did not fall: {losses}")
+        _add_launched(out, launched)
+        _reset(gp)
+        t0 = time.perf_counter()
+        evaluated = trainer.evaluate(epoch_tag=1)
+        eval_seconds = time.perf_counter() - t0
+        eval_batches = sum(1 for _ in trainer.make_dataset(data, SEQ_BATCH))
+        eval_launched = _counts(gp)
+        if eval_launched[:2] != (fwd_k1 * eval_batches, fwd_k1b * eval_batches):
+            raise AssertionError(f"{model}: {eval_batches} evaluated batches launched K1, "
+                                 f"K1b {eval_launched[:2]}")
+        _add_launched(out, eval_launched)
+        checks = {k: v for k, v in evaluated.items() if k.startswith(("auc", "acc"))}
+        floor = {"dselect_k": 0.1, "maml": 0.2}.get(model, 0.5)
+        if not checks or not all(np.isfinite(v) and v > floor for v in checks.values()):
+            raise AssertionError(f"{model}: evaluate() {checks}, each must be above {floor}")
+        run = {"model": model, "batch_size": SEQ_BATCH, "steps": steps, "epochs": 2,
+               "logged_losses": losses, "train_seconds_with_checkpoints": seconds,
+               "last_epoch_seconds": metrics["epoch_time"],
+               # the trainer counts a batch's leading axis: tasks for maml
+               # and metaheac, rows for the others
+               "last_epoch_examples_per_s": metrics["ips"],
+               "last_epoch_steps_per_s": steps / 2 / metrics["epoch_time"],
+               "k1_launches": launched[0], "k1b_launches": launched[1],
+               "eval": {**checks, "batches": eval_batches, "seconds": eval_seconds,
+                        "examples_per_s": evaluated["ips"], "floor": floor,
+                        "k1_launches": eval_launched[0], "k1b_launches": eval_launched[1]}}
+        out["runs"][model] = run
+        emit({"train": run, "card": card})
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for model in ("mmoe", "esmm", "metaheac"):
+        md = load_model_def(cfgs[model])
+        data = os.path.join(work, f"mt_{model}_serve")
+        if model == "metaheac":
+            rows, batches = MT_SERVE_BATCHES * 2 * SEQ_BATCH * md.task_count, (SEQ_BATCH,)
+        else:
+            rows, batches = MT_SERVE_ROWS, SEQ_SERVE
+        _mt_data(model, data, rows, seed + 30, md)
+        export_dir = os.path.join(work, f"export_{model}")
+        t0 = time.perf_counter()
+        export_model(mt_config(model, **{"runner.model_init_path": os.path.join(
+            work, f"ckpt_{model}", "1")}), export_dir)
+        twin = data
+        if model != "metaheac":
+            # the CPU twin predicts the first rows only: a row's prediction
+            # does not depend on the others in its batch
+            twin = f"{data}_head"
+            with open(os.path.join(data, "part-0")) as fh:
+                _write_lines(twin, [fh.readline().rstrip("\n") for _ in range(REST_TWIN_ROWS)])
+        cpu_preds = np.concatenate(run_predict(export_dir, twin, SEQ_BATCH, device="cpu")[0])
+        (fwd_k1, fwd_k1b), _ = mt_launches(md)
+        for batch in batches:
+            _reset(gp)
+            served, report = run_predict(export_dir, data, batch)
+            launched = _counts(gp)
+            preds = np.concatenate(served)[:len(cpu_preds)]
+            err = float(np.abs(preds - cpu_preds).max())
+            forwards = (MT_SERVE_BATCHES if model == "metaheac"
+                        else math.ceil(rows / batch))
+            if launched[:2] != (fwd_k1 * forwards, fwd_k1b * forwards):
+                raise AssertionError(f"{model}: K1, K1b {launched[:2]} at batch {batch}")
+            if (preds.shape != cpu_preds.shape or not np.ptp(preds) > 0
+                    or not np.all(np.isfinite(preds)) or err > ZOO_ATOL
+                    or report["batches"] < 10):
+                raise AssertionError(f"{model}: served predictions, card vs CPU max err {err}, "
+                                     f"{report}")
+            _add_launched(out, launched)
+            emit({"predict": {"model": model, "batch_size": batch, "rows": rows, **report,
+                              "max_abs_err_vs_cpu": err, "rows_vs_cpu": int(len(cpu_preds)),
+                              "k1_launches": launched[0], "k1b_launches": launched[1],
+                              "seconds_export_and_predict": time.perf_counter() - t0},
+                  "card": card})
+        shutil.rmtree(export_dir)
+    # metaheac's and maml's steps run thousands of kernels: the profiler's own
+    # bookkeeping grows with them, so those two profile fewer steps
+    for model, iters in (("esmm", 20), ("metaheac", 2), ("maml", 2)):
+        emit({"profile_train": profile_train(mt_config(model), SEQ_BATCH, seed, iters=iters),
+              "card": card})
+    return out
+
+
+def _second_order(gp, fn, table, spt, qry, mode: str, lr: float = 1.0):
+    """The meta-gradient of the JAX models' inner step, through ``fn``: the
+    table's gradient of a support read-out, a step of it, the gradient of a
+    query read-out at the stepped table.  ``spt``/``qry``: (ids, mask,
+    weights)."""
+    t = table.clone().requires_grad_()
+    out = fn(t, spt[0], spt[1], mode=mode)
+    (g,) = torch.autograd.grad(torch.sum(spt[2] * torch.tanh(out)), t, create_graph=True)
+    out = fn(t - lr * g, qry[0], qry[1], mode=mode)
+    torch.sum(qry[2] * torch.sin(out)).backward()
+    return t.grad
+
+
+def check_second_order(gp, seed: int, card: str) -> list:
+    """Phase 21: ``autograd.grad`` of ``autograd.grad`` through K1 and K1b
+    (``_second_order``) against the same through the plain version, at
+    metaheac's ``dynamic_3`` shape (263,313 × 64, fill mode, 320 ids a
+    read, a tenth of the support's ids out of range both ways) and at the
+    Ali-CCP table's view (737,952 × 16, clip mode, N = 736, L = 3, masked,
+    ids out of range among them).  Three K1 and three K1b launches each.
+    Tolerance rtol 1e-5, atol 1e-5: K1b's atomics add in another order, and
+    the second order sums those sums again."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    checks = []
+    for name, rows, dim, n, pool, mode in (
+            ("metaheac dynamic_3, fill", 263313, 64, 32 * 10, 1, "fill"),
+            ("Ali-CCP view, clip, masked", 737952, 16, 32 * 23, 3, "clip")):
+        table = torch.randn(rows, dim, device="cuda", generator=g)
+        ids = torch.randint(0, rows, (n, pool), device="cuda", generator=g, dtype=torch.int32)
+        out_of_range = torch.rand(n, pool, device="cuda", generator=g) < 0.1
+        far = torch.randint(rows, 2 * rows, (n, pool), device="cuda", generator=g,
+                            dtype=torch.int32)
+        spt_ids = torch.where(out_of_range, far * (1 - 2 * (far % 2)), ids)
+        # the query reads in range, half of it rows the support read
+        qry_ids = torch.where(torch.rand(n, pool, device="cuda", generator=g) < 0.5,
+                              ids.flip(0), torch.randint(0, rows, (n, pool), device="cuda",
+                                                         generator=g, dtype=torch.int32))
+        masks = [None if pool == 1 else
+                 (torch.rand(n, pool, device="cuda", generator=g) < 0.7).float()
+                 for _ in range(2)]
+        weights = [torch.randn(n, dim, device="cuda", generator=g) for _ in range(2)]
+        spt, qry = (spt_ids, masks[0], weights[0]), (qry_ids, masks[1], weights[1])
+        _reset(gp)
+        got = _second_order(gp, gp.gather_pool, table, spt, qry, mode)
+        launched = _counts(gp)[:2]
+        want = _second_order(gp, gp.gather_pool_plain, table, spt, qry, mode)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check = {"shape": name, "rows": rows, "dim": dim, "n": n, "pool": pool, "mode": mode,
+                 "ids_out_of_range": int(out_of_range.sum()), "launches": launched,
+                 "max_abs_err": err, "grad_max": float(want.abs().max()),
+                 "tolerance": {"rtol": 1e-5, "atol": 1e-5},
+                 "ok": bool(launched == (3, 3) and torch.isfinite(got).all()
+                            and torch.allclose(got, want, rtol=1e-5, atol=1e-5))}
+        checks.append(check)
+        if not check["ok"]:
+            raise AssertionError(f"the second order through K1/K1b disagrees: {check}")
+        del table, got, want
+    emit({"second_order_checks": checks, "card": card})
+    return checks
+
+
+# the multitask family's new lookups at batch 32 (and the Ali-CCP models'
+# serving batch 1024): (shape, rows, D, N, L, mode)
+MT_SHAPES = (
+    ("Ali-CCP view, masked L=3, B=32", 737952, 16, 32 * 23, 3, "clip"),
+    ("Ali-CCP view, masked L=3, B=1024", 737952, 16, 1024 * 23, 3, "clip"),
+    ("metaheac dynamic_3, one task's support", 263313, 64, 32 * 10, 1, "fill"),
+    # K1 as K1b's backward: the gather of dynamic_3's table-shaped gradient,
+    # where the ids K1b dropped read zero
+    ("K1 as K1b's backward, dynamic_3's gradient", 263313, 64, 32 * 10, 1, "fill_drop"),
+)
+
+
+def time_multitask_shapes(gp, seed: int, card: str, iters: int = 400) -> tuple:
+    """Phase 22: K1 and K1b at ``MT_SHAPES``, each first held against its
+    plain version (K1 with one id a row bitwise, a masked pool rtol 1e-5 and
+    atol 1e-6; K1b rtol 1e-5 and atol 1e-6 times the most adds a row takes,
+    atomics adding in another order), then timed as ``time_fill_shapes``
+    does beside the plain version and one PyTorch call where there is one:
+    ``F.embedding_bag`` with ``per_sample_weights`` / ``F.embedding`` for
+    K1, ``_embedding_bag_backward`` (dense) / ``embedding_dense_backward``
+    for K1b.  The backward row (``fill_drop``) has no such call: no PyTorch
+    call reads zero rows for ids out of range.  K1b is timed at the first
+    three shapes (the fourth is a K1 launch only)."""
+    from torch.nn import functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k1, k1b, checks = [], [], []
+    for name, rows, dim, n, pool, mode in MT_SHAPES:
+        table = torch.randn(rows, dim, device="cuda", generator=g)
+        mask = (None if pool == 1 else
+                (torch.rand(n, pool, device="cuda", generator=g) < 0.7).float())
+        n_sets = max(4, min(64, math.ceil(50e6 / (n * pool * max(dim, 16) * 4))))
+        sets = [torch.randint(0, rows, (n, pool), device="cuda", generator=g,
+                              dtype=torch.int32) for _ in range(n_sets)]
+        if mode == "fill_drop":  # a tenth of the ids out of range, as K1b dropped them
+            sets = [torch.where(torch.rand(n, pool, device="cuda", generator=g) < 0.1,
+                                s + rows, s) for s in sets]
+        grad = torch.randn(n, dim, device="cuda", generator=g)
+        flat = {id(s): s.reshape(-1).long() for s in sets}
+        adds = int(torch.bincount(flat[id(sets[0])].clamp(0, rows)).max())
+        # the two kernels against their plain versions on the first id set
+        out = gp.gather_pool(table, sets[0], mask, mode=mode)
+        ref = gp.gather_pool_plain(table, sets[0], mask, mode=mode)
+        dt = gp.gather_pool_bwd(grad, sets[0], mask, rows, mode=mode)
+        dt_ref = gp.gather_pool_bwd_plain(grad, sets[0], mask, rows, mode=mode)
+        torch.cuda.synchronize()
+        k1_ok = (torch.equal(out, ref) if pool == 1
+                 else torch.allclose(out, ref, rtol=1e-5, atol=1e-6))
+        check = {"shape": name, "n": n, "pool": pool, "dim": dim, "rows": rows, "mode": mode,
+                 "most_adds_per_row": adds,
+                 "k1_max_abs_err": float((out - ref).abs().max()), "k1_ok": bool(k1_ok),
+                 "k1_tolerance": "bitwise" if pool == 1 else {"rtol": 1e-5, "atol": 1e-6},
+                 "k1b_max_abs_err": float((dt - dt_ref).abs().max()),
+                 "k1b_tolerance": {"rtol": 1e-5, "atol": 1e-6 * adds},
+                 "k1b_ok": bool(torch.allclose(dt, dt_ref, rtol=1e-5, atol=1e-6 * adds))}
+        checks.append(check)
+        if not (check["k1_ok"] and check["k1b_ok"]):
+            raise AssertionError(f"a kernel disagrees with its plain version: {check}")
+        del out, ref, dt, dt_ref
+        uniq = sum(int(torch.unique(s.clamp(0, rows)).numel()) for s in sets) / len(sets)
+        shape = {"shape": name, "n": n, "pool": pool, "dim": dim, "rows": rows,
+                 "dtype": "float32", "mode": mode, "masked": mask is not None,
+                 "touched_rows": uniq, "most_adds_per_row": adds}
+        fns = {"ms": lambda s: gp.gather_pool(table, s, mask, mode=mode),
+               "plain_ms": lambda s: gp.gather_pool_plain(table, s, mask, mode=mode)}
+        if mode == "fill":
+            fns["library_ms"] = lambda s: F.embedding(flat[id(s)], table)
+        elif mode == "clip":
+            fns["library_ms"] = lambda s: F.embedding_bag(s, table, per_sample_weights=mask,
+                                                          mode="sum")
+        device, call = _timed(fns, sets, iters)
+        device.setdefault("library_ms", None)
+        # rows once, ids (and mask) once, output once
+        nbytes = uniq * dim * 4 + n * pool * 4 * (2 if mask is not None else 1) + n * dim * 4
+        k1.append({**shape, **device, "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                                      n * pool * dim / F32_FLOPS) * 1e3,
+                   "bound_by": "bytes", "bytes": nbytes, "call_ms": call})
+        if mode == "fill_drop":
+            del table, sets, flat, grad
+            continue
+        fns = {"ms": lambda s: gp.gather_pool_bwd(grad, s, mask, rows, mode=mode),
+               "plain_ms": lambda s: gp.gather_pool_bwd_plain(grad, s, mask, rows, mode=mode)}
+        if mode == "fill":
+            fns["library_ms"] = lambda s: torch.ops.aten.embedding_dense_backward(
+                grad, flat[id(s)], rows, -1, False)
+        else:
+            offsets = torch.arange(0, n * pool, pool, device="cuda")
+            weights = mask.reshape(-1)
+            bags = {id(s): torch.ops.aten._embedding_bag(table, flat[id(s)], offsets, False,
+                                                         0, False, weights, False, -1)[1:]
+                    for s in sets}
+            fns["library_ms"] = lambda s: torch.ops.aten._embedding_bag_backward(
+                grad, flat[id(s)], offsets, *bags[id(s)], rows, False, 0, False, weights, -1)
+        device, call = _timed(fns, sets, iters)
+        # the dense gradient written once, g, ids (and mask) read once
+        nbytes = rows * dim * 4 + n * dim * 4 + n * pool * 4 * (2 if mask is not None else 1)
+        k1b.append({**shape, **device, "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                                       n * pool * dim / F32_FLOPS) * 1e3,
+                    "bound_by": "bytes", "bytes": nbytes, "zero_fill_bytes": rows * dim * 4,
+                    "call_ms": call})
+        del table, sets, flat, grad
+    emit({"multitask_kernel_checks": checks, "card": card})
+    return k1, k1b
+
+
 def profile_forward(model_def, module, batch_size: int, iters: int = 20) -> dict:
     """Phase 8: ``torch.profiler`` over ``iters`` DeepFM forwards at one
     batch size: device time per forward, the card's idle share of the wall
@@ -2227,6 +2840,12 @@ def main(argv=None) -> int:
         rest_runs = rank_rest_paths(gp, work, args.seed, card)  # phase 17
         check_fill_shapes(gp, args.seed + 18, card, REST_SHAPES)  # phase 18
         rest_cases, rest_bwd_cases = time_fill_shapes(gp, args.seed + 18, REST_SHAPES)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mt = multitask_zoo(gp, args.seed, card)  # phase 19
+        mt_runs = multitask_paths(gp, work, args.seed, card)  # phase 20
+        check_second_order(gp, args.seed + 21, card)  # phase 21
+        mt_cases, mt_bwd_cases = time_multitask_shapes(gp, args.seed + 22, card)  # phase 22
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for case, batch in zip(cases, BATCHES):
@@ -2257,16 +2876,24 @@ def main(argv=None) -> int:
     if not all(case["launches"] > 0 for case in rest_cases + rest_bwd_cases):
         raise AssertionError(f"the rank family launched no kernel at a shape: "
                              f"{rest['k1_by_dim']} {rest_runs['k1_by_dim']}")
+    # the multitask family's phases 19 and 20, counted the same way
+    for cases_at, key in ((mt_cases, "k1_by_dim"), (mt_bwd_cases, "k1b_by_dim")):
+        for case in cases_at:
+            case["launches"] = mt[key].get(case["dim"], 0) + mt_runs[key].get(case["dim"], 0)
+    if not all(case["launches"] > 0 for case in mt_cases + mt_bwd_cases):
+        raise AssertionError(f"the multitask family launched no kernel at a shape: "
+                             f"{mt['k1_by_dim']} {mt_runs['k1_by_dim']}")
     all_runs = list(train_runs.values()) + list(sparse["runs"].values())
     k1_launches = (sum(launches.values()) + first["k1_launches"]
                    + sparse["first"]["k1_launches"] + sparse["served_launches"]
                    + sum(r["k1_launches"] + r["eval"]["k1_launches"] for r in all_runs)
                    + zoo["k1_launches"] + paths["k1_launches"] + seq["k1"] + seq_runs["k1"]
-                   + rest["k1"] + rest_runs["k1"])
+                   + rest["k1"] + rest_runs["k1"] + mt["k1"] + mt_runs["k1"])
     k1b_launches = (first["k1b_launches"] + sparse["first"]["k1b_launches"]
                     + sum(r["k1b_launches"] for r in all_runs)
                     + zoo["k1b_launches"] + paths["k1b_launches"] + seq["k1b"]
-                    + seq_runs["k1b"] + rest["k1b"] + rest_runs["k1b"])
+                    + seq_runs["k1b"] + rest["k1b"] + rest_runs["k1b"] + mt["k1b"]
+                    + mt_runs["k1b"])
     if k1_launches < 1 or k1b_launches < 1:
         raise AssertionError("the main path launched a kernel no time")
     kernels = []
@@ -2274,14 +2901,14 @@ def main(argv=None) -> int:
         ("gather_pool", "paddlerec_tpu_torch/csrc/gather_pool.cu",
          "paddlerec_tpu/ops/pallas_embedding.py:37", k1_launches,
          max(main_err, sparse["lookup"]["k1_err"]),
-         cases + zoo_cases + seq_cases + rest_cases, cases[-1]),
+         cases + zoo_cases + seq_cases + rest_cases + mt_cases, cases[-1]),
         # the JAX package has no kernel for the gradient: K1b takes the
         # place of the XLA scatter-add of _packed_lookup_bwd
         ("gather_pool_bwd", "paddlerec_tpu_torch/csrc/gather_pool_bwd.cu",
          "paddlerec_tpu/ops/packed_embedding.py:94", k1b_launches,
          max(bwd_err, sparse["lookup"]["k1b_err"]),
-         bwd_cases + zoo_bwd_cases + compact_cases + seq_bwd_cases + rest_bwd_cases,
-         compact_cases[-1]),
+         bwd_cases + zoo_bwd_cases + compact_cases + seq_bwd_cases + rest_bwd_cases
+         + mt_bwd_cases, compact_cases[-1]),
     ):
         # the headline numbers (top) are those of the training batch, 8192, at
         # DeepFM's shape (K1b: at the sparse step's compact shape,

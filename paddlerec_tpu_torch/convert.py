@@ -5,10 +5,12 @@ key ``tower.fc_0.weight``, and every other leaf keeps its name with ``/``
 read as ``.``.  A flax ``Dense`` kernel is ``(in, out)`` and an
 ``nn.Linear`` weight ``(out, in)``, so kernels are transposed; a flax
 ``Conv`` kernel is ``(H, W, in, out)`` and an ``nn.Conv2d`` weight
-``(out, in, H, W)``, so 4-D kernels are permuted; a 1-D ``Conv`` kernel
-``(W, in, out)`` becomes the ``nn.Conv1d`` weight ``(out, in, W)``, its
-axes reversed.  Values are copied bit for
-bit both ways, bfloat16 included.
+``(out, in, H, W)``, so 4-D kernels are permuted; every other kernel has
+its axes reversed: a 1-D ``Conv`` kernel ``(W, in, out)`` becomes the
+``nn.Conv1d`` weight ``(out, in, W)``, and a ``DenseGeneral`` kernel ``(in,
+N, E)`` the port's ``DenseGeneral`` weight ``(E, N, in)``
+(``ops/layers.py``), which is stored in that layout for this reason.
+Values are copied bit for bit both ways, bfloat16 included.
 
 Optax's Adam moments (``ScaleByAdamState.mu`` / ``.nu``) are trees of the
 parameters' shape, so the same mapping carries them into the port's
@@ -70,7 +72,8 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def _kernel_to_weight(kernel: np.ndarray) -> np.ndarray:
     """flax ``Dense`` (in, out) → (out, in); ``Conv`` (H, W, in, out) →
-    (out, in, H, W); 1-D ``Conv`` (W, in, out) → (out, in, W)."""
+    (out, in, H, W); 1-D ``Conv`` (W, in, out) → (out, in, W);
+    ``DenseGeneral`` (in, N, E) → (E, N, in)."""
     if kernel.ndim == 4:
         return np.transpose(kernel, (3, 2, 0, 1))
     return kernel.T

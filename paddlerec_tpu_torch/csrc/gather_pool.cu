@@ -5,9 +5,13 @@
 //
 //     out[n, :] = sum_l table[clip(ids[n, l], 0, R - 1), :] * mask[n, l]
 //
-// or, with `fill` set, as `jnp.take`'s default mode (what flax's `nn.Embed`
-// looks rows up with): a negative id is wrapped once (id + R), and an id still
-// outside [0, R) reads a row of NaN.
+// or, by `mode`, as `jnp.take`'s default mode (what flax's `nn.Embed` looks
+// rows up with, mode 1): a negative id is wrapped once (id + R), and an id
+// still outside [0, R) reads a row of NaN.  Modes 2 and 3 are mode 0 and mode
+// 1 with a row of zeros for an id outside [0, R) (no clip, no NaN; mode 3
+// wraps a negative id once first): the adjoint of K1b, whose gradient those
+// ids never reach, so that K1 is also the backward of K1b in a second-order
+// gradient.
 //
 // table (R, D) float32 or bfloat16, row-major; ids (N, L) int32; mask (N, L)
 // float32, or null for weight 1 (no mask is read); out (N, D) in the table's
@@ -106,7 +110,7 @@ template <typename T, typename O, bool kVec>
 __global__ void __launch_bounds__(256)
 gather_pool_kernel(const T* __restrict__ table, int64_t rows, int64_t dim,
                    const int32_t* __restrict__ ids, const float* __restrict__ mask,
-                   int64_t n, int64_t pool, int fill, O* __restrict__ out) {
+                   int64_t n, int64_t pool, int mode, O* __restrict__ out) {
   constexpr int V = Lanes<T>::kWidth;
   const int64_t chunks = (dim + V - 1) / V;
   const int64_t total = n * chunks;
@@ -121,15 +125,16 @@ gather_pool_kernel(const T* __restrict__ table, int64_t rows, int64_t dim,
     for (int k = 0; k < V; ++k) acc[k] = 0.f;
     for (int64_t l = 0; l < pool; ++l) {
       int64_t id = __ldg(ids + r * pool + l);
-      if (fill && id < 0) id += rows;  // wrapped once, as jnp.take does
+      if ((mode & 1) && id < 0) id += rows;  // wrapped once, as jnp.take does
       const bool inside = id >= 0 && id < rows;
-      if (!fill) id = id < 0 ? 0 : (id >= rows ? rows - 1 : id);
+      if (mode == 0) id = id < 0 ? 0 : (id >= rows ? rows - 1 : id);
       const T* src = table + id * dim + col;
       float v[V];
-      if (fill && !inside) {
-        // a row of NaN; nothing is read
+      if (mode != 0 && !inside) {
+        // a row of NaN (mode 1) or of zeros (modes 2, 3); nothing is read
+        const float outside = (mode & 2) ? 0.f : __int_as_float(0x7fc00000);
 #pragma unroll
-        for (int k = 0; k < V; ++k) v[k] = __int_as_float(0x7fc00000);
+        for (int k = 0; k < V; ++k) v[k] = outside;
       } else if (kVec) {
         Lanes<T>::load16(src, v);
       } else {
@@ -159,7 +164,7 @@ gather_pool_kernel(const T* __restrict__ table, int64_t rows, int64_t dim,
 
 template <typename T, typename O>
 void launch(const void* table, int64_t rows, int64_t dim, const int32_t* ids,
-            const float* mask, int64_t n, int64_t pool, int fill, void* out,
+            const float* mask, int64_t n, int64_t pool, int mode, void* out,
             cudaStream_t stream) {
   constexpr int kThreads = 256;
   constexpr int V = Lanes<T>::kWidth;
@@ -171,30 +176,32 @@ void launch(const void* table, int64_t rows, int64_t dim, const int32_t* ids,
   const T* t = static_cast<const T*>(table);
   O* o = static_cast<O*>(out);
   if (vec) {
-    gather_pool_kernel<T, O, true><<<blocks, kThreads, 0, stream>>>(t, rows, dim, ids, mask, n, pool, fill, o);
+    gather_pool_kernel<T, O, true><<<blocks, kThreads, 0, stream>>>(t, rows, dim, ids, mask, n, pool, mode, o);
   } else {
-    gather_pool_kernel<T, O, false><<<blocks, kThreads, 0, stream>>>(t, rows, dim, ids, mask, n, pool, fill, o);
+    gather_pool_kernel<T, O, false><<<blocks, kThreads, 0, stream>>>(t, rows, dim, ids, mask, n, pool, mode, o);
   }
 }
 
 }  // namespace
 
 // dtype, out_dtype: 0 = float32, 1 = bfloat16; out_dtype is the table's, or
-// float32 from a bfloat16 table.  fill: 0 clips ids, 1 wraps and fills with
-// NaN (see the top of the file).  Returns cudaGetLastError() after the launch
-// (0 = success).  Launches on `stream` and allocates nothing.
+// float32 from a bfloat16 table.  mode: 0 clips ids, 1 wraps and fills with
+// NaN, 2 reads zeros for ids outside, 3 wraps and then reads zeros (see the
+// top of the file).  Returns cudaGetLastError() after the launch (0 =
+// success).  Launches on `stream` and allocates nothing.
 extern "C" int pr_gather_pool(const void* table, int dtype, int64_t rows, int64_t dim,
                               const int32_t* ids, const float* mask, int64_t n,
-                              int64_t pool, int fill, void* out, int out_dtype,
+                              int64_t pool, int mode, void* out, int out_dtype,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || dim <= 0 || n <= 0 || pool <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode < 0 || mode > 3) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && out_dtype == 0) {
-    launch<float, float>(table, rows, dim, ids, mask, n, pool, fill, out, s);
+    launch<float, float>(table, rows, dim, ids, mask, n, pool, mode, out, s);
   } else if (dtype == 1 && out_dtype == 1) {
-    launch<__nv_bfloat16, __nv_bfloat16>(table, rows, dim, ids, mask, n, pool, fill, out, s);
+    launch<__nv_bfloat16, __nv_bfloat16>(table, rows, dim, ids, mask, n, pool, mode, out, s);
   } else if (dtype == 1 && out_dtype == 0) {
-    launch<__nv_bfloat16, float>(table, rows, dim, ids, mask, n, pool, fill, out, s);
+    launch<__nv_bfloat16, float>(table, rows, dim, ids, mask, n, pool, mode, out, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

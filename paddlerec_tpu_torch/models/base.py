@@ -64,6 +64,10 @@ class ModelDef:
     # models with stochastic layers (sign's L0 gates) take the trainer's
     # per-step generator in train_forward
     stochastic: bool = False
+    # models that adapt to each task by gradient steps (maml, metaheac) need
+    # gradients in their inference too: the trainer's evaluation and the
+    # serving entry points then enable them (``infer_context``)
+    infer_needs_grad: bool = False
 
     def __init__(self, config: Config):
         self.config = config
@@ -223,7 +227,32 @@ class ModelDef:
                 phys = torch.div(hashed, pack, rounding_mode="floor").to(torch.int32)
                 apply_fn(table, extra[key], dgrad, phys, lr, rng=rng, sub=sub)
 
+    def infer_context(self, default=torch.no_grad):
+        """The grad mode inference runs in: ``default()`` (``torch.no_grad``
+        in evaluation, ``torch.inference_mode`` in serving), or
+        ``torch.enable_grad()`` for a model with ``infer_needs_grad``."""
+        return torch.enable_grad() if self.infer_needs_grad else default()
+
     # -- optimizer -------------------------------------------------------------
+    def _base_optimizer(self) -> Dict[str, Any]:
+        """The optimizer's class and its own settings, as keyword arguments
+        of ``Optimizer``: from hyper_parameters.optimizer.* (Adam(lr) by
+        default).  The override point of the JAX package's method of the
+        same name: maml and metaheac force Adam at their meta learning
+        rate."""
+        cfg = self.config
+        name = str(cfg.hyper("optimizer.class", "Adam")).lower()
+        if name == "gradientdescent":
+            name = "sgd"
+        return {
+            "name": name,
+            "lr": float(cfg.hyper("optimizer.learning_rate", 0.001)),
+            "initial_accumulator_value": float(
+                cfg.hyper("optimizer.initial_accumulator_value", 0.1)),
+            "lazy": bool(cfg.hyper("optimizer.lazy_mode", False)),
+            "weight_decay": float(cfg.hyper("optimizer.weight_decay", 1e-4)),
+        }
+
     def create_optimizer(self) -> Optimizer:
         """Optimizer from hyper_parameters.optimizer.* (Adam(lr) by
         default).  ``clip_by_norm`` is chained before it and
@@ -238,17 +267,9 @@ class ModelDef:
                 "optimizer.runtime_inject does not compose with "
                 "sparse_update (row-wise updates read lr statically)"
             )
-        name = str(cfg.hyper("optimizer.class", "Adam")).lower()
-        if name == "gradientdescent":
-            name = "sgd"
         return Optimizer(
-            name,
-            lr=float(cfg.hyper("optimizer.learning_rate", 0.001)),
+            **self._base_optimizer(),
             clip=None if sparse else cfg.hyper("clip_by_norm"),
-            initial_accumulator_value=float(
-                cfg.hyper("optimizer.initial_accumulator_value", 0.1)),
-            lazy=bool(cfg.hyper("optimizer.lazy_mode", False)),
-            weight_decay=float(cfg.hyper("optimizer.weight_decay", 1e-4)),
             embedding_l2=0.0 if sparse else float(
                 cfg.hyper("embedding_l2", 0.0) or 0.0),
             runtime_inject=inject,

@@ -14,7 +14,6 @@ maps are permuted back to that order before it and the converted
 
 from __future__ import annotations
 
-import math
 from typing import Any, Mapping, Optional, Sequence
 
 import torch
@@ -24,7 +23,7 @@ from torch.nn import functional as F
 from paddlerec_tpu_torch.core.registry import register_model
 from paddlerec_tpu_torch.models.base import CTRModelDef
 from paddlerec_tpu_torch.ops.embedding import SlotEmbedding
-from paddlerec_tpu_torch.ops.layers import MLP, flax_dense, triu_pairs
+from paddlerec_tpu_torch.ops.layers import MLP, flax_dense, lecun_normal_, triu_pairs
 
 
 def flax_conv(in_channels: int, out_channels: int, kernel_rows: int,
@@ -35,10 +34,8 @@ def flax_conv(in_channels: int, out_channels: int, kernel_rows: int,
     weights over fan_in = kernel_rows · in_channels, zero bias."""
     conv = nn.Conv2d(in_channels, out_channels, (kernel_rows, 1),
                      padding=(kernel_rows // 2, 0), device=device)
+    lecun_normal_(conv.weight, kernel_rows * in_channels, generator)
     with torch.no_grad():
-        std = math.sqrt(1.0 / (kernel_rows * in_channels)) / 0.87962566103423978
-        nn.init.trunc_normal_(conv.weight, 0.0, std, -2 * std, 2 * std,
-                              generator=generator)
         conv.bias.zero_()
     return conv
 

@@ -36,7 +36,7 @@ from paddlerec_tpu_torch.core.registry import register_model
 from paddlerec_tpu_torch.data.slot_reader import list_data_files
 from paddlerec_tpu_torch.models.base import Aux, ModelDef
 from paddlerec_tpu_torch.ops.embedding import Embed
-from paddlerec_tpu_torch.ops.layers import flax_dense, normal_param
+from paddlerec_tpu_torch.ops.layers import flax_dense, lecun_normal_, normal_param
 
 
 class AdditiveAttention(nn.Module):
@@ -68,11 +68,9 @@ def news_conv(in_dim: int, out_dim: int, bias: bool, device=None,
     """A width-3 ``conv1d`` initialized as flax's ``Conv`` default: lecun
     normal over fan_in = 3·in (truncated at two deviations), zero bias."""
     conv = nn.Conv1d(in_dim, out_dim, 3, padding=1, bias=bias, device=device)
-    with torch.no_grad():
-        std = (1.0 / (3 * in_dim)) ** 0.5 / 0.87962566103423978
-        nn.init.trunc_normal_(conv.weight, 0.0, std, -2 * std, 2 * std,
-                              generator=generator)
-        if bias:
+    lecun_normal_(conv.weight, 3 * in_dim, generator)
+    if bias:
+        with torch.no_grad():
             conv.bias.zero_()
     return conv
 

@@ -23,6 +23,15 @@ the backward pass, or raises; ``gather_pool.launches`` and
 ``gather_pool_bwd.launches`` count the launches (``launches_by_dim`` of each
 counts the same launches by row width D).
 
+Both are twice differentiable on the card, as the plain version is on the
+CPU: the meta-gradients of maml and metaheac differentiate through an inner
+gradient step, so the outer gradient runs through the backward of K1b.  K1b
+is linear in ``g``; its own backward is a K1 gather of the incoming
+table-shaped gradient at the same ids with the same mask, in a mode where an
+id K1b dropped reads zero (``"drop"``, or ``"fill_drop"`` after the wrap of
+``"fill"``), so that it gets no gradient in either order.  Every launch of
+either order is counted.
+
 Ids out of range, ``mode="clip"`` (the default, what ``SlotEmbedding``
 reads with): the forward clips them to ``[0, R-1]``; the backward drops them
 (they add nothing to ``dtable``), negative ids included.  ``mode="fill"`` is
@@ -30,7 +39,9 @@ reads with): the forward clips them to ``[0, R-1]``; the backward drops them
 ``Embed``) looks rows up with: a negative id is wrapped once (``id + R``), an
 id still outside ``[0, R)`` reads a row of NaN and gives the table no
 gradient.  Both modes hold on the CPU and on the card alike, each a flag of
-the same launch.
+the same launch.  The two modes of the second order, ``mode="drop"`` (no
+wrap) and ``mode="fill_drop"`` (a negative id wrapped once), read a row of
+zeros for an id outside ``[0, R)``, which then gives no gradient either.
 """
 
 from __future__ import annotations
@@ -40,7 +51,6 @@ import ctypes
 from typing import Dict, Optional
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from paddlerec_tpu_torch.ops.build import load_library
 
@@ -73,10 +83,16 @@ def _out_dtype(table: torch.Tensor, out_dtype: Optional[torch.dtype]) -> torch.d
     )
 
 
-def _fill(mode: str) -> bool:
-    if mode not in ("clip", "fill"):
-        raise ValueError(f"mode must be 'clip' or 'fill', not {mode!r}")
-    return mode == "fill"
+# the ``mode`` argument of pr_gather_pool; K1b's flag is the wrap bit
+_MODE_CODE = {"clip": 0, "fill": 1, "drop": 2, "fill_drop": 3}
+# the K1 mode that is the adjoint of K1b in a mode
+_ADJOINT = {"clip": "drop", "fill": "fill_drop", "drop": "drop", "fill_drop": "fill_drop"}
+
+
+def _mode_code(mode: str) -> int:
+    if mode not in _MODE_CODE:
+        raise ValueError(f"mode must be one of {sorted(_MODE_CODE)}, not {mode!r}")
+    return _MODE_CODE[mode]
 
 
 def gather_pool_plain(table: torch.Tensor, ids: torch.Tensor,
@@ -84,24 +100,25 @@ def gather_pool_plain(table: torch.Tensor, ids: torch.Tensor,
                       out_dtype: Optional[torch.dtype] = None,
                       mode: str = "clip") -> torch.Tensor:
     """Plain PyTorch version: ``index_select`` (ids clipped to [0, R-1];
-    with ``mode="fill"`` negative ids wrapped once first, and the rows of ids
-    still outside [0, R) replaced by NaN), multiply by the mask, sum over L in
-    float32, cast to the output dtype.  Where a gradient is recorded, rows
-    read through a clipped id are detached, so an id outside [0, R) gives the
-    table no gradient."""
-    fill = _fill(mode)
+    with ``mode="fill"`` or ``"fill_drop"`` negative ids wrapped once first,
+    and the rows of ids still outside [0, R) replaced by NaN, or with
+    ``"drop"`` and ``"fill_drop"`` by zeros), multiply by the mask, sum over
+    L in float32, cast to the output dtype.  Where a gradient is recorded,
+    rows read through a clipped id are detached, so an id outside [0, R)
+    gives the table no gradient."""
+    code = _mode_code(mode)
     out_dtype = _out_dtype(table, out_dtype)
     n, pool = ids.shape
     raw = ids.reshape(-1).long()
-    if fill:
+    if code & 1:
         raw = torch.where(raw < 0, raw + table.shape[0], raw)
     idx = raw.clamp(0, table.shape[0] - 1)
     rows = table.index_select(0, idx)
     inside = (raw == idx)[:, None]
     if torch.is_grad_enabled() and table.requires_grad:
         rows = torch.where(inside, rows, rows.detach())
-    if fill:
-        rows = rows.masked_fill(~inside, float("nan"))
+    if code:
+        rows = rows.masked_fill(~inside, 0.0 if code & 2 else float("nan"))
     rows = rows.reshape(n, pool, -1).float()
     if mask is not None:
         rows = rows * mask.float()[..., None]
@@ -118,9 +135,9 @@ def gather_pool_bwd_plain(g: torch.Tensor, ids: torch.Tensor,
     once; for a bfloat16 ``dtype`` each contribution is rounded to bfloat16
     first, as the JAX package casts the incoming gradient to the table dtype
     before its scatter-add.  Ids outside [0, rows) are dropped; with
-    ``mode="fill"`` negative ids are wrapped once first, as the forward of
-    that mode reads them."""
-    fill = _fill(mode)
+    ``mode="fill"`` (or ``"fill_drop"``) negative ids are wrapped once
+    first, as the forward of that mode reads them."""
+    fill = _mode_code(mode) & 1
     dtype = g.dtype if dtype is None else dtype
     n, pool = ids.shape
     contrib = g.float()[:, None, :].expand(n, pool, g.shape[1])
@@ -176,7 +193,7 @@ def _check_ids_mask(ids: torch.Tensor, mask: Optional[torch.Tensor],
 
 def _gather_pool_cuda(table: torch.Tensor, ids: torch.Tensor,
                       mask: Optional[torch.Tensor],
-                      out_dtype: torch.dtype, fill: bool) -> torch.Tensor:
+                      out_dtype: torch.dtype, mode: str) -> torch.Tensor:
     """Launch K1.  ``ids`` and ``mask`` are already checked."""
     n, pool = ids.shape
     rows, dim = table.shape
@@ -193,7 +210,7 @@ def _gather_pool_cuda(table: torch.Tensor, ids: torch.Tensor,
         rc = lib.pr_gather_pool(
             table.data_ptr(), _DTYPE_CODE[table.dtype], rows, dim,
             ids.data_ptr(), None if mask is None else mask.data_ptr(),
-            n, pool, int(fill), out.data_ptr(), _DTYPE_CODE[out_dtype], stream,
+            n, pool, _MODE_CODE[mode], out.data_ptr(), _DTYPE_CODE[out_dtype], stream,
         )
     _check_launch(lib, rc, "gather_pool")
     gather_pool.launches += 1
@@ -212,6 +229,77 @@ def empty_launch(device: torch.device) -> None:
     _check_launch(lib, rc, "empty")
 
 
+def _gather_pool_bwd_cuda(g: torch.Tensor, ids: torch.Tensor,
+                          mask: Optional[torch.Tensor], rows: int,
+                          dtype: torch.dtype, mode: str) -> torch.Tensor:
+    """Launch K1b.  ``g``, ``ids`` and ``mask`` are already checked."""
+    n, pool = ids.shape
+    dim = g.shape[1]
+    dtable = torch.empty((rows, dim), dtype=dtype, device=g.device)
+    if rows == 0 or dim == 0:
+        return dtable
+    if n == 0 or pool == 0:
+        return dtable.zero_()
+    g = g.contiguous()
+    # a bfloat16 dtable accumulates in a float32 scratch, rounded once
+    scratch = None
+    if dtype == torch.bfloat16:
+        scratch = torch.empty((rows, dim), dtype=torch.float32, device=g.device)
+    lib = _lib("gather_pool_bwd")
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        rc = lib.pr_gather_pool_bwd(
+            g.data_ptr(), _DTYPE_CODE[g.dtype], ids.data_ptr(),
+            None if mask is None else mask.data_ptr(), n, pool, dim, rows,
+            _MODE_CODE[mode] & 1, dtable.data_ptr(), _DTYPE_CODE[dtype],
+            None if scratch is None else scratch.data_ptr(), stream,
+        )
+    _check_launch(lib, rc, "gather_pool_bwd")
+    gather_pool_bwd.launches += 1
+    gather_pool_bwd.launches_by_dim[dim] += 1
+    return dtable
+
+
+class _GatherPoolCuda(torch.autograd.Function):
+    """K1 forward, K1b backward.  Only the table gets a gradient: ids are
+    integers, and ``gather_pool`` refuses a mask that would need one.  The
+    backward is itself differentiable (``_GatherPoolBwdCuda``)."""
+
+    @staticmethod
+    def forward(ctx, table, ids, mask, out_dtype, mode):
+        ctx.save_for_backward(ids, mask)
+        ctx.rows, ctx.table_dtype, ctx.mode = table.shape[0], table.dtype, mode
+        return _gather_pool_cuda(table, ids, mask, out_dtype, mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, mask = ctx.saved_tensors
+        dtable = _GatherPoolBwdCuda.apply(g, ids, mask, ctx.rows, ctx.table_dtype,
+                                          ctx.mode)
+        return dtable, None, None, None, None
+
+
+class _GatherPoolBwdCuda(torch.autograd.Function):
+    """K1b as a function of ``g``, in which it is linear: its backward is
+    K1 gathering the incoming (rows, D) gradient at the same ids with the
+    same mask, in the mode (``_ADJOINT``) where the ids K1b drops read zero.
+    That gather is a ``_GatherPoolCuda`` in turn, so every order stays on
+    the two kernels."""
+
+    @staticmethod
+    def forward(ctx, g, ids, mask, rows, dtype, mode):
+        ctx.save_for_backward(ids, mask)
+        ctx.g_dtype, ctx.mode = g.dtype, mode
+        return _gather_pool_bwd_cuda(g, ids, mask, rows, dtype, mode)
+
+    @staticmethod
+    def backward(ctx, dtable):
+        ids, mask = ctx.saved_tensors
+        dg = _GatherPoolCuda.apply(dtable.contiguous(), ids, mask, ctx.g_dtype,
+                                   _ADJOINT[ctx.mode])
+        return dg, None, None, None, None, None
+
+
 def gather_pool_bwd(g: torch.Tensor, ids: torch.Tensor,
                     mask: Optional[torch.Tensor], rows: int,
                     dtype: Optional[torch.dtype] = None,
@@ -220,8 +308,8 @@ def gather_pool_bwd(g: torch.Tensor, ids: torch.Tensor,
     dtable (rows, D) in ``dtype`` (default: g's; a bf16 g only into a bf16
     dtable), accumulated in float32; ``mode`` as the forward's.
     CPU tensors take ``gather_pool_bwd_plain``; CUDA tensors launch the
-    kernel or raise."""
-    fill = _fill(mode)
+    kernel or raise.  Differentiable in ``g`` on both."""
+    _mode_code(mode)
     dtype = g.dtype if dtype is None else dtype
     if g.device.type == "cpu":
         return gather_pool_bwd_plain(g, ids, mask, rows, dtype, mode)
@@ -237,49 +325,7 @@ def gather_pool_bwd(g: torch.Tensor, ids: torch.Tensor,
     ids, mask = _check_ids_mask(ids, mask, g.device)
     if ids.shape[0] != g.shape[0]:
         raise ValueError(f"g has {g.shape[0]} rows, ids {ids.shape[0]}")
-    n, pool = ids.shape
-    dim = g.shape[1]
-    dtable = torch.empty((rows, dim), dtype=dtype, device=g.device)
-    if rows == 0 or dim == 0:
-        return dtable
-    if n == 0 or pool == 0:
-        return dtable.zero_()
-    g = g.detach().contiguous()
-    # a bfloat16 dtable accumulates in a float32 scratch, rounded once
-    scratch = None
-    if dtype == torch.bfloat16:
-        scratch = torch.empty((rows, dim), dtype=torch.float32, device=g.device)
-    lib = _lib("gather_pool_bwd")
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        rc = lib.pr_gather_pool_bwd(
-            g.data_ptr(), _DTYPE_CODE[g.dtype], ids.data_ptr(),
-            None if mask is None else mask.data_ptr(), n, pool, dim, rows,
-            int(fill), dtable.data_ptr(), _DTYPE_CODE[dtype],
-            None if scratch is None else scratch.data_ptr(), stream,
-        )
-    _check_launch(lib, rc, "gather_pool_bwd")
-    gather_pool_bwd.launches += 1
-    gather_pool_bwd.launches_by_dim[dim] += 1
-    return dtable
-
-
-class _GatherPoolCuda(torch.autograd.Function):
-    """K1 forward, K1b backward.  Only the table gets a gradient: ids are
-    integers, and ``gather_pool`` refuses a mask that would need one."""
-
-    @staticmethod
-    def forward(ctx, table, ids, mask, out_dtype, mode):
-        ctx.save_for_backward(ids, mask)
-        ctx.rows, ctx.table_dtype, ctx.mode = table.shape[0], table.dtype, mode
-        return _gather_pool_cuda(table, ids, mask, out_dtype, mode == "fill")
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        ids, mask = ctx.saved_tensors
-        dtable = gather_pool_bwd(g, ids, mask, ctx.rows, ctx.table_dtype, ctx.mode)
-        return dtable, None, None, None, None
+    return _GatherPoolBwdCuda.apply(g, ids, mask, rows, dtype, mode)
 
 
 def gather_pool(table: torch.Tensor, ids: torch.Tensor,
@@ -290,8 +336,9 @@ def gather_pool(table: torch.Tensor, ids: torch.Tensor,
     1) → (N, D), summed in float32, in the table dtype or (``out_dtype``)
     float32 from a bfloat16 table.  Ids out of range as ``mode`` says (see
     the module docstring).  CPU tensors take ``gather_pool_plain``; CUDA
-    tensors launch K1, and K1b when a gradient flows back to the table."""
-    _fill(mode)
+    tensors launch K1, and K1b when a gradient flows back to the table, to
+    any order."""
+    _mode_code(mode)
     if table.device.type == "cpu":
         return gather_pool_plain(table, ids, mask, out_dtype, mode)
     if table.device.type != "cuda":

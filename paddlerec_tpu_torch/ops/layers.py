@@ -1,10 +1,12 @@
-"""Shared layers of the rank models: the MLP tower, the FM terms, the three
-cross networks, CIN, DIN's target attention and flax's ``LayerNorm``.
+"""Shared layers of the rank and multitask models: the MLP tower, the FM
+terms, the three cross networks, CIN, DIN's target attention, and flax's
+``LayerNorm``, ``DenseGeneral`` and ``Conv`` with their initializers.
 
 Counterparts of ``MLP``, ``FMFirstOrder``, ``fm_second_order``,
 ``FMInteraction``, ``CrossNet``, ``CrossNetV2``, ``CrossNetMix``, ``CIN`` and
 ``TargetAttention`` in ``paddlerec_tpu/ops/layers.py`` and of flax's
-``nn.LayerNorm``, with the flax tree's parameter names.
+``nn.LayerNorm``, ``nn.DenseGeneral`` and ``nn.Conv``, with the flax tree's
+parameter names.
 Dense products stay ``nn.Linear`` / ``torch.einsum`` (cuBLAS on the card), as
 the JAX package left them to XLA outside any Pallas kernel; the one lookup
 here (``FMFirstOrder``) goes through kernel K1.
@@ -86,13 +88,58 @@ def flax_dense(in_dim: int, out_dim: int, device=None,
     ``lecun_normal`` weights (a normal of variance 1/fan_in, truncated at
     two standard deviations), zero bias (or none: ``use_bias=False``)."""
     fc = nn.Linear(in_dim, out_dim, bias=bias, device=device)
-    with torch.no_grad():
-        std = math.sqrt(1.0 / in_dim) / 0.87962566103423978
-        nn.init.trunc_normal_(fc.weight, 0.0, std, -2 * std, 2 * std,
-                              generator=generator)
-        if bias:
+    lecun_normal_(fc.weight, in_dim, generator)
+    if bias:
+        with torch.no_grad():
             fc.bias.zero_()
     return fc
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's ``lecun_normal`` in place: a normal of variance 1/fan_in,
+    truncated at two standard deviations (and rescaled for the cut)."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                                     generator=generator)
+
+
+def flax_conv2d(in_ch: int, out_ch: int, kernel: int, padding: int = 0,
+                groups: int = 1, device=None,
+                generator: Optional[torch.Generator] = None) -> nn.Conv2d:
+    """A square ``Conv2d`` initialized as flax's ``Conv`` default:
+    ``lecun_normal`` over fan_in = kernel²·in/groups, zero bias.  flax's
+    kernel ``(k, k, in/groups, out)`` is the weight ``(out, in/groups, k,
+    k)`` (``convert.py`` permutes the axes both ways); ``padding`` 0 is
+    flax's ``"VALID"``."""
+    conv = nn.Conv2d(in_ch, out_ch, kernel, padding=padding, groups=groups,
+                     device=device)
+    lecun_normal_(conv.weight, kernel * kernel * in_ch // groups, generator)
+    with torch.no_grad():
+        conv.bias.zero_()
+    return conv
+
+
+class DenseGeneral(nn.Module):
+    """flax's ``nn.DenseGeneral(features=(N, E))`` over the last axis: x
+    (..., in) → (..., N, E).  flax's kernel is ``(in, N, E)`` and its bias
+    ``(N, E)``; the weight here is that kernel's transpose ``(E, N, in)``,
+    which is what ``convert.py`` makes of every ``kernel`` leaf that is not
+    4-D, so the names and the conversion are those of ``nn.Linear``.  Init
+    as flax's: ``lecun_normal`` over fan_in = in (flax flattens the feature
+    axes), zero bias."""
+
+    def __init__(self, in_dim: int, features: Sequence[int], device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        n, e = features
+        self.weight = nn.Parameter(torch.empty((e, n, in_dim), device=device))
+        lecun_normal_(self.weight, in_dim, generator)
+        self.bias = nn.Parameter(torch.zeros((n, e), device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.einsum("...i,eni->...ne", x, self.weight) + self.bias
 
 
 def normal_param(shape, stddev: float, device=None,

@@ -46,7 +46,7 @@ class RecService:
 
     def predict(self, feed: Dict[str, Any]) -> Dict[str, Any]:
         batch = self.preprocess(feed)
-        with torch.inference_mode():
+        with self.model_def.infer_context(torch.inference_mode):
             aux = self.model_def.infer_forward(self.module, batch)
         return self.postprocess(aux)
 

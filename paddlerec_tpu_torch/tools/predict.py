@@ -58,7 +58,7 @@ def run_predict(export_dir: str, data_dir: str, batch_size: int,
     for i, host_batch in enumerate(dataset):
         batch = to_tensors(host_batch, device)
         t0 = time.perf_counter()
-        with torch.inference_mode():
+        with model_def.infer_context(torch.inference_mode):
             aux = model_def.infer_forward(module, batch)
         if device.type == "cuda":
             torch.cuda.synchronize(device)

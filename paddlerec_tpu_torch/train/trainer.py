@@ -231,10 +231,10 @@ class Trainer:
         # (runner.feed_superbatch): a view, no copy
         return self.train_step({k: v[i] for k, v in sb.items()}, metric_state)
 
-    @torch.no_grad()
     def infer_step(self, batch, metric_state):
         batch = decode_batch(batch)
-        aux = self.model_def.infer_forward(self.state.module, batch)
+        with self.model_def.infer_context():
+            aux = self.model_def.infer_forward(self.state.module, batch)
         if self.use_auc:
             metric_state = self.model_def.update_metric_state(metric_state, aux)
         return metric_state, aux

@@ -294,3 +294,38 @@ def test_sequence_model_on_cuda_matches_cpu(cuda, model):
         losses[name] = float(loss)
     torch.testing.assert_close(preds["cuda"], preds["cpu"], rtol=0, atol=1e-5)
     assert abs(losses["cuda"] - losses["cpu"]) < 1e-5
+
+
+def _meta_grad(fn, table, spt_ids, spt_mask, qry_ids, qry_mask, w_s, w_q, mode):
+    """The gradient of a query read-out at ``table - ∇(support read-out)``,
+    through ``fn``: the second order of the lookup, as metaheac takes it."""
+    t = table.clone().requires_grad_()
+    (g,) = torch.autograd.grad(torch.sum(w_s * torch.tanh(fn(t, spt_ids, spt_mask, mode=mode))),
+                               t, create_graph=True)
+    torch.sum(w_q * torch.sin(fn(t - g, qry_ids, qry_mask, mode=mode))).backward()
+    return t.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,pool", [("clip", 3), ("fill", 1)])
+def test_second_order_through_the_kernels_matches_plain(cuda, mode, pool):
+    """autograd.grad of autograd.grad through K1 and K1b (three launches of
+    each: two lookups, the inner K1b, the query's K1b, K1 as K1b's backward,
+    K1b back through the support lookup) against the plain version, ids out
+    of range both ways among the support's."""
+    rng = np.random.RandomState(5)
+    table = torch.from_numpy(rng.randn(700, 8).astype(np.float32)).to(cuda)
+    spt_ids = torch.from_numpy(rng.randint(-900, 900, (400, pool)).astype(np.int32)).to(cuda)
+    qry_ids = torch.from_numpy(rng.randint(0, 700, (300, pool)).astype(np.int32)).to(cuda)
+    masks = [None if pool == 1 else torch.from_numpy(rng.rand(n, pool).astype(np.float32)).to(
+        cuda) for n in (400, 300)]
+    w_s, w_q = (torch.from_numpy(rng.randn(n, 8).astype(np.float32)).to(cuda)
+                for n in (400, 300))
+    fwd, bwd = gather_pool.launches, gather_pool_bwd.launches
+    got = _meta_grad(gather_pool, table, spt_ids, masks[0], qry_ids, masks[1], w_s, w_q, mode)
+    assert (gather_pool.launches - fwd, gather_pool_bwd.launches - bwd) == (3, 3)
+    want = _meta_grad(gather_pool_plain, table, spt_ids, masks[0], qry_ids, masks[1], w_s, w_q,
+                      mode)
+    assert torch.isfinite(got).all()
+    # atomics add in another order, and the second order sums those sums again
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -149,7 +149,11 @@ def test_port_imports_nothing_of_jax():
                      "autoint", "gatenet", "flen", "deepfefm", "difm", "ffm",
                      "fat_deepffm", "fgcnn", "autofis",
                      "din", "dien", "bst", "dsin", "dmr", "dpin",
-                     "deeprec", "iprec", "naml", "fastformer", "sign", "bert4rec"))):
+                     "deeprec", "iprec", "naml", "fastformer", "sign", "bert4rec")),
+                 "models.multitask.base",
+                 *(f"models.multitask.{m}.model" for m in (
+                     "share_bottom", "mmoe", "ple", "esmm", "aitm", "escm2", "dselect_k",
+                     "maml", "metaheac"))):
         assert f"paddlerec_tpu_torch.{name}" in walked, name
 
 
