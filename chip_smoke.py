@@ -5,9 +5,15 @@ Run from the root of a checkout, on a machine with an NVIDIA H100 (sm_90a)
 and the CUDA toolkit:
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --only k1 [--against OTHER_gather_pool.cu ...]
 
 Phases, in order; any failure is fatal and the script exits non-zero
-without a result line:
+without a result line.  ``--only k1`` runs phases 1 and 2, K1's checks of
+phase 3, and then K1 alone, checked against its plain version and timed at
+every shape of phases 7, 15, 18 and 22 and at an output of more than 2^31
+elements (``k1_only``; a minute or two).  Each ``--against`` source (another
+``csrc/gather_pool.cu`` with the same C interface, a parent commit's say)
+is built beside it and timed in turns with it at every shape.
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build every kernel of ``paddlerec_tpu_torch/csrc`` with ``nvcc``;
@@ -32,7 +38,11 @@ without a result line:
 7. time K1 and K1b at the main path's shapes with CUDA events, beside their
    plain versions, the one-call PyTorch yardsticks (``embedding_bag``,
    ``embedding_dense_backward``, which the port never calls), the memory
-   bound and the launch floor (an empty kernel);
+   bound and the launch floor (an empty kernel); K1 through
+   ``time_k1_shapes``, which every phase that times K1 calls, each shape
+   first checked against the plain version (``MAIN_SHAPES``: DeepFM's view
+   at both batches, ffm's and lr's rows, ``config_bigdata.yaml``'s bf16
+   view read into float32);
 8. ``torch.profiler`` over 20 forwards and over 20 train steps at each
    batch size;
 9. the sparse row-wise path: each update rule on the card against the port's
@@ -144,6 +154,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -480,34 +491,6 @@ def _timed(fns, sets, iters: int):
     return device, {k[:-3] if k != "ms" else "kernel": v for k, v in call.items()}
 
 
-def time_k1(gp, view, seed: int, vocab: int, batches=BATCHES, rounds: int = 10,
-            shape: str = "deepfm") -> list:
-    """Phase 7: K1 on a one-id-per-slot lookup (N = B·26, L = 1) of the
-    ``(rows, D)`` view of a float32 table: DeepFM's (D = 16), lr's (D = 8),
-    ffm's unpacked table (D = 351)."""
-    from torch.nn import functional as F
-
-    dim = view.shape[1]
-    g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    rows = []
-    for batch in batches:
-        n = batch * SLOTS
-        sets = _id_sets(n, vocab, g)
-        fns = {
-            "ms": lambda s: gp.gather_pool(view, s),
-            "plain_ms": lambda s: gp.gather_pool_plain(view, s),
-            "library_ms": lambda s: F.embedding_bag(s, view, mode="sum"),
-        }
-        device, call = _timed(fns, sets, rounds * len(sets))
-        uniq = sum(int(torch.unique(s).numel()) for s in sets) / len(sets)
-        nbytes = uniq * dim * 4 + n * 4 + n * dim * 4  # rows once, ids, output
-        bound = max(nbytes / HBM_BYTES_PER_S, n * dim / F32_FLOPS) * 1e3
-        rows.append({"shape": shape, "batch": batch, "n": n, "pool": 1, "dim": dim,
-                     "dtype": "float32", **device, "bound_ms": bound,
-                     "bound_by": "bytes", "bytes": nbytes, "call_ms": call})
-    return rows
-
-
 def time_k1b(gp, seed: int, vocab: int, rows: int, dim: int = 16, batches=BATCHES,
              rounds: int = 10, shape: str = "deepfm") -> list:
     """Phase 7: K1b on the gradient of the same lookups (N = B·26, L = 1,
@@ -563,21 +546,17 @@ def _fill_ids(kind: str, rows: int, n: int, g) -> torch.Tensor:
     return torch.randint(0, rows, (n, 1), device="cuda", generator=g, dtype=torch.int32)
 
 
-def time_fill_shapes(gp, seed: int, shapes, iters: int = 400) -> tuple:
-    """Phases 15 and 18: K1 and K1b at the ``shapes`` of an ``Embed`` table
-    (``SEQ_SHAPES``, ``REST_SHAPES``): the lookup in fill mode and the dense
-    gradient of it, beside their plain versions and one PyTorch call each
-    (``F.embedding``, what ``torch.nn.Embedding`` calls, and
-    ``embedding_dense_backward``), with the byte bound of the same work.
+def time_fill_shapes(gp, seed: int, shapes, iters: int = 400) -> list:
+    """Phases 15 and 18: K1b at the ``shapes`` of an ``Embed`` table
+    (``SEQ_SHAPES``, ``REST_SHAPES``): the dense gradient of the fill-mode
+    lookup, beside its plain version and one PyTorch call
+    (``embedding_dense_backward``), with the byte bound of the same work.
     Uniform ids come in enough distinct sets that a cycle reads more rows
     than L2 holds.  ``iters`` stays under the launch queue's depth (see
-    ``time_launch_floor``)."""
-    from torch.nn import functional as F
-
+    ``time_launch_floor``).  K1 at the same shapes: ``time_k1_shapes``."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    k1, k1b = [], []
+    k1b = []
     for name, rows, dim, n, kind in shapes:
-        table = torch.randn(rows, dim, device="cuda", generator=g)
         n_sets = (max(4, min(64, math.ceil(50e6 / (n * max(dim, 16) * 4))))
                   if kind == "uniform" else 1)
         sets = [_fill_ids(kind, rows, n, g) for _ in range(n_sets)]
@@ -587,16 +566,6 @@ def time_fill_shapes(gp, seed: int, shapes, iters: int = 400) -> tuple:
         shape = {"shape": name, "n": n, "pool": 1, "dim": dim, "rows": rows,
                  "dtype": "float32", "mode": "fill", "touched_rows": uniq,
                  "most_adds_per_row": int(torch.bincount(flat[id(sets[0])]).max())}
-        fns = {
-            "ms": lambda s: gp.gather_pool(table, s, mode="fill"),
-            "plain_ms": lambda s: gp.gather_pool_plain(table, s, mode="fill"),
-            "library_ms": lambda s: F.embedding(flat[id(s)], table),
-        }
-        device, call = _timed(fns, sets, iters)
-        nbytes = uniq * dim * 4 + n * 4 + n * dim * 4  # rows once, ids, output
-        k1.append({**shape, **device, "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                                                      n * dim / F32_FLOPS) * 1e3,
-                   "bound_by": "bytes", "bytes": nbytes, "call_ms": call})
         fns = {
             "ms": lambda s: gp.gather_pool_bwd(grad, s, None, rows, mode="fill"),
             "plain_ms": lambda s: gp.gather_pool_bwd_plain(grad, s, None, rows, mode="fill"),
@@ -610,8 +579,8 @@ def time_fill_shapes(gp, seed: int, shapes, iters: int = 400) -> tuple:
                                                        n * dim / F32_FLOPS) * 1e3,
                     "bound_by": "bytes", "bytes": nbytes, "zero_fill_bytes": rows * dim * 4,
                     "call_ms": call})
-        del table, sets, flat, grad
-    return k1, k1b
+        del sets, flat, grad
+    return k1b
 
 
 def time_launch_floor(gp, iters: int = 500) -> float:
@@ -2553,21 +2522,17 @@ MT_SHAPES = (
 )
 
 
-def time_multitask_shapes(gp, seed: int, card: str, iters: int = 400) -> tuple:
+def time_multitask_shapes(gp, seed: int, card: str, iters: int = 400) -> list:
     """Phase 22: K1 and K1b at ``MT_SHAPES``, each first held against its
     plain version (K1 with one id a row bitwise, a masked pool rtol 1e-5 and
     atol 1e-6; K1b rtol 1e-5 and atol 1e-6 times the most adds a row takes,
-    atomics adding in another order), then timed as ``time_fill_shapes``
-    does beside the plain version and one PyTorch call where there is one:
-    ``F.embedding_bag`` with ``per_sample_weights`` / ``F.embedding`` for
-    K1, ``_embedding_bag_backward`` (dense) / ``embedding_dense_backward``
-    for K1b.  The backward row (``fill_drop``) has no such call: no PyTorch
-    call reads zero rows for ids out of range.  K1b is timed at the first
-    three shapes (the fourth is a K1 launch only)."""
-    from torch.nn import functional as F
-
+    atomics adding in another order), then K1b timed as ``time_fill_shapes``
+    does beside the plain version and one PyTorch call:
+    ``_embedding_bag_backward`` (dense) / ``embedding_dense_backward``.  K1b
+    is timed at the first three shapes (the fourth is a K1 launch only); K1
+    at all four by ``time_k1_shapes``."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    k1, k1b, checks = [], [], []
+    k1b, checks = [], []
     for name, rows, dim, n, pool, mode in MT_SHAPES:
         table = torch.randn(rows, dim, device="cuda", generator=g)
         mask = (None if pool == 1 else
@@ -2604,20 +2569,6 @@ def time_multitask_shapes(gp, seed: int, card: str, iters: int = 400) -> tuple:
         shape = {"shape": name, "n": n, "pool": pool, "dim": dim, "rows": rows,
                  "dtype": "float32", "mode": mode, "masked": mask is not None,
                  "touched_rows": uniq, "most_adds_per_row": adds}
-        fns = {"ms": lambda s: gp.gather_pool(table, s, mask, mode=mode),
-               "plain_ms": lambda s: gp.gather_pool_plain(table, s, mask, mode=mode)}
-        if mode == "fill":
-            fns["library_ms"] = lambda s: F.embedding(flat[id(s)], table)
-        elif mode == "clip":
-            fns["library_ms"] = lambda s: F.embedding_bag(s, table, per_sample_weights=mask,
-                                                          mode="sum")
-        device, call = _timed(fns, sets, iters)
-        device.setdefault("library_ms", None)
-        # rows once, ids (and mask) once, output once
-        nbytes = uniq * dim * 4 + n * pool * 4 * (2 if mask is not None else 1) + n * dim * 4
-        k1.append({**shape, **device, "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                                                      n * pool * dim / F32_FLOPS) * 1e3,
-                   "bound_by": "bytes", "bytes": nbytes, "call_ms": call})
         if mode == "fill_drop":
             del table, sets, flat, grad
             continue
@@ -2643,7 +2594,276 @@ def time_multitask_shapes(gp, seed: int, card: str, iters: int = 400) -> tuple:
                     "call_ms": call})
         del table, sets, flat, grad
     emit({"multitask_kernel_checks": checks, "card": card})
-    return k1, k1b
+    return k1b
+
+
+# -- K1 at every timed shape (phases 7, 15, 18 and 22; ``--only k1``) -------
+class K1Shape(NamedTuple):
+    """One timed lookup of K1: a (rows, dim) table in ``dtype`` read at n
+    rows of ``pool`` ids.  ``ids`` as ``_k1_ids``; ``vocab`` bounds uniform
+    ids (0: the table's rows); ``library`` is the one PyTorch call that
+    computes the same function (``embedding_bag``, ``embedding``), or None."""
+    name: str
+    rows: int
+    dim: int
+    n: int
+    pool: int = 1
+    mode: str = "clip"
+    ids: str = "uniform"
+    vocab: int = 0
+    dtype: str = "float32"
+    out_dtype: str = "float32"
+    masked: bool = False
+    library: Optional[str] = None
+
+
+# phase 7: DeepFM's packed table through its (R·8, 16) view at the serving
+# and the training batch, ffm's unpacked rows and lr's 8-lane view at the
+# training batch, and config_bigdata.yaml's bfloat16 table (vocab 10^8)
+# through the same view into float32 (the sparse step's external lookup)
+MAIN_SHAPES = (
+    K1Shape("deepfm view, B=512", 125001 * 8, 16, 512 * SLOTS, vocab=1000001,
+            library="embedding_bag"),
+    K1Shape("deepfm view, B=8192", 125001 * 8, 16, 8192 * SLOTS, vocab=1000001,
+            library="embedding_bag"),
+    K1Shape("ffm unpacked rows, B=8192", 1000001, FFM_DIM, 8192 * SLOTS,
+            library="embedding_bag"),
+    K1Shape("lr 8-lane view, B=8192", 62501 * 16, 8, 8192 * SLOTS, vocab=1000001,
+            library="embedding_bag"),
+    # no single PyTorch call gives float32 rows from a bfloat16 table
+    K1Shape("config_bigdata.yaml bf16 view into float32, B=8192", 12500001 * 8, 16,
+            8192 * SLOTS, vocab=100000001, dtype="bfloat16"),
+)
+# only under --only k1: the Ali-CCP view's B=1024 rows gathered unpooled (the
+# same 70,656 random 64-byte rows, one an output row: what the pool costs
+# beyond the gather), and an output of N·D > 2^31 elements (8.7 GB), so
+# that row offsets past 32 bits are exercised
+EXTRA_SHAPES = (
+    K1Shape("Ali-CCP view, B=1024's ids unpooled (L=1)", 737952, 16, 1024 * 23 * 3,
+            library="embedding_bag"),
+    K1Shape("N·D above 2^31 elements", 1000, FFM_DIM, 6_200_000, library="embedding_bag"),
+)
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def k1_shapes(group: str) -> tuple:
+    """The K1 rows of a phase: ``main`` (phase 7), ``seq`` (15), ``rest``
+    (18), ``mt`` (22), each from the one definition of its shapes."""
+    if group == "main":
+        return MAIN_SHAPES
+    if group in ("seq", "rest"):
+        return tuple(K1Shape(name, rows, dim, n, mode="fill", ids=kind, library="embedding")
+                     for name, rows, dim, n, kind in (SEQ_SHAPES if group == "seq"
+                                                      else REST_SHAPES))
+    # MT_SHAPES; K1 as K1b's backward reads a tenth of its ids outside the
+    # table (those K1b dropped), and no PyTorch call reads zeros for them
+    return tuple(K1Shape(name, rows, dim, n, pool, mode,
+                         ids="tenth outside" if mode == "fill_drop" else "uniform",
+                         masked=pool > 1,
+                         library={"fill": "embedding", "clip": "embedding_bag"}.get(mode))
+                 for name, rows, dim, n, pool, mode in MT_SHAPES)
+
+
+def _k1_ids(shape: K1Shape, g) -> torch.Tensor:
+    """(n, pool) int32 ids: ``uniform`` over [0, vocab), ``zeros``,
+    ``period P`` (0..P-1 repeated: (B, T) position ids), or ``tenth
+    outside`` (uniform, a tenth moved past the table's end)."""
+    if shape.ids in ("zeros",) or shape.ids.startswith("period"):
+        return _fill_ids(shape.ids, shape.rows, shape.n, g)
+    ids = torch.randint(0, shape.vocab or shape.rows, (shape.n, shape.pool), device="cuda",
+                        generator=g, dtype=torch.int32)
+    if shape.ids == "tenth outside":
+        ids = torch.where(torch.rand(ids.shape, device="cuda", generator=g) < 0.1,
+                          ids + shape.rows, ids)
+    return ids
+
+
+def k1_check(gp, table, ids, mask, out_dtype, mode: str, chunk_bytes: float = 1 << 30):
+    """K1 against ``gather_pool_plain`` on the same inputs, compared in
+    chunks of rows (an output can be 8.7 GB).  One id a row: bitwise, NaN
+    where the plain version has NaN; a pool: rtol 1e-5 / atol 1e-6 into
+    float32 (f32 sums in another order; exact bf16 rows summed in f32),
+    rtol 1e-2 / atol 1e-5 into bfloat16 (one rounding of the f32 sum).
+    Returns (max_abs_err, ok, tolerance)."""
+    out = gp.gather_pool(table, ids, mask, out_dtype, mode=mode)
+    torch.cuda.synchronize()
+    pool = ids.shape[1]
+    tol = ("bitwise" if pool == 1 else
+           (1e-5, 1e-6) if out.dtype == torch.float32 else (1e-2, 1e-5))
+    step = max(1, int(chunk_bytes // (table.shape[1] * 4 * pool)))
+    err, ok = 0.0, True
+    for a in range(0, ids.shape[0], step):
+        got = out[a:a + step]
+        ref = gp.gather_pool_plain(table, ids[a:a + step],
+                                   None if mask is None else mask[a:a + step], out_dtype,
+                                   mode=mode)
+        err = max(err, float((got.float() - ref.float()).nan_to_num().abs().max()))
+        if not torch.equal(got.isnan(), ref.isnan()):
+            ok = False
+        elif tol == "bitwise":
+            ok = ok and torch.equal(got.nan_to_num(), ref.nan_to_num())
+        else:
+            ok = ok and torch.allclose(got.float().nan_to_num(), ref.float().nan_to_num(),
+                                       rtol=tol[0], atol=tol[1])
+        del ref
+    del out
+    torch.cuda.synchronize()
+    return err, ok, tol if isinstance(tol, str) else {"rtol": tol[0], "atol": tol[1]}
+
+
+def k1_libraries(sources) -> dict:
+    """Build other sources of K1 with the same C interface (a parent
+    commit's ``csrc/gather_pool.cu``, a variant of the current one) with
+    the flags of ``build.py``, one ``nvcc`` each, all at once, into a
+    temporary directory (removed once they are loaded), and load each as
+    ``ops/gather_pool.py`` loads its own.  Returns {file name: library}."""
+    import ctypes
+
+    from paddlerec_tpu_torch.ops import build
+    from paddlerec_tpu_torch.ops import gather_pool as gp
+
+    work = tempfile.mkdtemp(prefix="k1_variants_")
+    procs = {}
+    for i, src in enumerate(sources):
+        out = os.path.join(work, f"libvariant{i}.so")
+        procs[os.path.basename(src)] = (out, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", out, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    try:
+        for name, (out, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            lib = libs[name] = ctypes.CDLL(out)
+            for fn, argtypes in gp._ARGTYPES["gather_pool"].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.pr_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.pr_cuda_error_string.restype = ctypes.c_char_p
+    finally:
+        for _, proc in procs.values():
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return libs
+
+
+def time_k1_shapes(gp, shapes, seed: int, variants=None) -> list:
+    """K1 at each of ``shapes``: held against its plain version on the first
+    id set (``k1_check``; it raises on a disagreement), then timed with CUDA
+    events, the host queued ahead, beside the plain version, the library
+    call (which the port never calls) and the byte bound of the same work.
+    Uniform ids come in enough distinct sets that a cycle reads more rows
+    than L2 holds; ``iters`` stays under the launch queue's depth (see
+    ``time_launch_floor``) and is cut for outputs of many MB.
+
+    ``variants`` (label -> library from ``k1_libraries``): each is checked the
+    same way and timed in turns with the current kernel (variant, current,
+    current, variant) through the same wrapper, so that both run on one
+    card in one call."""
+    from torch.nn import functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    own = gp._lib("gather_pool") if variants else None
+    out_rows = []
+    for shape in shapes:
+        dtype, out_dtype = _DTYPES[shape.dtype], _DTYPES[shape.out_dtype]
+        table_es = torch.finfo(dtype).bits // 8
+        table = torch.randn(shape.rows, shape.dim, device="cuda", generator=g).to(dtype)
+        mask = ((torch.rand(shape.n, shape.pool, device="cuda", generator=g) < 0.7).float()
+                if shape.masked else None)
+        out_bytes = shape.n * shape.dim * torch.finfo(out_dtype).bits // 8
+        n_sets = (max(4, min(64, math.ceil(50e6 / (shape.n * shape.pool
+                                                   * max(shape.dim, 16) * table_es))))
+                  if shape.ids in ("uniform", "tenth outside") else 1)
+        sets = [_k1_ids(shape, g) for _ in range(n_sets)]
+        iters = max(n_sets, min(400, int(4e9 / out_bytes)))
+        err, ok, tol = k1_check(gp, table, sets[0], mask, out_dtype, shape.mode)
+        row = {**shape._asdict(), "max_abs_err": err, "ok": ok, "tolerance": tol}
+        if not ok:
+            raise AssertionError(f"K1 disagrees with its plain version: {row}")
+        for label, lib in (variants or {}).items():
+            gp._LIBS["gather_pool"] = lib
+            try:
+                v_err, v_ok, _ = k1_check(gp, table, sets[0], mask, out_dtype, shape.mode)
+            finally:
+                gp._LIBS["gather_pool"] = own
+            if not v_ok:
+                raise AssertionError(f"K1 {label} disagrees with the plain version at "
+                                     f"{shape.name}: {v_err}")
+        uniq = sum(int(torch.unique(s.clamp(0, shape.rows - 1)).numel())
+                   for s in sets) / len(sets)
+        flat = {id(s): s.reshape(-1).long() for s in sets}
+        fns = {
+            "ms": lambda s: gp.gather_pool(table, s, mask, out_dtype, mode=shape.mode),
+            "plain_ms": lambda s: gp.gather_pool_plain(table, s, mask, out_dtype,
+                                                       mode=shape.mode),
+        }
+        if shape.library == "embedding":
+            fns["library_ms"] = lambda s: F.embedding(flat[id(s)], table)
+        elif shape.library == "embedding_bag":
+            fns["library_ms"] = lambda s: F.embedding_bag(s, table, per_sample_weights=mask,
+                                                          mode="sum")
+        device, call = _timed(fns, sets, iters)
+        device.setdefault("library_ms", None)
+        if variants:
+            hold = 4 * iters * call["kernel"] + 5
+            kernel = fns["ms"]
+            device["against"] = {}
+            for label, lib in variants.items():
+                times = {"variant": [], "current": []}
+                for who in ("variant", "current", "current", "variant"):
+                    gp._LIBS["gather_pool"] = lib if who == "variant" else own
+                    try:
+                        times[who].append(time_ms(kernel, sets, iters, hold_ms=hold))
+                    finally:
+                        gp._LIBS["gather_pool"] = own
+                variant_ms, current_ms = (sum(times[k]) / 2 for k in ("variant", "current"))
+                device["against"][label] = {"ms": variant_ms, "current_ms": current_ms,
+                                            "speedup": variant_ms / current_ms}
+        # rows once, ids (and mask) once, output once
+        nbytes = (uniq * shape.dim * table_es
+                  + shape.n * shape.pool * 4 * (2 if mask is not None else 1) + out_bytes)
+        out_rows.append({**row, "touched_rows": uniq, "iters": iters, **device,
+                         "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                         shape.n * shape.pool * shape.dim / F32_FLOPS) * 1e3,
+                         "bound_by": "bytes", "bytes": nbytes, "call_ms": call,
+                         "launches": None})
+        del table, mask, sets, flat
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out_rows
+
+
+def set_share(cases, floor_ms: float) -> None:
+    """What a kernel can reach is its byte bound, or the launch floor where
+    that is higher: ``share`` = max(bound, floor) / ms."""
+    for case in cases:
+        case["launch_floor_ms"] = floor_ms
+        case["share"] = max(case["bound_ms"], floor_ms) / case["ms"]
+
+
+def k1_only(gp, seed: int, card: str, against) -> None:
+    """``--only k1``: phase 3's K1 checks, then every K1 shape of phases 7,
+    15, 18 and 22 (``config_bigdata.yaml``'s view among them) and
+    ``EXTRA_SHAPES``, each
+    checked and timed by ``time_k1_shapes`` (against the ``--against``
+    sources where given), one JSON line a shape."""
+    variants = k1_libraries(against) if against else {}
+    wide = torch.randn(1000001, FFM_DIM, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(seed))
+    main_err = check_k1(gp, seed, card, wide)
+    del wide
+    floor_ms = time_launch_floor(gp)
+    shapes = (k1_shapes("main") + k1_shapes("seq") + k1_shapes("rest") + k1_shapes("mt")
+              + EXTRA_SHAPES)
+    rows = time_k1_shapes(gp, shapes, seed + 9, variants)
+    set_share(rows, floor_ms)
+    for row in rows:
+        emit({"k1": row, "card": card})
+    emit({"k1_only": {"shapes": len(rows), "main_path_max_abs_err": main_err,
+                      "launch_floor_ms": floor_ms}, "card": card})
 
 
 def profile_forward(model_def, module, batch_size: int, iters: int = 20) -> dict:
@@ -2683,7 +2903,15 @@ def profile_forward(model_def, module, batch_size: int, iters: int = 20) -> dict
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--only", choices=("k1",),
+                        help="k1: phases 1-2, K1's checks of phase 3, then K1 checked "
+                             "and timed at every shape (default: every phase)")
+    parser.add_argument("--against", action="append", default=[], metavar="SOURCE.cu",
+                        help="with --only k1: another source of K1 with the same C "
+                             "interface, built and timed in turns with the current one")
     args = parser.parse_args(argv)
+    if args.against and args.only != "k1":
+        parser.error("--against needs --only k1")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2706,6 +2934,12 @@ def main(argv=None) -> int:
     libs = build.build()
     emit({"build": {k: os.path.relpath(v, ROOT) for k, v in libs.items()},
           "seconds": time.perf_counter() - t0, "card": card})
+    if args.only == "k1":
+        k1_only(gp, args.seed, card, args.against)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     # ffm's unpacked table, for the checks and the timing at its shape
     wide = torch.randn(1000001, FFM_DIM, device="cuda",
@@ -2788,19 +3022,17 @@ def main(argv=None) -> int:
         emit({"train": train_runs["bf16"], "card": card})
 
         table = service.module.embedding.embedding.detach()  # phase 7
-        cases = time_k1(gp, table.view(-1, 16), args.seed, vocab)
+        # DeepFM's view at both batches; the zoo's shapes at the training
+        # batch: ffm's unpacked rows, and the 8-lane view of a width-1 table
+        # (lr, ffm's first_weight); config_bigdata.yaml's bf16 view
+        main_cases = time_k1_shapes(gp, k1_shapes("main"), args.seed + 1)
+        cases, zoo_cases, big_cases = main_cases[:2], main_cases[2:4], main_cases[4:]
         bwd_cases = time_k1b(gp, args.seed, vocab, table.view(-1, 16).shape[0])
-        # the zoo's shapes at the training batch: ffm's unpacked rows, and the
-        # 8-lane view of a width-1 table (lr, ffm's first_weight)
         one = BATCHES[-1:]
-        view8 = torch.randn(62501, 128, device="cuda", generator=torch.Generator(
-            device="cuda").manual_seed(args.seed + 4)).view(-1, 8)
-        zoo_cases = (time_k1(gp, wide, args.seed, vocab, one, 5, "ffm")
-                     + time_k1(gp, view8, args.seed, vocab, one, shape="lr"))
         zoo_bwd_cases = (
             time_k1b(gp, args.seed, vocab, wide.shape[0], FFM_DIM, one, 5, "ffm")
-            + time_k1b(gp, args.seed, vocab, view8.shape[0], 8, one, shape="lr"))
-        del wide, view8
+            + time_k1b(gp, args.seed, vocab, 62501 * 16, 8, one, shape="lr"))
+        del wide
         for batch in BATCHES:  # phase 8
             emit({"profile": profile_forward(service.model_def, service.module, batch),
                   "card": card})
@@ -2833,19 +3065,22 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         seq = twin_zoo(gp, args.seed, card, SEQ, "seq_zoo")  # phase 13
         seq_runs = seq_paths(gp, work, args.seed, card)  # phase 14
-        seq_cases, seq_bwd_cases = time_fill_shapes(gp, args.seed + 13, SEQ_SHAPES)  # phase 15
+        seq_cases = time_k1_shapes(gp, k1_shapes("seq"), args.seed + 13)  # phase 15
+        seq_bwd_cases = time_fill_shapes(gp, args.seed + 13, SEQ_SHAPES)
         gc.collect()
         torch.cuda.empty_cache()
         rest = twin_zoo(gp, args.seed, card, REST, "rank_rest_zoo")  # phase 16
         rest_runs = rank_rest_paths(gp, work, args.seed, card)  # phase 17
         check_fill_shapes(gp, args.seed + 18, card, REST_SHAPES)  # phase 18
-        rest_cases, rest_bwd_cases = time_fill_shapes(gp, args.seed + 18, REST_SHAPES)
+        rest_cases = time_k1_shapes(gp, k1_shapes("rest"), args.seed + 18)
+        rest_bwd_cases = time_fill_shapes(gp, args.seed + 18, REST_SHAPES)
         gc.collect()
         torch.cuda.empty_cache()
         mt = multitask_zoo(gp, args.seed, card)  # phase 19
         mt_runs = multitask_paths(gp, work, args.seed, card)  # phase 20
         check_second_order(gp, args.seed + 21, card)  # phase 21
-        mt_cases, mt_bwd_cases = time_multitask_shapes(gp, args.seed + 22, card)  # phase 22
+        mt_bwd_cases = time_multitask_shapes(gp, args.seed + 22, card)  # phase 22
+        mt_cases = time_k1_shapes(gp, k1_shapes("mt"), args.seed + 22)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for case, batch in zip(cases, BATCHES):
@@ -2853,6 +3088,11 @@ def main(argv=None) -> int:
     for case, batch in zip(bwd_cases, BATCHES):
         case["launches"] = train_runs[batch]["k1b_launches"]
     compact_cases[-1]["launches"] = sparse["runs"]["deepfm"]["k1b_launches"]
+    # the bf16 view's lookups: the config_bigdata.yaml runs' steps and evaluations
+    big_cases[0]["launches"] = sum(r["k1_launches"] + r["eval"]["k1_launches"]
+                                   for r in sparse["runs"].values())
+    if big_cases[0]["launches"] < 1:
+        raise AssertionError("the config_bigdata.yaml runs launched no K1")
     # ffm's train() and evaluate(), counted by row width where the kernels launch
     ffm_run = paths["runs"]["ffm"]
     for case in zoo_cases:
@@ -2901,7 +3141,7 @@ def main(argv=None) -> int:
         ("gather_pool", "paddlerec_tpu_torch/csrc/gather_pool.cu",
          "paddlerec_tpu/ops/pallas_embedding.py:37", k1_launches,
          max(main_err, sparse["lookup"]["k1_err"]),
-         cases + zoo_cases + seq_cases + rest_cases + mt_cases, cases[-1]),
+         cases + zoo_cases + big_cases + seq_cases + rest_cases + mt_cases, cases[-1]),
         # the JAX package has no kernel for the gradient: K1b takes the
         # place of the XLA scatter-add of _packed_lookup_bwd
         ("gather_pool_bwd", "paddlerec_tpu_torch/csrc/gather_pool_bwd.cu",
@@ -2914,17 +3154,13 @@ def main(argv=None) -> int:
         # DeepFM's shape (K1b: at the sparse step's compact shape,
         # config_bigdata.yaml's); the zoo's and the sequence models' shapes
         # stand among the cases
-        for case in timed:
-            # what the kernel can reach: its byte bound, or the launch floor
-            # where that is higher
-            case["launch_floor_ms"] = floor_ms
-            case["share_of_reachable"] = max(case["bound_ms"], floor_ms) / case["ms"]
+        set_share(timed, floor_ms)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": count, "max_abs_err": err, "ms": top["ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
-            "launch_floor_ms": floor_ms, "share_of_reachable": top["share_of_reachable"],
+            "launch_floor_ms": floor_ms, "share": top["share"],
             "card": card, "cases": timed,
         })
     emit({"kernels": kernels})

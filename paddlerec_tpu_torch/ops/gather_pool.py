@@ -15,7 +15,8 @@ the lookup's gradient is XLA's scatter-add in ``_packed_lookup_bwd`` of
 backward of the ``autograd.Function`` that runs K1 on the card.
 
 Both kernels (``csrc/gather_pool.cu``, ``csrc/gather_pool_bwd.cu``) are
-memory-bound; each source says how its design follows from that.
+memory-bound; each source says how its design follows from that.  K1 has
+been redesigned for Hopper since its first port; its source says how.
 
 ``gather_pool`` takes the plain version only for tensors on the CPU, where
 autograd derives the gradient.  For a CUDA tensor it launches K1, and K1b in

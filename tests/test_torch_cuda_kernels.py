@@ -97,6 +97,67 @@ def test_gather_pool_f32_output_from_bf16_table(cuda):
     torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
 
 
+# the boundaries of K1's layout: blocks of 8 pool positions, 4 rows a lane
+# at L = 1, groups of 1 to 32 lanes a row (D = 1 ... 400), both load paths
+K1_POOLS = (1, 2, 3, 4, 5, 8, 9, 16, 17, 33, 130)
+K1_DIMS = (1, 4, 8, 30, 64, 351, 400)
+
+
+def _k1_ids(rng, rows, n, pool):
+    """Ids in range but a fifth: negative (-1, beyond -rows) and past the
+    end, so that every mode's clip, wrap, NaN and zero rows are read."""
+    ids = rng.randint(0, rows, (n, pool))
+    far = rng.choice([-1, -rows - 3, rows, 3 * rows], (n, pool))
+    return np.where(rng.rand(n, pool) < 0.2, far, ids).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["clip", "fill", "drop", "fill_drop"])
+@pytest.mark.parametrize("dtype,out_dtype", [(torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32)])
+def test_gather_pool_kernel_boundaries(cuda, mode, dtype, out_dtype):
+    rng = np.random.RandomState(11)
+    rows, n = 300, 133  # n: no multiple of any group's rows a warp step
+    for dim in K1_DIMS:
+        flat = torch.from_numpy(rng.randn(rows * dim + 1).astype(np.float32)).to(cuda, dtype)
+        # a table 16-byte aligned and one a single element off (scalar path)
+        for table in (flat[:-1].view(rows, dim), flat[1:].view(rows, dim)):
+            for pool in K1_POOLS:
+                ids = torch.from_numpy(_k1_ids(rng, rows, n, pool)).to(cuda)
+                mask = torch.from_numpy((rng.rand(n, pool) < 0.7).astype(np.float32)).to(cuda)
+                for m in (None, mask):
+                    out = gather_pool(table, ids, m, out_dtype, mode=mode)
+                    ref = gather_pool_plain(table, ids, m, out_dtype, mode=mode)
+                    where = f"D={dim} L={pool} mask={m is not None} at {table.data_ptr() % 16}"
+                    assert out.dtype == out_dtype and out.shape == (n, dim), where
+                    assert torch.equal(out.isnan(), ref.isnan()), where
+                    out, ref = out.float().nan_to_num(), ref.float().nan_to_num()
+                    if pool == 1:  # a gather: bitwise
+                        assert torch.equal(out, ref), where
+                    elif out_dtype == torch.bfloat16:  # one rounding of an f32 sum
+                        torch.testing.assert_close(out, ref, rtol=1e-2, atol=1e-5, msg=where)
+                    else:  # f32 sums of exact rows in another order
+                        atol = 1e-6 if pool <= 8 else 1e-5 if pool <= 33 else 1e-4
+                        torch.testing.assert_close(out, ref, rtol=1e-5, atol=atol, msg=where)
+
+
+@pytest.mark.cuda
+def test_gather_pool_kernel_past_2_31_elements(cuda):
+    """N·D = 6.2 M x 351 = 2.18e9 > 2^31 elements (8.7 GB of output): the
+    kernel's row offsets run past 32 bits.  Compared in chunks."""
+    n, dim, rows = 6_200_000, 351, 1000
+    if torch.cuda.get_device_properties(cuda).total_memory < 24 << 30:
+        pytest.skip("needs 24 GB of device memory")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    table = torch.randn(rows, dim, device=cuda, generator=g)
+    ids = torch.randint(-2, rows + 2, (n, 1), device=cuda, generator=g, dtype=torch.int32)
+    out = gather_pool(table, ids)
+    assert out.shape == (n, dim)
+    for a in range(0, n, 1 << 20):
+        assert torch.equal(out[a:a + (1 << 20)], gather_pool_plain(table, ids[a:a + (1 << 20)]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("g_dtype,dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),

@@ -38,6 +38,23 @@ def test_plain_matches_pallas_interpret(pool, dim):
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("pool", [2, 4, 5, 9, 17, 33])
+def test_plain_matches_jax_across_block_boundaries(pool):
+    """Pool lengths on either side of the card kernel's blocks of 8 ids:
+    against the Pallas kernel in interpret mode up to 8, and its oracle
+    above."""
+    table, ids, mask = _inputs(np.random.RandomState(100 + pool), 500, 16, 24, pool)
+    if pool <= 8:
+        ref = jax_gather_pool(jnp.asarray(table), jnp.asarray(ids), jnp.asarray(mask),
+                              interpret=True)
+    else:
+        ref = gather_pool_reference(jnp.asarray(table), jnp.asarray(ids), jnp.asarray(mask))
+    out = gather_pool(torch.from_numpy(table), torch.from_numpy(ids), torch.from_numpy(mask))
+    # f32 sums in another order: 1e-6 up to 8 terms, 1e-5 up to 33
+    tol = 1e-6 if pool <= 8 else 1e-5
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=tol, atol=tol)
+
+
 def test_all_zero_mask_gives_zero():
     table = np.ones((100, 128), np.float32)
     ids = np.zeros((8, 4), np.int32)
