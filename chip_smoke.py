@@ -6,14 +6,19 @@ and the CUDA toolkit:
 
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --only k1 [--against OTHER_gather_pool.cu ...]
+    python3 chip_smoke.py --only k1b [--against OTHER_gather_pool_bwd.cu ...]
 
 Phases, in order; any failure is fatal and the script exits non-zero
 without a result line.  ``--only k1`` runs phases 1 and 2, K1's checks of
 phase 3, and then K1 alone, checked against its plain version and timed at
 every shape of phases 7, 15, 18 and 22 and at an output of more than 2^31
-elements (``k1_only``; a minute or two).  Each ``--against`` source (another
-``csrc/gather_pool.cu`` with the same C interface, a parent commit's say)
-is built beside it and timed in turns with it at every shape.
+elements (``k1_only``; a minute or two).  ``--only k1b`` does the same for
+K1b: phases 1 and 2, K1b's checks of phase 3, then K1b checked against its
+plain version and timed at every shape of phases 7, 10, 15, 18 and 22 and
+at ffm's rows under ids of every residue mod 4 (``k1b_only``).  Each
+``--against`` source (another ``csrc/gather_pool.cu``, or
+``csrc/gather_pool_bwd.cu``, with the same C interface, a parent commit's
+say) is built beside it and timed in turns with it at every shape.
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build every kernel of ``paddlerec_tpu_torch/csrc`` with ``nvcc``;
@@ -39,10 +44,12 @@ is built beside it and timed in turns with it at every shape.
    plain versions, the one-call PyTorch yardsticks (``embedding_bag``,
    ``embedding_dense_backward``, which the port never calls), the memory
    bound and the launch floor (an empty kernel); K1 through
-   ``time_k1_shapes``, which every phase that times K1 calls, each shape
-   first checked against the plain version (``MAIN_SHAPES``: DeepFM's view
-   at both batches, ffm's and lr's rows, ``config_bigdata.yaml``'s bf16
-   view read into float32);
+   ``time_k1_shapes`` and K1b through ``time_k1b_shapes``, which every
+   phase that times the kernel calls, each shape first checked against the
+   plain version (``MAIN_SHAPES``: DeepFM's view at both batches, ffm's and
+   lr's rows, ``config_bigdata.yaml``'s bf16 view read into float32;
+   ``K1B_MAIN_SHAPES``: their gradients, DeepFM's bf16 table's among them,
+   K1b also beside ``index_add_`` into zeros);
 8. ``torch.profiler`` over 20 forwards and over 20 train steps at each
    batch size;
 9. the sparse row-wise path: each update rule on the card against the port's
@@ -127,7 +134,12 @@ is built beside it and timed in turns with it at every shape.
     version at metaheac's ``dynamic_3`` shape and the Ali-CCP table's view;
 22. K1 and K1b at the multitask family's shapes (the Ali-CCP view under a
     masked L = 3 pool at batch 32 and 1024, ``dynamic_3`` in fill mode, and
-    K1 as K1b's backward), each held against its plain version, then timed.
+    K1 as K1b's backward), each held against its plain version, then timed;
+    K1b also at each of metaheac's tables as its steps scatter them.
+
+K1b's ``launches`` in the ``kernels`` line are those of each case's own
+(rows, D, dtable dtype, N) over the main path (a case the main path does
+not run shows 0), and ``lost_ms`` is launches × (ms − max(bound, floor)).
 
 Phase 3 covers the shapes the zoo and the sequence models add to the main
 path: rows of 8 lanes (the view of lr's and ffm's width-1 packed table), of
@@ -143,6 +155,8 @@ Standard output: the ``nvidia-smi`` line, one JSON line per phase's result
 from __future__ import annotations
 
 import argparse
+import collections
+import functools
 import gc
 import json
 import logging
@@ -196,6 +210,23 @@ def card_line() -> str:
     if not out:
         raise RuntimeError("nvidia-smi listed no card")
     return out[0]
+
+
+def _uncounted(fn):
+    """K1b's launches inside ``fn`` (a check against the plain version, a
+    timing, a profile) stay out of ``gather_pool_bwd.launches_by_shape``,
+    which counts the launches of the main path over the whole run."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        from paddlerec_tpu_torch.ops.gather_pool import gather_pool_bwd
+
+        saved = collections.Counter(gather_pool_bwd.launches_by_shape)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            gather_pool_bwd.launches_by_shape.clear()
+            gather_pool_bwd.launches_by_shape.update(saved)
+    return wrapper
 
 
 def check_k1(gp, seed: int, card: str, wide: torch.Tensor) -> float:
@@ -491,40 +522,6 @@ def _timed(fns, sets, iters: int):
     return device, {k[:-3] if k != "ms" else "kernel": v for k, v in call.items()}
 
 
-def time_k1b(gp, seed: int, vocab: int, rows: int, dim: int = 16, batches=BATCHES,
-             rounds: int = 10, shape: str = "deepfm") -> list:
-    """Phase 7: K1b on the gradient of the same lookups (N = B·26, L = 1,
-    f32, a dense (rows, D) gradient)."""
-    g = torch.Generator(device="cuda").manual_seed(seed + 3)
-    out = []
-    for batch in batches:
-        n = batch * SLOTS
-        sets = _id_sets(n, vocab, g)
-        flat = {id(s): s.reshape(-1).long() for s in sets}  # the library's input
-        grad = torch.randn(n, dim, device="cuda", generator=g)
-        fns = {
-            "ms": lambda s: gp.gather_pool_bwd(grad, s, None, rows),
-            "plain_ms": lambda s: gp.gather_pool_bwd_plain(grad, s, None, rows),
-            "library_ms": lambda s: torch.ops.aten.embedding_dense_backward(
-                grad, flat[id(s)], rows, -1, False),
-        }
-        device, call = _timed(fns, sets, rounds * len(sets))
-        uniq = sum(int(torch.unique(s).numel()) for s in sets) / len(sets)
-        # what the function must move: the dense gradient written once, g
-        # and ids read once.  This design moves more (design_bytes): after
-        # the zero fill each touched row is read and written back by its adds
-        nbytes = rows * dim * 4 + n * dim * 4 + n * 4
-        design_bytes = nbytes + 2 * uniq * dim * 4
-        bound = max(nbytes / HBM_BYTES_PER_S, n * dim / F32_FLOPS) * 1e3
-        out.append({"shape": shape, "batch": batch, "n": n, "pool": 1, "dim": dim,
-                    "rows": rows, "dtype": "float32", **device, "bound_ms": bound,
-                    "bound_by": "bytes", "bytes": nbytes,
-                    "design_bytes": design_bytes, "touched_rows": uniq,
-                    "share_of_bound": bound / device["ms"],
-                    "zero_fill_bytes": rows * dim * 4, "call_ms": call})
-    return out
-
-
 # the sequence models' lookups at batch 32, one K1 launch each (fill mode):
 # (shape, rows, row width D, ids N per call, how the ids fall)
 SEQ_SHAPES = (
@@ -546,43 +543,6 @@ def _fill_ids(kind: str, rows: int, n: int, g) -> torch.Tensor:
     return torch.randint(0, rows, (n, 1), device="cuda", generator=g, dtype=torch.int32)
 
 
-def time_fill_shapes(gp, seed: int, shapes, iters: int = 400) -> list:
-    """Phases 15 and 18: K1b at the ``shapes`` of an ``Embed`` table
-    (``SEQ_SHAPES``, ``REST_SHAPES``): the dense gradient of the fill-mode
-    lookup, beside its plain version and one PyTorch call
-    (``embedding_dense_backward``), with the byte bound of the same work.
-    Uniform ids come in enough distinct sets that a cycle reads more rows
-    than L2 holds.  ``iters`` stays under the launch queue's depth (see
-    ``time_launch_floor``).  K1 at the same shapes: ``time_k1_shapes``."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    k1b = []
-    for name, rows, dim, n, kind in shapes:
-        n_sets = (max(4, min(64, math.ceil(50e6 / (n * max(dim, 16) * 4))))
-                  if kind == "uniform" else 1)
-        sets = [_fill_ids(kind, rows, n, g) for _ in range(n_sets)]
-        flat = {id(s): s.reshape(-1).long() for s in sets}
-        grad = torch.randn(n, dim, device="cuda", generator=g)
-        uniq = sum(int(torch.unique(s).numel()) for s in sets) / len(sets)
-        shape = {"shape": name, "n": n, "pool": 1, "dim": dim, "rows": rows,
-                 "dtype": "float32", "mode": "fill", "touched_rows": uniq,
-                 "most_adds_per_row": int(torch.bincount(flat[id(sets[0])]).max())}
-        fns = {
-            "ms": lambda s: gp.gather_pool_bwd(grad, s, None, rows, mode="fill"),
-            "plain_ms": lambda s: gp.gather_pool_bwd_plain(grad, s, None, rows, mode="fill"),
-            "library_ms": lambda s: torch.ops.aten.embedding_dense_backward(
-                grad, flat[id(s)], rows, -1, False),
-        }
-        device, call = _timed(fns, sets, iters)
-        # the dense gradient written once, g and ids read once
-        nbytes = rows * dim * 4 + n * dim * 4 + n * 4
-        k1b.append({**shape, **device, "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                                                       n * dim / F32_FLOPS) * 1e3,
-                    "bound_by": "bytes", "bytes": nbytes, "zero_fill_bytes": rows * dim * 4,
-                    "call_ms": call})
-        del sets, flat, grad
-    return k1b
-
-
 def time_launch_floor(gp, iters: int = 500) -> float:
     """ms per launch of the empty kernel of ``csrc/gather_pool.cu``, timed as
     the kernels are (CUDA events, the host queued ahead): no kernel's time
@@ -593,47 +553,6 @@ def time_launch_floor(gp, iters: int = 500) -> float:
     call = time_ms(lambda _: gp.empty_launch(device), [None], iters)
     return time_ms(lambda _: gp.empty_launch(device), [None], iters,
                    hold_ms=4 * iters * call + 5)
-
-
-def time_k1b_compact(gp, seed: int, vocab: int) -> list:
-    """Phase 10: K1b at the sparse step's shape: the gradient sum per unique
-    physical row, g (N, 16) f32 scattered at ``slot·8 + sub`` into a compact
-    (U·8, 16) buffer, U the batch's unique rows of a ``vocab``-id table."""
-    from paddlerec_tpu_torch.ops.sparse_update import host_dedup
-
-    rng = np.random.RandomState(seed + 5)
-    g_dev = torch.Generator(device="cuda").manual_seed(seed + 5)
-    out = []
-    for batch in BATCHES:
-        n = batch * SLOTS
-        n_sets = max(4, math.ceil(64 * 13312 / n))
-        sets, uniqs = [], []
-        for _ in range(n_sets):
-            ids = rng.randint(1, vocab, n).astype(np.int64)
-            uniq, slot = host_dedup(ids, vocab, 8)
-            uniqs.append(int((uniq != np.iinfo(np.int32).max).sum()))
-            lane = slot.astype(np.int64) * 8 + ids % vocab % 8
-            sets.append(torch.from_numpy(lane.astype(np.int32)).cuda()[:, None])
-        rows = 8 * max(uniqs)  # one buffer size for every set
-        flat = {id(s): s.reshape(-1).long() for s in sets}
-        grad = torch.randn(n, 16, device="cuda", generator=g_dev)
-        fns = {
-            "ms": lambda s: gp.gather_pool_bwd(grad, s, None, rows),
-            "plain_ms": lambda s: gp.gather_pool_bwd_plain(grad, s, None, rows),
-            "library_ms": lambda s: torch.ops.aten.embedding_dense_backward(
-                grad, flat[id(s)], rows, -1, False),
-        }
-        device, call = _timed(fns, sets, 10 * n_sets)
-        # the compact buffer written once (U·512 bytes), g and ids read once
-        nbytes = rows * 16 * 4 + n * 16 * 4 + n * 4
-        bound = max(nbytes / HBM_BYTES_PER_S, n * 16 / F32_FLOPS) * 1e3
-        out.append({"shape": "compact", "batch": batch, "n": n, "pool": 1, "dim": 16,
-                    "rows": rows, "vocab": vocab, "unique_rows": float(np.mean(uniqs)),
-                    "dtype": "float32", **device, "bound_ms": bound,
-                    "bound_by": "bytes", "bytes": nbytes,
-                    "share_of_bound": bound / device["ms"],
-                    "zero_fill_bytes": rows * 16 * 4, "call_ms": call})
-    return out
 
 
 def time_dedup(seed: int, vocabs) -> list:
@@ -751,6 +670,7 @@ def sparse_checks(gp, seed: int, card: str) -> None:
           "card": card})
 
 
+@_uncounted
 def check_sparse_lookup(gp, module, vocab: int, seed: int, card: str) -> dict:
     """Phase 9, on the full-width table: the external lookup through K1 and
     the per-row gradient sum through K1b against their plain versions, at
@@ -1129,6 +1049,7 @@ def run_training(gp, cfg, seed: int, check_fall: bool = True, trainer=None,
     }
 
 
+@_uncounted
 def profile_train(cfg, batch_size: int, seed: int, iters: int = 20) -> dict:
     """Phases 8 and 10: ``torch.profiler`` over ``iters`` train steps on one
     device batch (a sparse run's deduped on the host, with its count): wall
@@ -1994,6 +1915,7 @@ REST_SHAPES = (
 )
 
 
+@_uncounted
 def check_fill_shapes(gp, seed: int, card: str, shapes) -> None:
     """Phase 18, before the timing: K1 and K1b at each of ``shapes`` against
     their plain versions: K1 bitwise (a gather); K1b rtol 1e-5 and atol 1e-6
@@ -2461,6 +2383,7 @@ def _second_order(gp, fn, table, spt, qry, mode: str, lr: float = 1.0):
     return t.grad
 
 
+@_uncounted
 def check_second_order(gp, seed: int, card: str) -> list:
     """Phase 21: ``autograd.grad`` of ``autograd.grad`` through K1 and K1b
     (``_second_order``) against the same through the plain version, at
@@ -2522,35 +2445,29 @@ MT_SHAPES = (
 )
 
 
-def time_multitask_shapes(gp, seed: int, card: str, iters: int = 400) -> list:
-    """Phase 22: K1 and K1b at ``MT_SHAPES``, each first held against its
-    plain version (K1 with one id a row bitwise, a masked pool rtol 1e-5 and
+@_uncounted
+def check_multitask_shapes(gp, seed: int, card: str) -> None:
+    """Phase 22, before the timing: K1 and K1b at ``MT_SHAPES`` against their
+    plain versions: K1 with one id a row bitwise, a masked pool rtol 1e-5 and
     atol 1e-6; K1b rtol 1e-5 and atol 1e-6 times the most adds a row takes,
-    atomics adding in another order), then K1b timed as ``time_fill_shapes``
-    does beside the plain version and one PyTorch call:
-    ``_embedding_bag_backward`` (dense) / ``embedding_dense_backward``.  K1b
-    is timed at the first three shapes (the fourth is a K1 launch only); K1
-    at all four by ``time_k1_shapes``."""
+    atomics adding in another order.  Both are then timed at the same shapes
+    (``time_k1_shapes``, ``time_k1b_shapes``)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    k1b, checks = [], []
+    checks = []
     for name, rows, dim, n, pool, mode in MT_SHAPES:
         table = torch.randn(rows, dim, device="cuda", generator=g)
         mask = (None if pool == 1 else
                 (torch.rand(n, pool, device="cuda", generator=g) < 0.7).float())
-        n_sets = max(4, min(64, math.ceil(50e6 / (n * pool * max(dim, 16) * 4))))
-        sets = [torch.randint(0, rows, (n, pool), device="cuda", generator=g,
-                              dtype=torch.int32) for _ in range(n_sets)]
+        ids = torch.randint(0, rows, (n, pool), device="cuda", generator=g, dtype=torch.int32)
         if mode == "fill_drop":  # a tenth of the ids out of range, as K1b dropped them
-            sets = [torch.where(torch.rand(n, pool, device="cuda", generator=g) < 0.1,
-                                s + rows, s) for s in sets]
+            ids = torch.where(torch.rand(n, pool, device="cuda", generator=g) < 0.1,
+                              ids + rows, ids)
         grad = torch.randn(n, dim, device="cuda", generator=g)
-        flat = {id(s): s.reshape(-1).long() for s in sets}
-        adds = int(torch.bincount(flat[id(sets[0])].clamp(0, rows)).max())
-        # the two kernels against their plain versions on the first id set
-        out = gp.gather_pool(table, sets[0], mask, mode=mode)
-        ref = gp.gather_pool_plain(table, sets[0], mask, mode=mode)
-        dt = gp.gather_pool_bwd(grad, sets[0], mask, rows, mode=mode)
-        dt_ref = gp.gather_pool_bwd_plain(grad, sets[0], mask, rows, mode=mode)
+        adds = int(torch.bincount(ids.reshape(-1).long().clamp(0, rows)).max())
+        out = gp.gather_pool(table, ids, mask, mode=mode)
+        ref = gp.gather_pool_plain(table, ids, mask, mode=mode)
+        dt = gp.gather_pool_bwd(grad, ids, mask, rows, mode=mode)
+        dt_ref = gp.gather_pool_bwd_plain(grad, ids, mask, rows, mode=mode)
         torch.cuda.synchronize()
         k1_ok = (torch.equal(out, ref) if pool == 1
                  else torch.allclose(out, ref, rtol=1e-5, atol=1e-6))
@@ -2564,37 +2481,8 @@ def time_multitask_shapes(gp, seed: int, card: str, iters: int = 400) -> list:
         checks.append(check)
         if not (check["k1_ok"] and check["k1b_ok"]):
             raise AssertionError(f"a kernel disagrees with its plain version: {check}")
-        del out, ref, dt, dt_ref
-        uniq = sum(int(torch.unique(s.clamp(0, rows)).numel()) for s in sets) / len(sets)
-        shape = {"shape": name, "n": n, "pool": pool, "dim": dim, "rows": rows,
-                 "dtype": "float32", "mode": mode, "masked": mask is not None,
-                 "touched_rows": uniq, "most_adds_per_row": adds}
-        if mode == "fill_drop":
-            del table, sets, flat, grad
-            continue
-        fns = {"ms": lambda s: gp.gather_pool_bwd(grad, s, mask, rows, mode=mode),
-               "plain_ms": lambda s: gp.gather_pool_bwd_plain(grad, s, mask, rows, mode=mode)}
-        if mode == "fill":
-            fns["library_ms"] = lambda s: torch.ops.aten.embedding_dense_backward(
-                grad, flat[id(s)], rows, -1, False)
-        else:
-            offsets = torch.arange(0, n * pool, pool, device="cuda")
-            weights = mask.reshape(-1)
-            bags = {id(s): torch.ops.aten._embedding_bag(table, flat[id(s)], offsets, False,
-                                                         0, False, weights, False, -1)[1:]
-                    for s in sets}
-            fns["library_ms"] = lambda s: torch.ops.aten._embedding_bag_backward(
-                grad, flat[id(s)], offsets, *bags[id(s)], rows, False, 0, False, weights, -1)
-        device, call = _timed(fns, sets, iters)
-        # the dense gradient written once, g, ids (and mask) read once
-        nbytes = rows * dim * 4 + n * dim * 4 + n * pool * 4 * (2 if mask is not None else 1)
-        k1b.append({**shape, **device, "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                                                       n * pool * dim / F32_FLOPS) * 1e3,
-                    "bound_by": "bytes", "bytes": nbytes, "zero_fill_bytes": rows * dim * 4,
-                    "call_ms": call})
-        del table, sets, flat, grad
+        del table, ids, grad, out, ref, dt, dt_ref
     emit({"multitask_kernel_checks": checks, "card": card})
-    return k1b
 
 
 # -- K1 at every timed shape (phases 7, 15, 18 and 22; ``--only k1``) -------
@@ -2711,18 +2599,18 @@ def k1_check(gp, table, ids, mask, out_dtype, mode: str, chunk_bytes: float = 1 
     return err, ok, tol if isinstance(tol, str) else {"rtol": tol[0], "atol": tol[1]}
 
 
-def k1_libraries(sources) -> dict:
-    """Build other sources of K1 with the same C interface (a parent
-    commit's ``csrc/gather_pool.cu``, a variant of the current one) with
-    the flags of ``build.py``, one ``nvcc`` each, all at once, into a
-    temporary directory (removed once they are loaded), and load each as
+def kernel_libraries(sources, stem: str) -> dict:
+    """Build other sources of the kernel ``csrc/<stem>.cu`` with the same C
+    interface (a parent commit's, a variant of the current one) with the
+    flags of ``build.py``, one ``nvcc`` each, all at once, into a temporary
+    directory (removed once they are loaded), and load each as
     ``ops/gather_pool.py`` loads its own.  Returns {file name: library}."""
     import ctypes
 
     from paddlerec_tpu_torch.ops import build
     from paddlerec_tpu_torch.ops import gather_pool as gp
 
-    work = tempfile.mkdtemp(prefix="k1_variants_")
+    work = tempfile.mkdtemp(prefix=f"{stem}_variants_")
     procs = {}
     for i, src in enumerate(sources):
         out = os.path.join(work, f"libvariant{i}.so")
@@ -2736,7 +2624,7 @@ def k1_libraries(sources) -> dict:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}:\n{log}")
             lib = libs[name] = ctypes.CDLL(out)
-            for fn, argtypes in gp._ARGTYPES["gather_pool"].items():
+            for fn, argtypes in gp._ARGTYPES[stem].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
             lib.pr_cuda_error_string.argtypes = [ctypes.c_int]
@@ -2758,7 +2646,7 @@ def time_k1_shapes(gp, shapes, seed: int, variants=None) -> list:
     than L2 holds; ``iters`` stays under the launch queue's depth (see
     ``time_launch_floor``) and is cut for outputs of many MB.
 
-    ``variants`` (label -> library from ``k1_libraries``): each is checked the
+    ``variants`` (label -> library from ``kernel_libraries``): each is checked the
     same way and timed in turns with the current kernel (variant, current,
     current, variant) through the same wrapper, so that both run on one
     card in one call."""
@@ -2850,7 +2738,7 @@ def k1_only(gp, seed: int, card: str, against) -> None:
     ``EXTRA_SHAPES``, each
     checked and timed by ``time_k1_shapes`` (against the ``--against``
     sources where given), one JSON line a shape."""
-    variants = k1_libraries(against) if against else {}
+    variants = kernel_libraries(against, "gather_pool") if against else {}
     wide = torch.randn(1000001, FFM_DIM, device="cuda",
                        generator=torch.Generator(device="cuda").manual_seed(seed))
     main_err = check_k1(gp, seed, card, wide)
@@ -2865,6 +2753,259 @@ def k1_only(gp, seed: int, card: str, against) -> None:
     emit({"k1_only": {"shapes": len(rows), "main_path_max_abs_err": main_err,
                       "launch_floor_ms": floor_ms}, "card": card})
 
+
+
+# -- K1b at every timed shape (phases 7, 10, 15, 18 and 22; ``--only k1b``) ----
+class K1bShape(NamedTuple):
+    """One timed gradient of K1 (kernel K1b): g (n, dim) in ``g_dtype``
+    scattered at (n, pool) ids into a dense (rows, dim) dtable in ``dtype``.
+    ``ids`` as ``_k1b_sets``; ``vocab`` bounds uniform ids (0: the table's
+    rows; for ``compact`` the vocabulary deduped on the host, and ``rows``
+    then follows from the ids); ``library`` is the one PyTorch call that
+    computes the same gradient, or None."""
+    name: str
+    rows: int
+    dim: int
+    n: int
+    pool: int = 1
+    mode: str = "clip"
+    ids: str = "uniform"
+    vocab: int = 0
+    g_dtype: str = "float32"
+    dtype: str = "float32"
+    masked: bool = False
+    library: Optional[str] = "embedding_dense_backward"
+
+
+# phase 7: the gradients of MAIN_SHAPES' lookups (DeepFM's view at both
+# batches, its bfloat16 table at the training batch, ffm's unpacked rows,
+# lr's 8-lane view); phase 10: the sparse step's compact (U·8, 16) buffer
+K1B_MAIN_SHAPES = (
+    K1bShape("deepfm view, B=512", 125001 * 8, 16, 512 * SLOTS, vocab=1000001),
+    K1bShape("deepfm view, B=8192", 125001 * 8, 16, 8192 * SLOTS, vocab=1000001),
+    # the bf16 table's lookup gives bf16 rows, and so its gradient
+    K1bShape("deepfm bf16 view, B=8192", 125001 * 8, 16, 8192 * SLOTS, vocab=1000001,
+             g_dtype="bfloat16", dtype="bfloat16"),
+    K1bShape("ffm unpacked rows, B=8192", 1000001, FFM_DIM, 8192 * SLOTS),
+    K1bShape("lr 8-lane view, B=8192", 62501 * 16, 8, 8192 * SLOTS, vocab=1000001),
+)
+K1B_COMPACT_SHAPES = tuple(
+    K1bShape(f"compact (U·8, 16), vocab 10^8, B={b}", 0, 16, b * SLOTS, ids="compact",
+             vocab=100000001) for b in BATCHES)
+# only under --only k1b: ffm's rows with ids at every residue of r·351 mod 4
+# in turn, so that each start of a 1,404-byte row within 16 bytes is taken
+# by a quarter of the ids
+K1B_EXTRA_SHAPES = (
+    K1bShape("ffm unpacked rows, ids at every residue mod 4, B=512", 1000001, FFM_DIM,
+             512 * SLOTS, ids="residues"),
+)
+
+
+def k1b_shapes(group: str) -> tuple:
+    """The K1b rows of a phase: ``main`` (7), ``compact`` (10), ``seq``
+    (15), ``rest`` (18), ``mt`` (22; K1 as K1b's backward is a K1 launch
+    only), ``extra`` (``--only k1b``)."""
+    if group == "main":
+        return K1B_MAIN_SHAPES
+    if group == "compact":
+        return K1B_COMPACT_SHAPES
+    if group == "extra":
+        return K1B_EXTRA_SHAPES
+    if group in ("seq", "rest"):
+        return tuple(K1bShape(name, rows, dim, n, mode="fill", ids=kind)
+                     for name, rows, dim, n, kind in (SEQ_SHAPES if group == "seq"
+                                                      else REST_SHAPES))
+    return tuple(K1bShape(name, rows, dim, n, pool, mode, masked=True,
+                          library="embedding_bag_backward")
+                 for name, rows, dim, n, pool, mode in MT_SHAPES if pool > 1
+                 ) + metaheac_k1b_shapes()
+
+
+def metaheac_k1b_shapes() -> tuple:
+    """K1b at each of metaheac's tables as its steps scatter them (phases 19
+    and 20): a task's ``SEQ_BATCH`` rows a call, every field its own table of
+    ``max_idxs + 1`` rows read in fill mode, a dynamic field's padded span of
+    ids unpooled (N = rows × span); tables of one shape share a case."""
+    from paddlerec_tpu_torch.core.registry import load_model_def
+    from paddlerec_tpu_torch.models.multitask.metaheac.model import DYNAMIC_SPANS
+
+    md = load_model_def(mt_config("metaheac"))
+    fields = collections.defaultdict(list)
+    for group, vocabs, spans in (
+            ("static", md.static_vocabs, [(0, 1)] * len(md.static_vocabs)),
+            ("dynamic", md.dynamic_vocabs, DYNAMIC_SPANS),
+            ("ad", md.ad_vocabs, [(0, 1)] * len(md.ad_vocabs))):
+        for i, (v, (lo, hi)) in enumerate(zip(vocabs, spans)):
+            fields[(v + 1, SEQ_BATCH * (hi - lo))].append(f"{group}_{i}")
+    return tuple(K1bShape(f"metaheac {' + '.join(names)}", rows, md.embed_dim, n,
+                          mode="fill")
+                 for (rows, n), names in sorted(fields.items()))
+
+
+def _k1b_sets(shape: K1bShape, g, rng) -> tuple:
+    """(id sets, rows): (n, pool) int32 ids, ``uniform`` over [0, vocab) in
+    enough distinct sets that a cycle through them touches more rows than
+    L2 holds, ``zeros`` or ``period P`` (one set, as ``_fill_ids``),
+    ``residues`` (uniform, id mod 4 = n mod 4), or ``compact`` (the lane
+    ids of ``host_dedup``'s slots, the rows one buffer of 8·U for all)."""
+    if shape.ids == "zeros" or shape.ids.startswith("period"):
+        return [_fill_ids(shape.ids, shape.rows, shape.n, g)], shape.rows
+    n_sets = max(4, min(64, math.ceil(50e6 / (shape.n * shape.pool * max(shape.dim, 16) * 4))))
+    if shape.ids == "compact":
+        from paddlerec_tpu_torch.ops.sparse_update import host_dedup
+
+        sets, uniqs = [], []
+        for _ in range(n_sets):
+            ids = rng.randint(1, shape.vocab, shape.n).astype(np.int64)
+            uniq, slot = host_dedup(ids, shape.vocab, 8)
+            uniqs.append(int((uniq != np.iinfo(np.int32).max).sum()))
+            lane = slot.astype(np.int64) * 8 + ids % shape.vocab % 8
+            sets.append(torch.from_numpy(lane.astype(np.int32)).cuda()[:, None])
+        return sets, 8 * max(uniqs)
+    sets = []
+    for _ in range(n_sets):
+        ids = torch.randint(0, shape.vocab or shape.rows, (shape.n, shape.pool),
+                            device="cuda", generator=g, dtype=torch.int32)
+        if shape.ids == "residues":
+            quarter = torch.arange(shape.n, device="cuda", dtype=torch.int32)[:, None] % 4
+            ids = (ids // 4) * 4 + quarter
+            ids = torch.where(ids < shape.rows, ids, ids - 4)
+        sets.append(ids)
+    return sets, shape.rows
+
+
+def k1b_check(gp, grad, ids, mask, rows: int, dtype, mode: str):
+    """K1b against ``gather_pool_bwd_plain`` on the same inputs: rtol 1e-5
+    and atol 1e-6 times the most adds any row takes into float32 (atomics
+    add in another order, and a reordered sum's rounding grows with its
+    terms), rtol 1e-2 into bfloat16 (one rounding of the f32 sum).
+    Returns (max_abs_err, ok, tolerance, the most adds a row takes)."""
+    out = gp.gather_pool_bwd(grad, ids, mask, rows, dtype, mode=mode)
+    ref = gp.gather_pool_bwd_plain(grad, ids, mask, rows, dtype, mode=mode)
+    flat = ids.reshape(-1).long()
+    if mode == "fill":
+        flat = torch.where(flat < 0, flat + rows, flat)
+    adds = int(torch.bincount(flat[(flat >= 0) & (flat < rows)], minlength=1).max())
+    tol = (1e-5 if dtype == torch.float32 else 1e-2, 1e-6 * max(1, adds))
+    err = float((out.float() - ref.float()).abs().max())
+    ok = (out.dtype == ref.dtype and out.shape == ref.shape
+          and torch.allclose(out.float(), ref.float(), rtol=tol[0], atol=tol[1]))
+    del out, ref
+    return err, bool(ok), {"rtol": tol[0], "atol": tol[1]}, adds
+
+
+@_uncounted
+def time_k1b_shapes(gp, shapes, seed: int, variants=None) -> list:
+    """K1b at each of ``shapes``: held against its plain version on the first
+    id set (``k1b_check``; it raises on a disagreement), then timed with
+    CUDA events, the host queued ahead, beside the plain version, the
+    library call and ``index_add_`` into zeros (PyTorch's atomic scatter of
+    the same sum, at unmasked L = 1; the port calls neither) and the byte
+    bound of the same work.  ``iters`` stays under the launch queue's depth
+    (see ``time_launch_floor``) and is cut for outputs of many MB.
+
+    ``variants`` (label -> library from ``kernel_libraries``): each is
+    checked the same way and timed in turns with the current kernel
+    (variant, current, current, variant) through the same wrapper."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.RandomState(seed)
+    own = gp._lib("gather_pool_bwd") if variants else None
+    out_rows = []
+    for shape in shapes:
+        g_dtype, dtype = _DTYPES[shape.g_dtype], _DTYPES[shape.dtype]
+        sets, rows = _k1b_sets(shape, g, rng)
+        grad = torch.randn(shape.n, shape.dim, device="cuda", generator=g).to(g_dtype)
+        mask = ((torch.rand(shape.n, shape.pool, device="cuda", generator=g) < 0.7).float()
+                if shape.masked else None)
+        out_es, g_es = (torch.finfo(t).bits // 8 for t in (dtype, g_dtype))
+        out_bytes = rows * shape.dim * out_es
+        iters = max(2 * len(sets), min(300, int(8e9 / out_bytes)))
+        err, ok, tol, adds = k1b_check(gp, grad, sets[0], mask, rows, dtype, shape.mode)
+        row = {**shape._asdict(), "rows": rows, "max_abs_err": err, "ok": ok,
+               "tolerance": tol, "most_adds_per_row": adds}
+        if not ok:
+            raise AssertionError(f"K1b disagrees with its plain version: {row}")
+        for label, lib in (variants or {}).items():
+            gp._LIBS["gather_pool_bwd"] = lib
+            try:
+                v_err, v_ok, _, _ = k1b_check(gp, grad, sets[0], mask, rows, dtype,
+                                              shape.mode)
+            finally:
+                gp._LIBS["gather_pool_bwd"] = own
+            if not v_ok:
+                raise AssertionError(f"K1b {label} disagrees with the plain version at "
+                                     f"{shape.name}: {v_err}")
+        uniq = sum(int(torch.unique(s.clamp(0, rows - 1)).numel()) for s in sets) / len(sets)
+        flat = {id(s): s.reshape(-1).long() for s in sets}
+        fns = {
+            "ms": lambda s: gp.gather_pool_bwd(grad, s, mask, rows, dtype, mode=shape.mode),
+            "plain_ms": lambda s: gp.gather_pool_bwd_plain(grad, s, mask, rows, dtype,
+                                                           mode=shape.mode),
+        }
+        if shape.library == "embedding_dense_backward":
+            fns["library_ms"] = lambda s: torch.ops.aten.embedding_dense_backward(
+                grad, flat[id(s)], rows, -1, False)
+        elif shape.library == "embedding_bag_backward":
+            table = torch.zeros(rows, shape.dim, device="cuda")
+            offsets = torch.arange(0, shape.n * shape.pool, shape.pool, device="cuda")
+            weights = mask.reshape(-1)
+            bags = {id(s): torch.ops.aten._embedding_bag(table, flat[id(s)], offsets, False,
+                                                         0, False, weights, False, -1)[1:]
+                    for s in sets}
+            fns["library_ms"] = lambda s: torch.ops.aten._embedding_bag_backward(
+                grad, flat[id(s)], offsets, *bags[id(s)], rows, False, 0, False, weights, -1)
+            del table
+        if shape.pool == 1 and mask is None and g_dtype == dtype:
+            fns["index_add_ms"] = lambda s: torch.zeros(
+                rows, shape.dim, dtype=dtype, device="cuda").index_add_(0, flat[id(s)], grad)
+        device, call = _timed(fns, sets, iters)
+        device.setdefault("library_ms", None)
+        device.setdefault("index_add_ms", None)
+        if variants:
+            hold = 4 * iters * call["kernel"] + 5
+            kernel = fns["ms"]
+            device["against"] = {}
+            for label, lib in variants.items():
+                times = {"variant": [], "current": []}
+                for who in ("variant", "current", "current", "variant"):
+                    gp._LIBS["gather_pool_bwd"] = lib if who == "variant" else own
+                    try:
+                        times[who].append(time_ms(kernel, sets, iters, hold_ms=hold))
+                    finally:
+                        gp._LIBS["gather_pool_bwd"] = own
+                variant_ms, current_ms = (sum(times[k]) / 2 for k in ("variant", "current"))
+                device["against"][label] = {"ms": variant_ms, "current_ms": current_ms,
+                                            "speedup": variant_ms / current_ms}
+        # the dense gradient written once; g, ids (and mask) read once
+        nbytes = (out_bytes + shape.n * shape.dim * g_es
+                  + shape.n * shape.pool * 4 * (2 if mask is not None else 1))
+        out_rows.append({**row, "touched_rows": uniq, "iters": iters, **device,
+                         "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                         shape.n * shape.pool * shape.dim / F32_FLOPS) * 1e3,
+                         "bound_by": "bytes", "bytes": nbytes, "zero_fill_bytes": out_bytes,
+                         "call_ms": call, "launches": None})
+        del sets, flat, grad, mask, fns
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out_rows
+
+
+def k1b_only(gp, seed: int, card: str, against) -> None:
+    """``--only k1b``: phase 3's K1b checks, then every K1b shape of phases
+    7, 10, 15, 18 and 22 and ``K1B_EXTRA_SHAPES``, each checked and timed by
+    ``time_k1b_shapes`` (against the ``--against`` sources where given), one
+    JSON line a shape."""
+    variants = kernel_libraries(against, "gather_pool_bwd") if against else {}
+    main_err = check_k1b(gp, seed, card)
+    floor_ms = time_launch_floor(gp)
+    shapes = sum((k1b_shapes(group) for group in
+                  ("main", "compact", "seq", "rest", "mt", "extra")), ())
+    rows = time_k1b_shapes(gp, shapes, seed + 9, variants)
+    set_share(rows, floor_ms)
+    for row in rows:
+        emit({"k1b": row, "card": card})
+    emit({"k1b_only": {"shapes": len(rows), "main_path_max_abs_err": main_err,
+                       "launch_floor_ms": floor_ms}, "card": card})
 
 def profile_forward(model_def, module, batch_size: int, iters: int = 20) -> dict:
     """Phase 8: ``torch.profiler`` over ``iters`` DeepFM forwards at one
@@ -2903,15 +3044,16 @@ def profile_forward(model_def, module, batch_size: int, iters: int = 20) -> dict
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("k1",),
-                        help="k1: phases 1-2, K1's checks of phase 3, then K1 checked "
-                             "and timed at every shape (default: every phase)")
+    parser.add_argument("--only", choices=("k1", "k1b"),
+                        help="k1 (k1b): phases 1-2, K1's (K1b's) checks of phase 3, then "
+                             "that kernel checked and timed at every shape (default: "
+                             "every phase)")
     parser.add_argument("--against", action="append", default=[], metavar="SOURCE.cu",
-                        help="with --only k1: another source of K1 with the same C "
+                        help="with --only: another source of that kernel with the same C "
                              "interface, built and timed in turns with the current one")
     args = parser.parse_args(argv)
-    if args.against and args.only != "k1":
-        parser.error("--against needs --only k1")
+    if args.against and not args.only:
+        parser.error("--against needs --only k1 or --only k1b")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2934,8 +3076,8 @@ def main(argv=None) -> int:
     libs = build.build()
     emit({"build": {k: os.path.relpath(v, ROOT) for k, v in libs.items()},
           "seconds": time.perf_counter() - t0, "card": card})
-    if args.only == "k1":
-        k1_only(gp, args.seed, card, args.against)
+    if args.only:
+        (k1_only if args.only == "k1" else k1b_only)(gp, args.seed, card, args.against)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -2947,6 +3089,7 @@ def main(argv=None) -> int:
     main_err = check_k1(gp, args.seed, card, wide)  # phase 3
     bwd_err = check_k1b(gp, args.seed, card)
     sparse_checks(gp, args.seed, card)  # phase 9, the part at small size
+    gp.gather_pool_bwd.launches_by_shape.clear()  # from here: the main path's K1b launches
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:  # phase 4
@@ -3021,17 +3164,14 @@ def main(argv=None) -> int:
         train_runs["bf16"] = run_training(gp, bf16_cfg, args.seed, check_fall=False)
         emit({"train": train_runs["bf16"], "card": card})
 
-        table = service.module.embedding.embedding.detach()  # phase 7
-        # DeepFM's view at both batches; the zoo's shapes at the training
-        # batch: ffm's unpacked rows, and the 8-lane view of a width-1 table
-        # (lr, ffm's first_weight); config_bigdata.yaml's bf16 view
+        # phase 7: DeepFM's view at both batches; the zoo's shapes at the
+        # training batch: ffm's unpacked rows, and the 8-lane view of a
+        # width-1 table (lr, ffm's first_weight); config_bigdata.yaml's bf16
+        # view (K1); DeepFM's bf16 table (K1b)
         main_cases = time_k1_shapes(gp, k1_shapes("main"), args.seed + 1)
         cases, zoo_cases, big_cases = main_cases[:2], main_cases[2:4], main_cases[4:]
-        bwd_cases = time_k1b(gp, args.seed, vocab, table.view(-1, 16).shape[0])
-        one = BATCHES[-1:]
-        zoo_bwd_cases = (
-            time_k1b(gp, args.seed, vocab, wide.shape[0], FFM_DIM, one, 5, "ffm")
-            + time_k1b(gp, args.seed, vocab, 62501 * 16, 8, one, shape="lr"))
+        main_bwd = time_k1b_shapes(gp, k1b_shapes("main"), args.seed + 3)
+        bwd_cases, bf16_bwd_cases, zoo_bwd_cases = main_bwd[:2], main_bwd[2:3], main_bwd[3:]
         del wide
         for batch in BATCHES:  # phase 8
             emit({"profile": profile_forward(service.model_def, service.module, batch),
@@ -3040,7 +3180,7 @@ def main(argv=None) -> int:
             emit({"profile_train": profile_train(train_cfgs[batch], batch, args.seed),
                   "card": card})
         floor_ms = time_launch_floor(gp)
-        del service, table
+        del service
         sparse = train_sparse(gp, work, args.seed, card)  # phase 9
         from paddlerec_tpu_torch.core.config import Config  # phase 10
         bigdata = load_config(BIGDATA.format("deepfm")).to_dict()
@@ -3052,7 +3192,7 @@ def main(argv=None) -> int:
                   "card": card})
         big_vocab = int(bigdata["hyper_parameters.sparse_feature_number"])
         emit({"time_dedup": time_dedup(args.seed, (big_vocab, vocab)), "card": card})
-        compact_cases = time_k1b_compact(gp, args.seed, big_vocab)
+        compact_cases = time_k1b_shapes(gp, k1b_shapes("compact"), args.seed + 5)
         gc.collect()
         torch.cuda.empty_cache()
         zoo = ctr_zoo(gp, args.seed, card)  # phase 11
@@ -3066,28 +3206,32 @@ def main(argv=None) -> int:
         seq = twin_zoo(gp, args.seed, card, SEQ, "seq_zoo")  # phase 13
         seq_runs = seq_paths(gp, work, args.seed, card)  # phase 14
         seq_cases = time_k1_shapes(gp, k1_shapes("seq"), args.seed + 13)  # phase 15
-        seq_bwd_cases = time_fill_shapes(gp, args.seed + 13, SEQ_SHAPES)
+        seq_bwd_cases = time_k1b_shapes(gp, k1b_shapes("seq"), args.seed + 13)
         gc.collect()
         torch.cuda.empty_cache()
         rest = twin_zoo(gp, args.seed, card, REST, "rank_rest_zoo")  # phase 16
         rest_runs = rank_rest_paths(gp, work, args.seed, card)  # phase 17
         check_fill_shapes(gp, args.seed + 18, card, REST_SHAPES)  # phase 18
         rest_cases = time_k1_shapes(gp, k1_shapes("rest"), args.seed + 18)
-        rest_bwd_cases = time_fill_shapes(gp, args.seed + 18, REST_SHAPES)
+        rest_bwd_cases = time_k1b_shapes(gp, k1b_shapes("rest"), args.seed + 18)
         gc.collect()
         torch.cuda.empty_cache()
         mt = multitask_zoo(gp, args.seed, card)  # phase 19
         mt_runs = multitask_paths(gp, work, args.seed, card)  # phase 20
         check_second_order(gp, args.seed + 21, card)  # phase 21
-        mt_bwd_cases = time_multitask_shapes(gp, args.seed + 22, card)  # phase 22
+        check_multitask_shapes(gp, args.seed + 22, card)  # phase 22
         mt_cases = time_k1_shapes(gp, k1_shapes("mt"), args.seed + 22)
+        mt_bwd_cases = time_k1b_shapes(gp, k1b_shapes("mt"), args.seed + 22)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for case, batch in zip(cases, BATCHES):
         case["launches"] = launches[batch]
+    # K1b's rows also carry their count by run (DeepFM's runs, the sparse
+    # deepfm run) or by row width (the rest), each of which must be above 0
     for case, batch in zip(bwd_cases, BATCHES):
-        case["launches"] = train_runs[batch]["k1b_launches"]
-    compact_cases[-1]["launches"] = sparse["runs"]["deepfm"]["k1b_launches"]
+        case["launches_at_width"] = train_runs[batch]["k1b_launches"]
+    bf16_bwd_cases[0]["launches_at_width"] = train_runs["bf16"]["k1b_launches"]
+    compact_cases[-1]["launches_at_width"] = sparse["runs"]["deepfm"]["k1b_launches"]
     # the bf16 view's lookups: the config_bigdata.yaml runs' steps and evaluations
     big_cases[0]["launches"] = sum(r["k1_launches"] + r["eval"]["k1_launches"]
                                    for r in sparse["runs"].values())
@@ -3098,29 +3242,36 @@ def main(argv=None) -> int:
     for case in zoo_cases:
         case["launches"] = ffm_run["k1_launches_by_dim"].get(case["dim"], 0)
     for case in zoo_bwd_cases:
-        case["launches"] = ffm_run["k1b_launches_by_dim"].get(case["dim"], 0)
-    if not all(case["launches"] > 0 for case in zoo_cases + zoo_bwd_cases):
+        case["launches_at_width"] = ffm_run["k1b_launches_by_dim"].get(case["dim"], 0)
+    if not all(case["launches"] > 0 for case in zoo_cases) or not all(
+            case["launches_at_width"] > 0 for case in zoo_bwd_cases):
         raise AssertionError(f"ffm's run launched no kernel at a zoo shape: "
                              f"{ffm_run['k1_launches_by_dim']}")
     # the sequence models' phases 13 and 14, counted by row width at the launch
-    for cases_at, key in ((seq_cases, "k1_by_dim"), (seq_bwd_cases, "k1b_by_dim")):
+    for cases_at, key, field in ((seq_cases, "k1_by_dim", "launches"),
+                                 (seq_bwd_cases, "k1b_by_dim", "launches_at_width")):
         for case in cases_at:
-            case["launches"] = seq[key].get(case["dim"], 0) + seq_runs[key].get(case["dim"], 0)
-    if not all(case["launches"] > 0 for case in seq_cases + seq_bwd_cases):
+            case[field] = seq[key].get(case["dim"], 0) + seq_runs[key].get(case["dim"], 0)
+    if not all(case["launches"] > 0 for case in seq_cases) or not all(
+            case["launches_at_width"] > 0 for case in seq_bwd_cases):
         raise AssertionError(f"the sequence models launched no kernel at a shape: "
                              f"{seq['k1_by_dim']} {seq_runs['k1_by_dim']}")
     # the rest of the rank family's phases 16 and 17, counted the same way
-    for cases_at, key in ((rest_cases, "k1_by_dim"), (rest_bwd_cases, "k1b_by_dim")):
+    for cases_at, key, field in ((rest_cases, "k1_by_dim", "launches"),
+                                 (rest_bwd_cases, "k1b_by_dim", "launches_at_width")):
         for case in cases_at:
-            case["launches"] = rest[key].get(case["dim"], 0) + rest_runs[key].get(case["dim"], 0)
-    if not all(case["launches"] > 0 for case in rest_cases + rest_bwd_cases):
+            case[field] = rest[key].get(case["dim"], 0) + rest_runs[key].get(case["dim"], 0)
+    if not all(case["launches"] > 0 for case in rest_cases) or not all(
+            case["launches_at_width"] > 0 for case in rest_bwd_cases):
         raise AssertionError(f"the rank family launched no kernel at a shape: "
                              f"{rest['k1_by_dim']} {rest_runs['k1_by_dim']}")
     # the multitask family's phases 19 and 20, counted the same way
-    for cases_at, key in ((mt_cases, "k1_by_dim"), (mt_bwd_cases, "k1b_by_dim")):
+    for cases_at, key, field in ((mt_cases, "k1_by_dim", "launches"),
+                                 (mt_bwd_cases, "k1b_by_dim", "launches_at_width")):
         for case in cases_at:
-            case["launches"] = mt[key].get(case["dim"], 0) + mt_runs[key].get(case["dim"], 0)
-    if not all(case["launches"] > 0 for case in mt_cases + mt_bwd_cases):
+            case[field] = mt[key].get(case["dim"], 0) + mt_runs[key].get(case["dim"], 0)
+    if not all(case["launches"] > 0 for case in mt_cases) or not all(
+            case["launches_at_width"] > 0 for case in mt_bwd_cases):
         raise AssertionError(f"the multitask family launched no kernel at a shape: "
                              f"{mt['k1_by_dim']} {mt_runs['k1_by_dim']}")
     all_runs = list(train_runs.values()) + list(sparse["runs"].values())
@@ -3136,6 +3287,28 @@ def main(argv=None) -> int:
                     + mt_runs["k1b"])
     if k1_launches < 1 or k1b_launches < 1:
         raise AssertionError("the main path launched a kernel no time")
+    # K1b's launches per timed shape, from the whole run: those of the shape's
+    # own (rows, D, dtable dtype, N); a compact buffer's rows follow each
+    # batch's unique ids, so the compact rows take every key of their (D,
+    # dtable dtype, N) that no dense shape names
+    by_shape = gp.gather_pool_bwd.launches_by_shape
+    if sum(by_shape.values()) != k1b_launches:
+        raise AssertionError(f"K1b launches by shape sum to {sum(by_shape.values())}, "
+                             f"the run counted {k1b_launches}")
+    emit({"k1b_launches_by_shape": sorted([*k, v] for k, v in by_shape.items()),
+          "card": card})
+    bwd_all = (bwd_cases + bf16_bwd_cases + zoo_bwd_cases + compact_cases + seq_bwd_cases
+               + rest_bwd_cases + mt_bwd_cases)
+    dense = {(c["rows"], c["dim"], c["dtype"], c["n"]) for c in bwd_all
+             if c["ids"] != "compact"}
+    for case in bwd_all:
+        key = (case["rows"], case["dim"], case["dtype"], case["n"])
+        case["launches"] = (by_shape.get(key, 0) if case["ids"] != "compact" else
+                            sum(v for k, v in by_shape.items()
+                                if k[1:] == key[1:] and k not in dense))
+        # card time lost to the floor a run: launches × (ms − max(bound, floor))
+        case["lost_ms"] = case["launches"] * max(
+            0.0, case["ms"] - max(case["bound_ms"], floor_ms))
     kernels = []
     for name, source, replaces, count, err, timed, top in (
         ("gather_pool", "paddlerec_tpu_torch/csrc/gather_pool.cu",
@@ -3147,8 +3320,7 @@ def main(argv=None) -> int:
         ("gather_pool_bwd", "paddlerec_tpu_torch/csrc/gather_pool_bwd.cu",
          "paddlerec_tpu/ops/packed_embedding.py:94", k1b_launches,
          max(bwd_err, sparse["lookup"]["k1b_err"]),
-         bwd_cases + zoo_bwd_cases + compact_cases + seq_bwd_cases + rest_bwd_cases
-         + mt_bwd_cases, compact_cases[-1]),
+         bwd_all, compact_cases[-1]),
     ):
         # the headline numbers (top) are those of the training batch, 8192, at
         # DeepFM's shape (K1b: at the sparse step's compact shape,

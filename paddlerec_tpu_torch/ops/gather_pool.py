@@ -22,7 +22,8 @@ been redesigned for Hopper since its first port; its source says how.
 autograd derives the gradient.  For a CUDA tensor it launches K1, and K1b in
 the backward pass, or raises; ``gather_pool.launches`` and
 ``gather_pool_bwd.launches`` count the launches (``launches_by_dim`` of each
-counts the same launches by row width D).
+counts the same launches by row width D, and ``gather_pool_bwd.launches_by_shape``
+by (rows, D, dtable dtype, N)).
 
 Both are twice differentiable on the card, as the plain version is on the
 CPU: the meta-gradients of maml and metaheac differentiate through an inner
@@ -258,6 +259,7 @@ def _gather_pool_bwd_cuda(g: torch.Tensor, ids: torch.Tensor,
     _check_launch(lib, rc, "gather_pool_bwd")
     gather_pool_bwd.launches += 1
     gather_pool_bwd.launches_by_dim[dim] += 1
+    gather_pool_bwd.launches_by_shape[(rows, dim, str(dtype)[6:], n)] += 1
     return dtable
 
 
@@ -363,3 +365,5 @@ gather_pool_bwd.launches = 0
 # the same launches by row width D, counted at the same two places
 gather_pool.launches_by_dim = collections.Counter()
 gather_pool_bwd.launches_by_dim = collections.Counter()
+# K1b's launches by (rows, D, dtable dtype as "float32"/"bfloat16", N)
+gather_pool_bwd.launches_by_shape = collections.Counter()

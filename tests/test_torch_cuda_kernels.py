@@ -390,3 +390,92 @@ def test_second_order_through_the_kernels_matches_plain(cuda, mode, pool):
     assert torch.isfinite(got).all()
     # atomics add in another order, and the second order sums those sums again
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# K1b's paths, each reached by one pattern (rows, D, N, L, ids, mode): the
+# sorted one (a table of at most 4,096 rows taking 256 adds a row, or D·N·L
+# of 2^20), the scatter's three layouts (16-byte, a peeled 351-lane row, one
+# element a thread), the fill's two grids, and a dtable in bfloat16 on each
+K1B_PATHS = {
+    "sorted, every id equal": (2, 64, 1600, 1, "zeros", "clip"),
+    "sorted, periodic ids 0..29, D=400": (256, 400, 4800, 1, "period 30", "clip"),
+    "sorted, 102 rows, D=30, L=3": (102, 30, 12000, 3, "uniform", "clip"),
+    "sorted, unique ids": (4096, 256, 4096, 1, "unique", "clip"),
+    "one element a thread, 102 rows, D=30, ~230 adds a row": (102, 30, 23460, 1, "uniform",
+                                                              "clip"),
+    "peeled, 351 lanes at every residue mod 4": (5000, 351, 4096, 1, "residues", "clip"),
+    "16-byte, fill mode, wrapped ids": (50000, 8, 4096, 1, "wrapped", "fill"),
+    "one element a thread, D=1, fill mode": (63001, 1, 32, 1, "wrapped", "fill"),
+    "full fill grid": (2200000, 4, 1000, 1, "uniform", "clip"),
+}
+
+
+def _k1b_path_ids(rng, rows, n, pool, kind):
+    if kind == "zeros":
+        return np.zeros((n, pool), np.int32)
+    if kind.startswith("period"):
+        return (np.arange(n * pool) % int(kind.split()[1])).reshape(n, pool).astype(np.int32)
+    if kind == "unique":
+        return rng.permutation(rows)[:n * pool].reshape(n, pool).astype(np.int32)
+    if kind == "residues":
+        return (rng.randint(0, rows // 4, (n, pool)) * 4
+                + np.arange(n * pool).reshape(n, pool) % 4).astype(np.int32)
+    if kind == "wrapped":  # -rows..rows-1, and a few beyond: dropped
+        ids = rng.randint(-rows, rows, (n, pool)).astype(np.int32)
+        ids[:4, 0] = [-rows - 1, rows, 3 * rows, -3 * rows]
+        return ids
+    return rng.randint(0, rows, (n, pool)).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_dtype,dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("name", sorted(K1B_PATHS))
+def test_gather_pool_bwd_kernel_paths(cuda, name, g_dtype, dtype):
+    """Each path of K1b against the plain version, with a mask and without:
+    rtol 1e-5 (1e-2 into bfloat16: one rounding of the f32 sum) and atol 1e-6
+    times the most adds a row takes (atomics add in another order); bitwise
+    where every row takes at most one add."""
+    rows, dim, n, pool, kind, mode = K1B_PATHS[name]
+    rng = np.random.RandomState(sorted(K1B_PATHS).index(name))
+    ids = _k1b_path_ids(rng, rows, n, pool, kind)
+    flat = ids.reshape(-1).astype(np.int64)
+    if mode == "fill":
+        flat = np.where(flat < 0, flat + rows, flat)
+    adds = int(np.bincount(flat[(flat >= 0) & (flat < rows)]).max())
+    g = torch.from_numpy(rng.randn(n, dim).astype(np.float32)).to(cuda, g_dtype)
+    ids = torch.from_numpy(ids).to(cuda)
+    mask = torch.from_numpy(rng.rand(n, pool).astype(np.float32)).to(cuda)
+    for m in (None, mask):
+        before = gather_pool_bwd.launches
+        out = gather_pool_bwd(g, ids, m, rows, dtype, mode=mode)
+        torch.cuda.synchronize()
+        assert gather_pool_bwd.launches == before + 1
+        ref = gather_pool_bwd_plain(g, ids, m, rows, dtype, mode=mode)
+        assert out.dtype == dtype and out.shape == (rows, dim)
+        if adds == 1:
+            assert torch.equal(out, ref), name
+        else:
+            rtol = 1e-5 if dtype == torch.float32 else 1e-2
+            torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-6 * adds,
+                                       msg=name)
+
+
+@pytest.mark.cuda
+def test_gather_pool_bwd_bf16_dtable_with_many_adds_a_row(cuda):
+    """A bfloat16 dtable with 100+ adds a row through the sorted path and the
+    scatter alike: each contribution rounded to bfloat16, summed in float32
+    and rounded once, as the plain version (rtol 1e-2: one rounding)."""
+    rng = np.random.RandomState(7)
+    # 300 adds a row into 20 rows: the sorted path; 120 into 5,000: the
+    # scatter into the scratch
+    for rows, per_row in ((20, 300), (5000, 120)):
+        ids = rng.randint(0, rows, (per_row * rows, 1)).astype(np.int32)
+        g = torch.from_numpy(rng.randn(ids.shape[0], 16).astype(np.float32)).to(cuda)
+        ids = torch.from_numpy(ids).to(cuda)
+        out = gather_pool_bwd(g, ids, None, rows, torch.bfloat16)
+        ref = gather_pool_bwd_plain(g, ids, None, rows, torch.bfloat16)
+        adds = int(torch.bincount(ids.reshape(-1).long()).max())
+        assert out.dtype == torch.bfloat16 and adds >= 100
+        torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-6 * adds)
