@@ -11,11 +11,11 @@ and the CUDA toolkit:
 Phases, in order; any failure is fatal and the script exits non-zero
 without a result line.  ``--only k1`` runs phases 1 and 2, K1's checks of
 phase 3, and then K1 alone, checked against its plain version and timed at
-every shape of phases 7, 15, 18 and 22 and at an output of more than 2^31
+every shape of phases 7, 15, 18, 22 and 25 and at an output of more than 2^31
 elements (``k1_only``; a minute or two).  ``--only k1b`` does the same for
 K1b: phases 1 and 2, K1b's checks of phase 3, then K1b checked against its
-plain version and timed at every shape of phases 7, 10, 15, 18 and 22 and
-at ffm's rows under ids of every residue mod 4 (``k1b_only``).  Each
+plain version and timed at every shape of phases 7, 10, 15, 18, 22 and 25
+and at ffm's rows under ids of every residue mod 4 (``k1b_only``).  Each
 ``--against`` source (another ``csrc/gather_pool.cu``, or
 ``csrc/gather_pool_bwd.cu``, with the same C interface, a parent commit's
 say) is built beside it and timed in turns with it at every shape.
@@ -135,7 +135,28 @@ say) is built beside it and timed in turns with it at every shape.
 22. K1 and K1b at the multitask family's shapes (the Ali-CCP view under a
     masked L = 3 pool at batch 32 and 1024, ``dynamic_3`` in fill mode, and
     K1 as K1b's backward), each held against its plain version, then timed;
-    K1b also at each of metaheac's tables as its steps scatter them.
+    K1b also at each of metaheac's tables as its steps scatter them;
+23. the match, content-understanding and recall models (match.dssm,
+    match.multiview_simnet, match.match_pyramid, match.kim,
+    contentunderstanding.textcnn, contentunderstanding.tagspace, recall.ncf,
+    recall.word2vec): each model's ``configs/<family>/<model>/config.yaml``
+    at the ModelDef's default widths, card against a CPU twin from one seed
+    (tables that start at zero filled from it), one forward and three
+    train steps at batch 32 (atol 1e-5), one K1 launch per ``Embed`` table
+    and forward and one K1b per table and step (dssm 0, multiview_simnet 1,
+    match_pyramid 1, kim 1, textcnn 1, tagspace 2, ncf 4, word2vec 3);
+24. each of them through ``Trainer.train()`` for two epochs and
+    ``evaluate()`` on rows in its reader's format with a planted signal (the
+    loss falling, ``pnr``/``auc`` above 0.5); match_pyramid, textcnn and
+    tagspace exported and served at batch 32 and 1024 and kim at batch 32,
+    card against CPU; ``cal_pos_neg`` on match_pyramid's served scores;
+    word2vec's checkpoint through ``tools.analogy_eval`` on the card and on
+    the CPU; ``torch.profiler`` over a kim and a tagspace step;
+25. K1 and K1b at the shapes of phases 23 and 24 (``MATCH_SHAPES``: rows of
+    50, 10, 300 and 128 lanes, the 4-row tag table and kim's 1,891-row word
+    table under ~50,000 ids, multiview's masked bags of L = 8), each held
+    against its plain version, then timed; every K1 and K1b launch of phases
+    23 and 24 is at one of them.
 
 K1b's ``launches`` in the ``kernels`` line are those of each case's own
 (rows, D, dtable dtype, N) over the main path (a case the main path does
@@ -213,19 +234,22 @@ def card_line() -> str:
 
 
 def _uncounted(fn):
-    """K1b's launches inside ``fn`` (a check against the plain version, a
-    timing, a profile) stay out of ``gather_pool_bwd.launches_by_shape``,
-    which counts the launches of the main path over the whole run."""
+    """The launches inside ``fn`` (a check against the plain version, a
+    timing, a profile) stay out of ``gather_pool.launches_by_shape`` and
+    ``gather_pool_bwd.launches_by_shape``, which count the launches of the
+    main path."""
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
-        from paddlerec_tpu_torch.ops.gather_pool import gather_pool_bwd
+        from paddlerec_tpu_torch.ops.gather_pool import gather_pool, gather_pool_bwd
 
-        saved = collections.Counter(gather_pool_bwd.launches_by_shape)
+        saved = [(c, collections.Counter(c)) for c in (gather_pool.launches_by_shape,
+                                                       gather_pool_bwd.launches_by_shape)]
         try:
             return fn(*args, **kwargs)
         finally:
-            gather_pool_bwd.launches_by_shape.clear()
-            gather_pool_bwd.launches_by_shape.update(saved)
+            for counter, before in saved:
+                counter.clear()
+                counter.update(before)
     return wrapper
 
 
@@ -1399,45 +1423,70 @@ def _same_noise(model_def, trainer, seed: int) -> None:
     model_def.draw_noise = draw
 
 
+# the aux entry a forward is compared on: the predictions, deeprec's
+# reconstruction, the positive's similarity or logit of the match models
+TWIN_KEYS = ("predictions", "outputs", "sim_pos", "pos_sim", "pos_logit")
+
+
 def _twin_output(model_def, module, batch) -> np.ndarray:
-    """What a forward is compared on: the predictions, deeprec's
-    reconstruction, bert4rec's logits (its aux holds only 0/1 flags), both
-    of sign's clipped outputs (its predictions are the second alone)."""
+    """What a forward is compared on: the first of ``TWIN_KEYS`` in the
+    aux, bert4rec's logits (its aux holds only 0/1 flags), both of sign's
+    clipped outputs (its predictions are the second alone)."""
     with torch.no_grad():
         if model_def.registry_name == "rank.bert4rec":
             return module(*model_def.model_inputs(batch)).cpu().numpy()
         if model_def.registry_name == "rank.sign":
             return module(*model_def.model_inputs(batch))[0].cpu().numpy()
         aux = model_def.infer_forward(module, batch)
-    return aux.get("predictions", aux.get("outputs")).cpu().numpy()
+    return next(aux[k] for k in TWIN_KEYS if k in aux).cpu().numpy()
 
 
-def twin_zoo(gp, seed: int, card: str, models, name: str) -> dict:
-    """Phases 13 and 16: each of ``models`` at the full width of its config,
-    batch 32: a module on the card and its twin on the CPU from one seed, one
-    forward and three train steps on four of the model's example batches (a
-    stochastic model's noise the same on both); outputs (``_twin_output``)
-    and losses card against CPU (atol 1e-5); K1 launches per forward = the
-    model's ``Embed`` tables (for the rank family's rest, as many as
-    ``REST_TABLES`` says), K1b launches per step the same, both counted by
-    row width.  Emits one line under ``name``."""
+def _fill_zero_tables(module, seed: int) -> None:
+    """Tables that start at zero (din's item bias, word2vec's output table
+    and bias) get a seeded normal(0.1), so that the first forward compares
+    more than 0."""
+    from paddlerec_tpu_torch.ops.embedding import Embed
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, Embed) and not m.embedding.any():
+                m.embedding.normal_(0.0, 0.1, generator=g)
+
+
+def twin_zoo(gp, seed: int, card: str, models, name: str, config=None,
+             expect_tables=None) -> dict:
+    """Phases 13, 16 and 23: each of ``models`` at the full width of its
+    config (``config(model)``, by default ``zoo_config``), batch 32: a module
+    on the card and its twin on the CPU from one seed (tables that start at
+    zero filled: ``_fill_zero_tables``), one forward and three train steps on
+    four of the model's example batches (a stochastic model's noise the same
+    on both); outputs (``_twin_output``) and losses card against CPU (atol
+    1e-5); K1 launches per forward = the model's ``Embed`` tables (as many
+    as ``expect_tables`` says where it names the model: ``REST_TABLES`` by
+    default), K1b launches per step the same, both counted by row width.
+    Emits one line under ``name``."""
     from paddlerec_tpu_torch.core.device import to_tensors
     from paddlerec_tpu_torch.train.trainer import Trainer
 
+    config = config or zoo_config
+    expect_tables = REST_TABLES if expect_tables is None else expect_tables
     results, failed = [], []
     totals = {"k1": 0, "k1b": 0, "k1_by_dim": {}, "k1b_by_dim": {}}
     for model in models:
-        cfg = zoo_config(model)
+        cfg = config(model)
         t0 = time.perf_counter()
         host = Trainer(cfg, device="cpu")
         host.init_state(seed=seed)
+        _fill_zero_tables(host.state.module, seed)
         chip = Trainer(cfg)
         chip.init_state(seed=seed)
         chip.state.module.load_state_dict(host.state.module.state_dict())
         widths = seq_tables(chip.state.module)
         tables = sum(widths.values())
-        if tables != REST_TABLES.get(model, tables):
-            raise AssertionError(f"{model}: {dict(widths)} tables, not {REST_TABLES[model]}")
+        if tables != expect_tables.get(model, tables):
+            raise AssertionError(f"{model}: {dict(widths)} tables, "
+                                 f"not {expect_tables[model]}")
         if host.stochastic:
             for trainer in (host, chip):
                 _same_noise(trainer.model_def, trainer, seed + 16)
@@ -2485,7 +2534,435 @@ def check_multitask_shapes(gp, seed: int, card: str) -> None:
     emit({"multitask_kernel_checks": checks, "card": card})
 
 
-# -- K1 at every timed shape (phases 7, 15, 18 and 22; ``--only k1``) -------
+# -- the match, content-understanding and recall models (phases 23-25) -------
+MATCH = ("match.dssm", "match.multiview_simnet", "match.match_pyramid", "match.kim",
+         "contentunderstanding.textcnn", "contentunderstanding.tagspace", "recall.ncf",
+         "recall.word2vec")
+# K1 launches per forward and K1b per step: one per Embed table (multiview's
+# two views in one pooled launch, tagspace's tags and word2vec's output tables
+# read for the positive and the negatives at once, kim's clicked and candidate
+# titles in one launch)
+MATCH_TABLES = {"match.dssm": 0, "match.multiview_simnet": 1, "match.match_pyramid": 1,
+                "match.kim": 1, "contentunderstanding.textcnn": 1,
+                "contentunderstanding.tagspace": 2, "recall.ncf": 4, "recall.word2vec": 3}
+MATCH_STEPS = 50  # steps an epoch at the configs' batch 32
+KIM_STEPS = 12  # kim's: a batch of 32 carries 64 MB of one-hop entity vectors
+W2V_SENTENCES = 120  # word2vec's sentences: about 280 windows of 32 pairs an epoch
+MATCH_SERVED = ("match.match_pyramid", "contentunderstanding.textcnn",
+                "contentunderstanding.tagspace")  # served at batch 32 and 1024
+KIM_SERVE_BATCHES = 11  # kim served at batch 32: a warm-up and ten timed
+KIM_TWIN_ROWS = 64  # the served kim rows its CPU twin predicts too
+
+
+def slice_config(model: str, **extra):
+    """The config of a model of phases 23-25 (``configs/<family>/<name>/
+    config.yaml``), with ``extra`` flat keys."""
+    from paddlerec_tpu_torch.core.config import Config, load_config
+
+    family, name = model.split(".")
+    cfg = load_config(os.path.join(ROOT, "configs", family, name, "config.yaml"))
+    return Config({**cfg.to_dict(), **extra}) if extra else cfg
+
+
+def _bits(v: np.ndarray) -> str:
+    """A 0/1 vector as comma-separated digits."""
+    buf = np.full(2 * len(v) - 1, ord(","), np.uint8)
+    buf[0::2] = v.astype(np.uint8) + ord("0")
+    return buf.tobytes().decode()
+
+
+def _ids(a) -> str:
+    return " ".join(map(str, a))
+
+
+def write_dssm_data(data_dir: str, rows: int, seed: int, md) -> None:
+    """``DSSMDataset`` rows at ``trigram_d`` with a planted signal: 20 topics
+    of 100 trigrams; the query and the positive take 15 trigrams of one
+    topic, each negative 15 of another, every vector 5 more anywhere."""
+    rng = np.random.RandomState(seed)
+    d, topics = md.trigram_d, 20
+
+    def vec(t):
+        v = np.zeros(d, np.uint8)
+        v[t * 100 + rng.choice(100, 15, replace=False)] = 1
+        v[rng.randint(0, d, 5)] = 1
+        return _bits(v)
+
+    lines = []
+    for _ in range(rows):
+        t = rng.randint(topics)
+        negs = [vec((t + rng.randint(1, topics)) % topics) for _ in range(md.neg_num)]
+        lines.append("\t".join([vec(t), vec(t)] + negs))
+    _write_lines(data_dir, lines)
+
+
+def write_multiview_data(data_dir: str, rows: int, seed: int, md) -> None:
+    """``MultiviewDataset`` rows: each slot 3 to ``max_len`` words of one of
+    50 topics (200 words each); consecutive rows take different topics, so
+    that the in-batch negative, the previous row's title, is off topic."""
+    rng = np.random.RandomState(seed)
+
+    def slot(topic):
+        return _ids(topic * 200 + rng.randint(0, 200, rng.randint(3, md.max_len + 1)))
+
+    lines, topic = [], 0
+    for _ in range(rows):
+        topic = (topic + rng.randint(1, 50)) % 50
+        lines.append(";".join(slot(topic) for _ in range(md.query_slots)) + "\t"
+                     + ";".join(slot(topic) for _ in range(md.title_slots)))
+    _write_lines(data_dir, lines)
+
+
+def write_match_pyramid_data(data_dir: str, rows: int, seed: int, md) -> None:
+    """``MatchPyramidDataset`` rows in pairs over one left text (20,000
+    words): the first, label 1, has a right text of which a third of the
+    words are the left's; the second, label 0, a right text of other words.
+    Row i belongs to query i // 2."""
+    rng = np.random.RandomState(seed)
+    lines = []
+    for i in range(rows):
+        if i % 2 == 0:
+            left = rng.randint(0, 20000, md.left_size)
+        right = rng.randint(0, 20000, md.right_size)
+        if i % 2 == 0:
+            take = rng.rand(md.right_size) < 1 / 3
+            right[take] = left[rng.randint(0, md.left_size, int(take.sum()))]
+        lines.append(f"{','.join(map(str, left))}\t{','.join(map(str, right))}\t{1 - i % 2}")
+    _write_lines(data_dir, lines)
+
+
+def write_kim_data(data_dir: str, rows: int, seed: int, md, topics: int = 20,
+                   per_topic: int = 20, entities: int = 2000) -> None:
+    """``KIMDataset``'s four files at the widths of ``md`` with a planted
+    signal: 20 topics, each with its band of title words (a twentieth of the
+    vocabulary) and of entities; an entity's vector is its topic's centroid
+    plus noise, its ten neighbours of its topic; a user clicks 30 to 60 news
+    of one topic (the last ``max_sents`` are kept), the positive is of that
+    topic, the ``npratio`` negatives of others."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(data_dir, exist_ok=True)
+    band, eband = md.vocab_size // topics, entities // topics
+    centroids = rng.randn(topics, 100)
+    emb = centroids[np.arange(entities) // eband] * 0.1 + rng.randn(entities, 100) * 0.05
+    np.save(os.path.join(data_dir, "entity_emb.npy"), emb.astype(np.float32))
+    with open(os.path.join(data_dir, "news.tsv"), "w") as fh:
+        for t in range(topics):
+            for j in range(per_topic):
+                words = t * band + rng.randint(0, band, rng.randint(10, md.max_sentence + 1))
+                ents = t * eband + rng.randint(0, eband, rng.randint(3, md.max_entity + 1))
+                fh.write(f"N{t}_{j}\t{_ids(words)}\t{_ids(ents)}\n")
+    with open(os.path.join(data_dir, "graph.tsv"), "w") as fh:
+        for e in range(entities):
+            fh.write(_ids([e, *((e // eband) * eband + rng.randint(0, eband, 10))]) + "\n")
+    lines = []
+    for _ in range(rows):
+        t = rng.randint(topics)
+        clicked = ",".join(f"N{t}_{j}" for j in rng.randint(0, per_topic, rng.randint(30, 61)))
+        negs = ",".join(f"N{(t + rng.randint(1, topics)) % topics}_{rng.randint(per_topic)}"
+                        for _ in range(md.npratio))
+        lines.append(f"{clicked}\tN{t}_{rng.randint(per_topic)}\t{negs}")
+    with open(os.path.join(data_dir, "behaviors.tsv"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def write_textcnn_data(data_dir: str, rows: int, seed: int, md) -> None:
+    """``TextCNNDataset`` lines of 20 to ``max_len`` words: a tenth of a
+    positive row's words come from a band of 500 words, of a negative row's
+    from another band of 500, the rest from the whole vocabulary."""
+    rng = np.random.RandomState(seed)
+    lines = []
+    for _ in range(rows):
+        label = int(rng.rand() < 0.5)
+        n = rng.randint(20, md.max_len + 1)
+        toks = rng.randint(1000, md.dict_dim, n)
+        k = rng.rand(n) < 0.1
+        toks[k] = (0 if label else 500) + rng.randint(0, 500, int(k.sum()))
+        lines.append(_ids([*toks, n, label]))
+    _write_lines(data_dir, lines)
+
+
+def write_tagspace_data(data_dir: str, rows: int, seed: int, md) -> None:
+    """``TagSpaceDataset`` lines of 8 to ``max_len`` words, a third of them
+    from the tag's band of 1,000 words."""
+    rng = np.random.RandomState(seed)
+    lines = []
+    for _ in range(rows):
+        tag = rng.randint(md.vocab_tag_size)
+        toks = rng.randint(10000, md.vocab_text_size, rng.randint(8, md.max_len + 1))
+        k = rng.rand(len(toks)) < 1 / 3
+        toks[k] = tag * 1000 + rng.randint(0, 1000, int(k.sum()))
+        lines.append(f"{_ids(toks)}\t{tag}")
+    _write_lines(data_dir, lines)
+
+
+def write_ncf_data(data_dir: str, rows: int, seed: int, md) -> None:
+    """``NCFDataset`` lines over 300 users and 200 items: an item below 100 is
+    liked (label 1) four times in five, the others one time in five."""
+    rng = np.random.RandomState(seed)
+    users, items = rng.randint(0, 300, rows), rng.randint(0, 200, rows)
+    liked = rng.rand(rows) < np.where(items < 100, 0.8, 0.2)
+    _write_lines(data_dir, [f"{u},{i},{int(y)}" for u, i, y in zip(users, items, liked)])
+
+
+def write_word2vec_data(data_dir: str, rows: int, seed: int, md) -> None:
+    """``SkipGramDataset`` sentences of 10 to 20 words of one of 10 groups of
+    20 words: words co-occur within their group (the other words of the
+    vocabulary are never seen, and never drawn as negatives)."""
+    rng = np.random.RandomState(seed)
+    _write_lines(data_dir, [
+        _ids(g * 20 + rng.randint(0, 20, rng.randint(10, 21)))
+        for g in rng.randint(0, min(10, md.vocab_size // 20), rows)])
+
+
+MATCH_WRITERS = {
+    "match.dssm": write_dssm_data, "match.multiview_simnet": write_multiview_data,
+    "match.match_pyramid": write_match_pyramid_data, "match.kim": write_kim_data,
+    "contentunderstanding.textcnn": write_textcnn_data,
+    "contentunderstanding.tagspace": write_tagspace_data, "recall.ncf": write_ncf_data,
+    "recall.word2vec": write_word2vec_data,
+}
+
+
+def _match_rows(model: str) -> int:
+    if model == "match.kim":
+        return KIM_STEPS * SEQ_BATCH
+    return W2V_SENTENCES if model == "recall.word2vec" else MATCH_STEPS * SEQ_BATCH
+
+
+def _head(model: str, data: str, rows: int) -> str:
+    """A copy of ``data`` that holds its first ``rows`` rows (kim: behavior
+    rows, beside the same news, graph and entity files)."""
+    head = f"{data}_head"
+    name = "behaviors.tsv" if model == "match.kim" else "part-0"
+    with open(os.path.join(data, name)) as fh:
+        lines = [fh.readline().rstrip("\n") for _ in range(rows)]
+    os.makedirs(head, exist_ok=True)
+    if model == "match.kim":
+        for other in ("news.tsv", "graph.tsv", "entity_emb.npy"):
+            shutil.copy(os.path.join(data, other), head)
+    with open(os.path.join(head, name), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return head
+
+
+def _served_similarities(export_dir: str, data: str, batch: int) -> dict:
+    """tagspace's positive and negative similarities (``run_predict`` writes
+    none) on the first batch of ``data``, from the artifact loaded on each
+    device."""
+    from paddlerec_tpu_torch.core.device import to_tensors
+    from paddlerec_tpu_torch.tools.export import load_exported
+
+    out = {}
+    for device in (None, "cpu"):
+        md, module = load_exported(export_dir, device)
+        host = next(iter(md.make_dataset(data, batch)))
+        with torch.inference_mode():
+            aux = md.infer_forward(module, to_tensors(host, next(module.parameters()).device))
+        out[device or "cuda"] = np.concatenate([aux["pos_sim"].cpu().numpy().reshape(-1),
+                                                aux["neg_sim"].cpu().numpy().reshape(-1)])
+    return out
+
+
+def match_paths(gp, work: str, seed: int, card: str) -> dict:
+    """Phase 24, the eight models through the entry points at the full width
+    of their configs, batch 32, on rows written in each reader's format with
+    a planted signal (``MATCH_WRITERS``):
+      * ``Trainer.train()`` for two epochs (``MATCH_STEPS`` steps each;
+        kim ``KIM_STEPS``, word2vec the windows of ``W2V_SENTENCES``
+        sentences), the loss falling, then ``evaluate()`` from the
+        checkpoint with ``pnr``/``auc`` above 0.5; K1 and K1b launches per
+        table, step and evaluated batch;
+      * match_pyramid, textcnn and tagspace exported from their checkpoints
+        and served by ``run_predict`` at batch 32 and 1024 (ten timed
+        batches of 1024), kim at batch 32, the first rows against the port's
+        CPU run (atol 1e-5; tagspace, whose aux holds no prediction that
+        ``run_predict`` writes, on its similarities through
+        ``load_exported``);
+      * ``cal_pos_neg`` on match_pyramid's served scores (a query per pair
+        of rows), more pairs ordered than misordered;
+      * word2vec's checkpoint through ``tools.analogy_eval`` on the card and
+        on the CPU, on questions whose answer is the nearest word half of the
+        time: the same accuracy;
+      * ``torch.profiler`` over one kim and one tagspace step."""
+    from paddlerec_tpu_torch.core.registry import load_model_def
+    from paddlerec_tpu_torch.tools import analogy_eval
+    from paddlerec_tpu_torch.tools.cal_pos_neg import cal_pos_neg
+    from paddlerec_tpu_torch.tools.export import export_model
+    from paddlerec_tpu_torch.tools.predict import run_predict
+    from paddlerec_tpu_torch.train.checkpoint import load_params_from_state
+
+    out = {"k1": 0, "k1b": 0, "k1_by_dim": {}, "k1b_by_dim": {}, "runs": {}}
+    defs = {}
+    for i, model in enumerate(MATCH):
+        name = model.split(".")[1]
+        md = defs[model] = load_model_def(slice_config(model))
+        data = os.path.join(work, f"{name}_data")
+        MATCH_WRITERS[model](data, _match_rows(model), seed + 24 + i, md)
+        ckpt = os.path.join(work, f"ckpt_{name}")
+        steps = KIM_STEPS if model == "match.kim" else MATCH_STEPS
+        cfg = slice_config(model, **{
+            "runner.train_data_dir": data, "runner.test_data_dir": data,
+            "runner.model_save_path": ckpt, "runner.infer_load_path": ckpt,
+            "runner.epochs": 2, "runner.print_interval": max(1, steps // 10)})
+        run = run_training(gp, cfg, seed, tables=MATCH_TABLES[model], min_steps=2 * steps)
+        run["model"] = model
+        _add_run(out, run)
+        out["runs"][model] = run
+        emit({"train": run, "card": card})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for model in MATCH_SERVED + ("match.kim",):
+        name, md = model.split(".")[1], defs[model]
+        kim = model == "match.kim"
+        data = os.path.join(work, f"{name}_serve")
+        rows = KIM_SERVE_BATCHES * SEQ_BATCH if kim else REST_SERVE_ROWS
+        MATCH_WRITERS[model](data, rows, seed + 40, md)
+        export_dir = os.path.join(work, f"export_{name}")
+        t0 = time.perf_counter()
+        export_model(slice_config(model, **{"runner.model_init_path": os.path.join(
+            work, f"ckpt_{name}", "1")}), export_dir)
+        twin_rows = KIM_TWIN_ROWS if kim else REST_TWIN_ROWS
+        twin = _head(model, data, twin_rows)
+        cpu_preds = run_predict(export_dir, twin, SEQ_BATCH, device="cpu")[0]
+        cpu_preds = np.concatenate(cpu_preds) if cpu_preds else None
+        tables = MATCH_TABLES[model]
+        checks = {}
+        if cpu_preds is None:  # tagspace: its similarities, on the first batch
+            _reset(gp)
+            sims = _served_similarities(export_dir, twin, SEQ_BATCH)
+            _add_launched(out, _counts(gp))
+            checks["similarities_max_abs_err_vs_cpu"] = float(
+                np.abs(sims["cuda"] - sims["cpu"]).max())
+            if not (checks["similarities_max_abs_err_vs_cpu"] <= ZOO_ATOL
+                    and np.ptp(sims["cuda"]) > 0):
+                raise AssertionError(f"{model}: served similarities, card vs CPU {checks}")
+        for batch in ((SEQ_BATCH,) if kim else SEQ_SERVE):
+            _reset(gp)
+            served, report = run_predict(export_dir, data, batch)
+            launched = _counts(gp)
+            if launched[:2] != (tables * math.ceil(rows / batch), 0) or report["batches"] < 10:
+                raise AssertionError(f"{model}: K1, K1b {launched[:2]} at batch {batch}, "
+                                     f"{report}")
+            _add_launched(out, launched)
+            result = {"model": model, "batch_size": batch, "rows": rows, **report,
+                      **checks, "k1_launches": launched[0]}
+            if cpu_preds is not None:
+                preds = np.concatenate(served)
+                err = float(np.abs(preds[:len(cpu_preds)] - cpu_preds).max())
+                if (not np.all(np.isfinite(preds)) or not np.ptp(preds) > 0
+                        or err > ZOO_ATOL):
+                    raise AssertionError(f"{model}: served predictions, card vs CPU "
+                                         f"max err {err}")
+                result.update(max_abs_err_vs_cpu=err, rows_vs_cpu=int(len(cpu_preds)))
+            if model == "match.match_pyramid" and batch == SEQ_SERVE[-1]:
+                scores = os.path.join(work, "match_pyramid_scores.txt")
+                with open(scores, "w") as fh:
+                    fh.writelines(f"q{i // 2}\t{p}\t{1 - i % 2}\n" for i, p in enumerate(preds))
+                pnr = cal_pos_neg(scores)
+                # the ordered pairs outnumber the misordered (PNR above 0.5;
+                # with none misordered the tool reports no ratio)
+                if not (pnr["pair_num"] > 0 and pnr["pos_num"] > pnr["neg_num"]):
+                    raise AssertionError(f"cal_pos_neg on the served scores: {pnr}")
+                result["cal_pos_neg"] = pnr
+            result["seconds_export_and_predict"] = time.perf_counter() - t0
+            emit({"predict": result, "card": card})
+        shutil.rmtree(export_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # word2vec's analogies: the nearest word to b - a + c (a, b, c left out)
+    # half of the time, a random word otherwise, from the trained table
+    ckpt = os.path.join(work, "ckpt_word2vec")
+    emb = load_params_from_state(ckpt, 1)["in_emb.embedding"].numpy().astype(np.float64)
+    rng = np.random.RandomState(seed + 41)
+    q = rng.randint(0, emb.shape[0], (400, 3))
+    dist = (emb[q[:, 1]] - emb[q[:, 0]] + emb[q[:, 2]]) @ (
+        emb / np.linalg.norm(emb, axis=1, keepdims=True)).T
+    for i in range(3):
+        dist[np.arange(len(q)), q[:, i]] = -np.inf
+    d = np.where(rng.rand(len(q)) < 0.5, dist.argmax(1), rng.randint(0, emb.shape[0], len(q)))
+    qfile = os.path.join(work, "analogies.txt")
+    with open(qfile, "w") as fh:
+        fh.writelines(_ids(row) + "\n" for row in np.c_[q, d])
+    args = ["-m", os.path.join(ROOT, "configs", "recall", "word2vec", "config.yaml"), "-o",
+            f"runner.analogy_file={qfile}", f"runner.infer_load_path={ckpt}"]
+    on_card = analogy_eval.main(args)
+    on_cpu = analogy_eval.main(args + ["--device", "cpu"])
+    if (on_card["analogy_acc"] != on_cpu["analogy_acc"] or on_card["questions"] != len(q)
+            or not on_card["analogy_acc"] >= 0.4):
+        raise AssertionError(f"analogy_eval: card {on_card}, CPU {on_cpu}")
+    emit({"analogy_eval": {"card": on_card, "cpu": on_cpu}, "card": card})
+    for model, iters in (("match.kim", 3), ("contentunderstanding.tagspace", 20)):
+        emit({"profile_train": profile_train(slice_config(model), SEQ_BATCH, seed, iters=iters),
+              "card": card})
+    return out
+
+
+# the match, content-understanding and recall models' lookups in phases 23 and
+# 24, each one K1 launch in fill mode: (shape, rows, D, N, L, trained: K1b
+# at the shape too); the served batch 1024 of match_pyramid, textcnn and
+# tagspace is a forward only
+MATCH_SHAPES = (
+    ("multiview_simnet bag of words, both views, L=8", 89777, 128, 32 * 2, 8, True),
+    ("match_pyramid left + right words, B=32", 193368, 50, 32 * 520, 1, True),
+    ("match_pyramid left + right words, B=1024", 193368, 50, 1024 * 520, 1, False),
+    ("kim title words, 50 clicked + 5 candidates", 1891, 300, 32 * 55 * 30, 1, True),
+    ("textcnn words, B=32", 33257, 128, 32 * 100, 1, True),
+    ("textcnn words, B=1024", 33257, 128, 1024 * 100, 1, False),
+    ("tagspace text, B=32", 75378, 10, 32 * 32, 1, True),
+    ("tagspace text, B=1024", 75378, 10, 1024 * 32, 1, False),
+    ("tagspace tags, positive + 3 negatives, B=32", 4, 10, 32 * 4, 1, True),
+    ("tagspace tags, B=1024", 4, 10, 1024 * 4, 1, False),
+    ("ncf mf_user", 6040, 8, 32, 1, True),
+    ("ncf mf_item", 3706, 8, 32, 1, True),
+    ("ncf mlp_user", 6040, 32, 32, 1, True),
+    ("ncf mlp_item", 3706, 32, 32, 1, True),
+    ("word2vec in_emb, centers", 1000, 300, 32, 1, True),
+    ("word2vec out_emb, positive + 5 negatives", 1000, 300, 32 * 6, 1, True),
+    ("word2vec out_bias, positive + 5 negatives", 1000, 1, 32 * 6, 1, True),
+)
+
+
+@_uncounted
+def check_match_shapes(gp, seed: int, card: str) -> None:
+    """Phase 25, before the timing: K1 and K1b at ``MATCH_SHAPES`` against
+    their plain versions, in fill mode (multiview's bags masked): K1 with one
+    id a row bitwise, a masked pool rtol 1e-5 and atol 1e-6; K1b rtol 1e-5
+    and atol 1e-6 times the most adds a row takes, atomics adding in another
+    order.  Both are then timed at the same shapes (``time_k1_shapes``,
+    ``time_k1b_shapes``)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    checks = []
+    for name, rows, dim, n, pool, trained in MATCH_SHAPES:
+        table = torch.randn(rows, dim, device="cuda", generator=g)
+        mask = (None if pool == 1 else
+                (torch.rand(n, pool, device="cuda", generator=g) < 0.7).float())
+        ids = torch.randint(0, rows, (n, pool), device="cuda", generator=g, dtype=torch.int32)
+        out = gp.gather_pool(table, ids, mask, mode="fill")
+        ref = gp.gather_pool_plain(table, ids, mask, mode="fill")
+        k1_ok = (torch.equal(out, ref) if pool == 1
+                 else torch.allclose(out, ref, rtol=1e-5, atol=1e-6))
+        check = {"shape": name, "n": n, "pool": pool, "dim": dim, "rows": rows,
+                 "k1_max_abs_err": float((out - ref).abs().max()), "k1_ok": bool(k1_ok),
+                 "k1_tolerance": "bitwise" if pool == 1 else {"rtol": 1e-5, "atol": 1e-6}}
+        if trained:
+            grad = torch.randn(n, dim, device="cuda", generator=g)
+            adds = int(torch.bincount(ids.reshape(-1).long()).max())
+            dt = gp.gather_pool_bwd(grad, ids, mask, rows, mode="fill")
+            dt_ref = gp.gather_pool_bwd_plain(grad, ids, mask, rows, mode="fill")
+            check.update(most_adds_per_row=adds,
+                         k1b_max_abs_err=float((dt - dt_ref).abs().max()),
+                         k1b_tolerance={"rtol": 1e-5, "atol": 1e-6 * adds},
+                         k1b_ok=bool(torch.allclose(dt, dt_ref, rtol=1e-5, atol=1e-6 * adds)))
+        torch.cuda.synchronize()
+        checks.append(check)
+        if not (check["k1_ok"] and check.get("k1b_ok", True)):
+            raise AssertionError(f"a kernel disagrees with its plain version: {check}")
+    emit({"match_kernel_checks": checks, "card": card})
+
+
+# -- K1 at every timed shape (phases 7, 15, 18, 22 and 25; ``--only k1``) ---
 class K1Shape(NamedTuple):
     """One timed lookup of K1: a (rows, dim) table in ``dtype`` read at n
     rows of ``pool`` ids.  ``ids`` as ``_k1_ids``; ``vocab`` bounds uniform
@@ -2536,9 +3013,14 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def k1_shapes(group: str) -> tuple:
     """The K1 rows of a phase: ``main`` (phase 7), ``seq`` (15), ``rest``
-    (18), ``mt`` (22), each from the one definition of its shapes."""
+    (18), ``mt`` (22), ``match`` (25), each from the one definition of its
+    shapes."""
     if group == "main":
         return MAIN_SHAPES
+    if group == "match":
+        return tuple(K1Shape(name, rows, dim, n, pool, "fill", masked=pool > 1,
+                             library="embedding_bag" if pool > 1 else "embedding")
+                     for name, rows, dim, n, pool, _ in MATCH_SHAPES)
     if group in ("seq", "rest"):
         return tuple(K1Shape(name, rows, dim, n, mode="fill", ids=kind, library="embedding")
                      for name, rows, dim, n, kind in (SEQ_SHAPES if group == "seq"
@@ -2734,7 +3216,7 @@ def set_share(cases, floor_ms: float) -> None:
 
 def k1_only(gp, seed: int, card: str, against) -> None:
     """``--only k1``: phase 3's K1 checks, then every K1 shape of phases 7,
-    15, 18 and 22 (``config_bigdata.yaml``'s view among them) and
+    15, 18, 22 and 25 (``config_bigdata.yaml``'s view among them) and
     ``EXTRA_SHAPES``, each
     checked and timed by ``time_k1_shapes`` (against the ``--against``
     sources where given), one JSON line a shape."""
@@ -2745,7 +3227,7 @@ def k1_only(gp, seed: int, card: str, against) -> None:
     del wide
     floor_ms = time_launch_floor(gp)
     shapes = (k1_shapes("main") + k1_shapes("seq") + k1_shapes("rest") + k1_shapes("mt")
-              + EXTRA_SHAPES)
+              + k1_shapes("match") + EXTRA_SHAPES)
     rows = time_k1_shapes(gp, shapes, seed + 9, variants)
     set_share(rows, floor_ms)
     for row in rows:
@@ -2755,7 +3237,7 @@ def k1_only(gp, seed: int, card: str, against) -> None:
 
 
 
-# -- K1b at every timed shape (phases 7, 10, 15, 18 and 22; ``--only k1b``) ----
+# -- K1b at every timed shape (phases 7, 10, 15, 18, 22, 25; ``--only k1b``) --
 class K1bShape(NamedTuple):
     """One timed gradient of K1 (kernel K1b): g (n, dim) in ``g_dtype``
     scattered at (n, pool) ids into a dense (rows, dim) dtable in ``dtype``.
@@ -2804,9 +3286,15 @@ K1B_EXTRA_SHAPES = (
 def k1b_shapes(group: str) -> tuple:
     """The K1b rows of a phase: ``main`` (7), ``compact`` (10), ``seq``
     (15), ``rest`` (18), ``mt`` (22; K1 as K1b's backward is a K1 launch
-    only), ``extra`` (``--only k1b``)."""
+    only), ``match`` (25: the shapes that are trained), ``extra``
+    (``--only k1b``)."""
     if group == "main":
         return K1B_MAIN_SHAPES
+    if group == "match":
+        return tuple(K1bShape(name, rows, dim, n, pool, "fill", masked=pool > 1,
+                              library=("embedding_bag_backward" if pool > 1
+                                       else "embedding_dense_backward"))
+                     for name, rows, dim, n, pool, trained in MATCH_SHAPES if trained)
     if group == "compact":
         return K1B_COMPACT_SHAPES
     if group == "extra":
@@ -2992,14 +3480,14 @@ def time_k1b_shapes(gp, shapes, seed: int, variants=None) -> list:
 
 def k1b_only(gp, seed: int, card: str, against) -> None:
     """``--only k1b``: phase 3's K1b checks, then every K1b shape of phases
-    7, 10, 15, 18 and 22 and ``K1B_EXTRA_SHAPES``, each checked and timed by
+    7, 10, 15, 18, 22 and 25 and ``K1B_EXTRA_SHAPES``, each checked and timed by
     ``time_k1b_shapes`` (against the ``--against`` sources where given), one
     JSON line a shape."""
     variants = kernel_libraries(against, "gather_pool_bwd") if against else {}
     main_err = check_k1b(gp, seed, card)
     floor_ms = time_launch_floor(gp)
     shapes = sum((k1b_shapes(group) for group in
-                  ("main", "compact", "seq", "rest", "mt", "extra")), ())
+                  ("main", "compact", "seq", "rest", "mt", "match", "extra")), ())
     rows = time_k1b_shapes(gp, shapes, seed + 9, variants)
     set_share(rows, floor_ms)
     for row in rows:
@@ -3222,6 +3710,16 @@ def main(argv=None) -> int:
         check_multitask_shapes(gp, args.seed + 22, card)  # phase 22
         mt_cases = time_k1_shapes(gp, k1_shapes("mt"), args.seed + 22)
         mt_bwd_cases = time_k1b_shapes(gp, k1b_shapes("mt"), args.seed + 22)
+        gc.collect()
+        torch.cuda.empty_cache()
+        gp.gather_pool.launches_by_shape.clear()  # from here: K1 of phases 23-24 by shape
+        match = twin_zoo(gp, args.seed, card, MATCH, "match_zoo", config=slice_config,
+                         expect_tables=MATCH_TABLES)  # phase 23
+        match_runs = match_paths(gp, work, args.seed, card)  # phase 24
+        match_k1_by_shape = dict(gp.gather_pool.launches_by_shape)
+        check_match_shapes(gp, args.seed + 25, card)  # phase 25
+        match_cases = time_k1_shapes(gp, k1_shapes("match"), args.seed + 25)
+        match_bwd_cases = time_k1b_shapes(gp, k1b_shapes("match"), args.seed + 25)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for case, batch in zip(cases, BATCHES):
@@ -3274,17 +3772,28 @@ def main(argv=None) -> int:
             case["launches_at_width"] > 0 for case in mt_bwd_cases):
         raise AssertionError(f"the multitask family launched no kernel at a shape: "
                              f"{mt['k1_by_dim']} {mt_runs['k1_by_dim']}")
+    # phases 23 and 24, counted by shape at the launch: every K1 launch of
+    # theirs is at one of MATCH_SHAPES
+    match_k1 = match["k1"] + match_runs["k1"]
+    for case in match_cases:
+        case["launches"] = match_k1_by_shape.get(
+            (case["rows"], case["dim"], case["dtype"], case["n"], case["pool"]), 0)
+    if (sum(case["launches"] for case in match_cases) != match_k1
+            or sum(match_k1_by_shape.values()) != match_k1
+            or not all(case["launches"] > 0 for case in match_cases)):
+        raise AssertionError(f"phases 23-24 launched K1 {match_k1} times, by shape "
+                             f"{match_k1_by_shape}")
     all_runs = list(train_runs.values()) + list(sparse["runs"].values())
     k1_launches = (sum(launches.values()) + first["k1_launches"]
                    + sparse["first"]["k1_launches"] + sparse["served_launches"]
                    + sum(r["k1_launches"] + r["eval"]["k1_launches"] for r in all_runs)
                    + zoo["k1_launches"] + paths["k1_launches"] + seq["k1"] + seq_runs["k1"]
-                   + rest["k1"] + rest_runs["k1"] + mt["k1"] + mt_runs["k1"])
+                   + rest["k1"] + rest_runs["k1"] + mt["k1"] + mt_runs["k1"] + match_k1)
     k1b_launches = (first["k1b_launches"] + sparse["first"]["k1b_launches"]
                     + sum(r["k1b_launches"] for r in all_runs)
                     + zoo["k1b_launches"] + paths["k1b_launches"] + seq["k1b"]
                     + seq_runs["k1b"] + rest["k1b"] + rest_runs["k1b"] + mt["k1b"]
-                    + mt_runs["k1b"])
+                    + mt_runs["k1b"] + match["k1b"] + match_runs["k1b"])
     if k1_launches < 1 or k1b_launches < 1:
         raise AssertionError("the main path launched a kernel no time")
     # K1b's launches per timed shape, from the whole run: those of the shape's
@@ -3298,7 +3807,7 @@ def main(argv=None) -> int:
     emit({"k1b_launches_by_shape": sorted([*k, v] for k, v in by_shape.items()),
           "card": card})
     bwd_all = (bwd_cases + bf16_bwd_cases + zoo_bwd_cases + compact_cases + seq_bwd_cases
-               + rest_bwd_cases + mt_bwd_cases)
+               + rest_bwd_cases + mt_bwd_cases + match_bwd_cases)
     dense = {(c["rows"], c["dim"], c["dtype"], c["n"]) for c in bwd_all
              if c["ids"] != "compact"}
     for case in bwd_all:
@@ -3309,12 +3818,18 @@ def main(argv=None) -> int:
         # card time lost to the floor a run: launches × (ms − max(bound, floor))
         case["lost_ms"] = case["launches"] * max(
             0.0, case["ms"] - max(case["bound_ms"], floor_ms))
+    match_k1b = match["k1b"] + match_runs["k1b"]
+    if (sum(case["launches"] for case in match_bwd_cases) != match_k1b
+            or not all(case["launches"] > 0 for case in match_bwd_cases)):
+        raise AssertionError(f"phases 23-24 launched K1b {match_k1b} times, by shape "
+                             f"{[(c['name'], c['launches']) for c in match_bwd_cases]}")
     kernels = []
     for name, source, replaces, count, err, timed, top in (
         ("gather_pool", "paddlerec_tpu_torch/csrc/gather_pool.cu",
          "paddlerec_tpu/ops/pallas_embedding.py:37", k1_launches,
          max(main_err, sparse["lookup"]["k1_err"]),
-         cases + zoo_cases + big_cases + seq_cases + rest_cases + mt_cases, cases[-1]),
+         cases + zoo_cases + big_cases + seq_cases + rest_cases + mt_cases + match_cases,
+         cases[-1]),
         # the JAX package has no kernel for the gradient: K1b takes the
         # place of the XLA scatter-add of _packed_lookup_bwd
         ("gather_pool_bwd", "paddlerec_tpu_torch/csrc/gather_pool_bwd.cu",

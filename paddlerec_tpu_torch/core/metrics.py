@@ -2,7 +2,7 @@
 streaming accuracy of the classification models.
 
 Counterpart of ``paddlerec_tpu/core/metrics.py`` (the AUC and accuracy
-families; the ranking metrics of the match and recall models wait for them):
+families, and the ranking metrics of the match and recall models):
 
   * AUC from 2^12 threshold buckets of positive/negative counts (reverse
     trapezoid sweep over buckets).  Buckets are plain int32 tensors, so a
@@ -21,6 +21,10 @@ functions (``auc_from_buckets``, ``bucket_error``, ``compute_metrics``,
 The accuracy state (``init_acc_state``, ``update_acc_state``,
 ``compute_acc``) is two float32 scalars, ``correct`` and ``total``, as the
 reference keeps them: sums of 0/1 flags, exact up to 2^24 examples.
+
+The ranking metrics (``positive_order_ratio``, ``hit_ratio_at_k``,
+``ndcg_at_k``, ``recall_at_k``) are host-side numpy copies of the
+reference's.
 """
 
 from __future__ import annotations
@@ -228,3 +232,38 @@ def update_acc_state(state: MetricState, correct: torch.Tensor,
 def compute_acc(state: MetricState) -> float:
     total = float(state["total"])
     return float(state["correct"]) / total if total > 0 else 0.0
+
+
+# ---------------------------------------------------------------------------
+# Ranking / recall metrics (the match and recall families), on the host
+# ---------------------------------------------------------------------------
+
+def positive_order_ratio(pos_scores: np.ndarray, neg_scores: np.ndarray) -> float:
+    """The positive-order ratio: the share of (pos, neg) pairs ranked
+    correctly, ties counted as half (``tools/cal_pos_neg.py`` counts the
+    same pairs per query)."""
+    pos = np.asarray(pos_scores, dtype=np.float64).reshape(-1, 1)
+    neg = np.asarray(neg_scores, dtype=np.float64).reshape(1, -1)
+    if pos.size == 0 or neg.size == 0:
+        return 0.0
+    wins = np.sum(pos > neg) + 0.5 * np.sum(pos == neg)
+    return float(wins) / (pos.size * neg.size)
+
+
+def hit_ratio_at_k(ranks: np.ndarray, k: int) -> float:
+    """HR@K given 1-based ranks of the true item (NCF's evaluation)."""
+    ranks = np.asarray(ranks)
+    return float(np.mean(ranks <= k)) if ranks.size else 0.0
+
+
+def ndcg_at_k(ranks: np.ndarray, k: int) -> float:
+    """NDCG@K with a single relevant item per list (NCF's evaluation)."""
+    ranks = np.asarray(ranks, dtype=np.float64)
+    if ranks.size == 0:
+        return 0.0
+    gains = np.where(ranks <= k, 1.0 / np.log2(ranks + 1.0), 0.0)
+    return float(np.mean(gains))
+
+
+def recall_at_k(hits: int, num_relevant: int) -> float:
+    return hits / num_relevant if num_relevant else 0.0

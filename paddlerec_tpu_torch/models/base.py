@@ -48,9 +48,31 @@ def binary_logloss(logits: torch.Tensor, labels: torch.Tensor,
     ``optax.sigmoid_binary_cross_entropy``: ``-y·log σ(x) - (1-y)·log σ(-x)``.
     With a mask: the masked sum over ``max(mask.sum(), 1)``."""
     per = -labels * F.logsigmoid(logits) - (1.0 - labels) * F.logsigmoid(-logits)
+    return masked_mean(per, mask)
+
+
+def pair_metric(pos: torch.Tensor, neg: torch.Tensor, mask: Optional[torch.Tensor],
+                neg_mask: Optional[torch.Tensor] = None):
+    """(preds, labels, mask) of the AUC over positives (label 1) and
+    negatives (label 0): ``pos`` (B,), ``neg`` (B, N); each negative takes its
+    row's mask unless ``neg_mask`` (B·N,) is given."""
+    neg = neg.reshape(-1)
+    preds = torch.cat([pos, neg])
+    labels = torch.cat([torch.ones_like(pos), torch.zeros_like(neg)])
     if mask is not None:
-        return (per * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return per.mean()
+        if neg_mask is None:
+            n = neg.shape[0] // pos.shape[0]
+            neg_mask = mask[:, None].expand(-1, n).reshape(-1)
+        mask = torch.cat([mask, neg_mask])
+    return preds, labels, mask
+
+
+def masked_mean(per: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The mean of per-row losses, or with a mask their masked sum over
+    ``max(mask.sum(), 1)``, as the JAX models average."""
+    if mask is None:
+        return per.mean()
+    return (per * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 class ModelDef:

@@ -185,7 +185,8 @@ class Embed(nn.Module):
     of the JAX models: zeros (``zeros=True``, ``initializers.zeros``), a
     normal of std ``stddev`` (``initializers.normal(stddev)``), or with
     ``truncated=True`` as well ``initializers.truncated_normal(stddev)``:
-    ``stddev`` times a standard normal cut at ±2.
+    ``stddev`` times a standard normal cut at ±2, or a uniform on ``[0,
+    uniform)`` (``initializers.uniform(scale=uniform)``).
 
     ``emb(ids)`` looks up ids of any shape → ``ids.shape + (features,)``,
     one K1 launch, its gradient one K1b launch.  ``emb(a, b, ...)`` looks up
@@ -201,12 +202,18 @@ class Embed(nn.Module):
     that the cast to the kernel's int32 keeps an out-of-range id out of
     range.
 
+    ``pool(ids, mask)`` is flax's ``(emb(ids) * mask[..., None]).sum(-2)``,
+    the bag of words of a row of ids: one K1 launch with the mask as weights,
+    in the same ``fill`` mode, so that an id out of range gives NaN · 0 = NaN
+    on both sides.
+
     ``attend(x)`` is ``x @ embedding.T``: a plain product (cuBLAS on the card).
     """
 
     def __init__(self, num_embeddings: int, features: int, zeros: bool = False,
                  device=None, generator: Optional[torch.Generator] = None,
-                 stddev: Optional[float] = None, truncated: bool = False):
+                 stddev: Optional[float] = None, truncated: bool = False,
+                 uniform: Optional[float] = None):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.features = features
@@ -214,6 +221,8 @@ class Embed(nn.Module):
         std = 1.0 / math.sqrt(features) if stddev is None else stddev
         if zeros:
             table.zero_()
+        elif uniform is not None:
+            table.uniform_(0.0, uniform, generator=generator)
         elif truncated:
             nn.init.trunc_normal_(table, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
@@ -221,19 +230,30 @@ class Embed(nn.Module):
             fill_normal(table, std, generator)
         self.embedding = nn.Parameter(table)
 
+    def _kernel_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        if ids.dtype != torch.int32:
+            v = self.num_embeddings
+            ids = ids.clamp(-v - 1, v).to(torch.int32)
+        return ids
+
     def forward(self, *ids: torch.Tensor
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
         flat = [i.reshape(-1) for i in ids]
-        flat = flat[0] if len(flat) == 1 else torch.cat(flat)
-        if flat.dtype != torch.int32:
-            v = self.num_embeddings
-            flat = flat.clamp(-v - 1, v).to(torch.int32)
+        flat = self._kernel_ids(flat[0] if len(flat) == 1 else torch.cat(flat))
         vecs = gather_pool(self.embedding, flat[:, None], mode="fill")
         if len(ids) == 1:
             return vecs.reshape(ids[0].shape + (self.features,))
         parts = vecs.split([i.numel() for i in ids])
         return tuple(p.reshape(i.shape + (self.features,))
                      for p, i in zip(parts, ids))
+
+    def pool(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """ids and mask (..., L) → the masked sum of their rows (...,
+        features)."""
+        pool = ids.shape[-1]
+        out = gather_pool(self.embedding, self._kernel_ids(ids.reshape(-1, pool)),
+                          mask.reshape(-1, pool).to(self.embedding.dtype), mode="fill")
+        return out.reshape(ids.shape[:-1] + (self.features,))
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.embedding.T

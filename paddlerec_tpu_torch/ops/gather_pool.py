@@ -22,8 +22,9 @@ been redesigned for Hopper since its first port; its source says how.
 autograd derives the gradient.  For a CUDA tensor it launches K1, and K1b in
 the backward pass, or raises; ``gather_pool.launches`` and
 ``gather_pool_bwd.launches`` count the launches (``launches_by_dim`` of each
-counts the same launches by row width D, and ``gather_pool_bwd.launches_by_shape``
-by (rows, D, dtable dtype, N)).
+counts the same launches by row width D, ``gather_pool.launches_by_shape`` by
+(rows, D, table dtype, N, L) and ``gather_pool_bwd.launches_by_shape`` by
+(rows, D, dtable dtype, N)).
 
 Both are twice differentiable on the card, as the plain version is on the
 CPU: the meta-gradients of maml and metaheac differentiate through an inner
@@ -217,6 +218,7 @@ def _gather_pool_cuda(table: torch.Tensor, ids: torch.Tensor,
     _check_launch(lib, rc, "gather_pool")
     gather_pool.launches += 1
     gather_pool.launches_by_dim[dim] += 1
+    gather_pool.launches_by_shape[(rows, dim, str(table.dtype)[6:], n, pool)] += 1
     return out
 
 
@@ -365,5 +367,7 @@ gather_pool_bwd.launches = 0
 # the same launches by row width D, counted at the same two places
 gather_pool.launches_by_dim = collections.Counter()
 gather_pool_bwd.launches_by_dim = collections.Counter()
-# K1b's launches by (rows, D, dtable dtype as "float32"/"bfloat16", N)
+# K1's launches by (rows, D, table dtype as "float32"/"bfloat16", N, L), and
+# K1b's by (rows, D, dtable dtype, N)
+gather_pool.launches_by_shape = collections.Counter()
 gather_pool_bwd.launches_by_shape = collections.Counter()

@@ -5,8 +5,9 @@ terms, the three cross networks, CIN, DIN's target attention, and flax's
 Counterparts of ``MLP``, ``FMFirstOrder``, ``fm_second_order``,
 ``FMInteraction``, ``CrossNet``, ``CrossNetV2``, ``CrossNetMix``, ``CIN`` and
 ``TargetAttention`` in ``paddlerec_tpu/ops/layers.py`` and of flax's
-``nn.LayerNorm``, ``nn.DenseGeneral`` and ``nn.Conv``, with the flax tree's
-parameter names.
+``nn.LayerNorm``, ``nn.DenseGeneral`` and ``nn.Conv`` (``"SAME"`` padding:
+``SameConv1d``, ``SameConv2d``), with the flax tree's parameter names, and
+the masked max over time of the text models (``masked_max``).
 Dense products stay ``nn.Linear`` / ``torch.einsum`` (cuBLAS on the card), as
 the JAX package left them to XLA outside any Pallas kernel; the one lookup
 here (``FMFirstOrder``) goes through kernel K1.
@@ -119,6 +120,58 @@ def flax_conv2d(in_ch: int, out_ch: int, kernel: int, padding: int = 0,
     with torch.no_grad():
         conv.bias.zero_()
     return conv
+
+
+def _same_pads(kernel: int) -> Tuple[int, int]:
+    """flax's ``"SAME"`` padding of a stride-1 window: ``(k-1)//2`` before
+    and the rest after, so an even kernel pads one more after."""
+    return (kernel - 1) // 2, kernel - 1 - (kernel - 1) // 2
+
+
+class SameConv1d(nn.Conv1d):
+    """flax's ``nn.Conv(out, kernel_size=(k,), padding="SAME")`` over (N, T,
+    C) → (N, T, out), initialized as flax's default (``lecun_normal`` over
+    fan_in = k·in, zero bias).  flax's kernel ``(k, in, out)`` is the weight
+    ``(out, in, k)`` (``convert.py`` reverses the axes both ways)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_ch, out_ch, kernel, device=device)
+        lecun_normal_(self.weight, kernel * in_ch, generator)
+        with torch.no_grad():
+            self.bias.zero_()
+        self.pads = _same_pads(kernel)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.pad(x.transpose(1, 2), self.pads)
+        return super().forward(x).transpose(1, 2)
+
+
+class SameConv2d(nn.Conv2d):
+    """flax's ``nn.Conv(out, kernel_size=(kh, kw), padding="SAME")`` over
+    (N, H, W, C) → (N, H, W, out), initialized as flax's default
+    (``lecun_normal`` over fan_in = kh·kw·in, zero bias).  flax's kernel
+    ``(kh, kw, in, out)`` is the weight ``(out, in, kh, kw)``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: Tuple[int, int], device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_ch, out_ch, tuple(kernel), device=device)
+        lecun_normal_(self.weight, kernel[0] * kernel[1] * in_ch, generator)
+        with torch.no_grad():
+            self.bias.zero_()
+        # F.pad takes the last axis first: (W before, W after, H before, H after)
+        self.pads = _same_pads(kernel[1]) + _same_pads(kernel[0])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.pad(x.permute(0, 3, 1, 2), self.pads)
+        return super().forward(x).permute(0, 2, 3, 1)
+
+
+def masked_max(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``jnp.where(mask[..., None] > 0, x, -1e9).max(axis=1)`` over (N, T,
+    C): a row whose mask is all zero gets -1e9, and the gradient of a tie is
+    split evenly among the tied entries, as ``jnp.max``'s is."""
+    return torch.amax(torch.where(mask[..., None] > 0, x, -1e9), dim=1)
 
 
 class DenseGeneral(nn.Module):

@@ -57,9 +57,12 @@ bfloat16 table steps as it does there:
   always part of the step (zero by default).  The JAX package needs this to
   avoid a recompile; eager PyTorch has nothing to recompile.
 
-AdamW, RMSProp and lazy Adam are held against optax for float32 leaves; on a
-bfloat16 table their moments are computed in float32 and rounded once, which
-is not XLA's rounding step by step.
+AdamW (whose first moment is stored in the parameter's dtype), RMSProp and
+lazy Adam step a bfloat16 leaf as XLA steps it too: every operation in
+bfloat16, rounded one by one, the Python scalars rounded to bfloat16 first.
+Where XLA widens to float32 (lazy Adam's update, whose bias corrections are
+float32 arrays), the moments enter the update unrounded, which changes
+nothing there: a row's new moment is either its old one or its stepped one.
 
 The state is a dict of plain values: ``count`` (a Python int, the step's
 int32 counter) and one ``{name: tensor}`` dict per moment, keyed like the
@@ -126,15 +129,19 @@ def adam_step(params: Tensors, grads: Tensors, state: OptState, lr: float,
     count = state["count"]
     bc1 = _bias_correction(b1, count)
     bc2 = _bias_correction(b2, count)
-    groups: Dict[torch.dtype, List[str]] = {}
+    groups: Dict[tuple, List[str]] = {}
     for k in params:
-        groups.setdefault(grads[k].dtype, []).append(k)
+        groups.setdefault((grads[k].dtype, state["mu"][k].dtype), []).append(k)
     updates: Updates = {}
-    for dtype, names in groups.items():
+    for (dtype, mu_dtype), names in groups.items():
         ps = [params[k] for k in names]
         gs = [grads[k] for k in names]
         mus = [state["mu"][k] for k in names]
         nus = [state["nu"][k] for k in names]
+        if mu_dtype != torch.float32:
+            updates.update(zip(names, _adam_in_dtype(
+                ps, gs, mus, nus, dtype, bc1, bc2, lr, b1, b2, eps, weight_decay)))
+            continue
         # mu = (1 - b1) * g + b1 * mu in float32, (1 - b1) in g's dtype
         # (in place where mu is stored in float32, else rounded once into it)
         new_mus = [m if m.dtype == torch.float32 else m.float() for m in mus]
@@ -166,29 +173,59 @@ def adam_step(params: Tensors, grads: Tensors, state: OptState, lr: float,
     return updates
 
 
+def _adam_in_dtype(ps, gs, mus, nus, dtype: torch.dtype, bc1: float, bc2: float,
+                   lr: float, b1: float, b2: float, eps: float,
+                   weight_decay: float) -> List[torch.Tensor]:
+    """Adam with both moments stored in the gradient's dtype (AdamW's, and
+    Adam's without ``mu_dtype``): every operation in that dtype, the scalars
+    rounded to it first, as the jitted optax step does, in its order:
+    ``mu = b1·mu + (1-b1)·g``, ``u = -lr·((mu / bc1) / (sqrt(nu / bc2) + eps)
+    + weight_decay·p)``."""
+    s = functools.partial(_scalar, dtype=dtype)
+    torch._foreach_mul_(mus, s(b1))
+    torch._foreach_add_(mus, torch._foreach_mul(gs, s(1 - b1)))
+    torch._foreach_mul_(nus, s(b2))
+    g2 = torch._foreach_mul(gs, gs)
+    torch._foreach_mul_(g2, s(1 - b2))
+    torch._foreach_add_(nus, g2)
+    del g2
+    denom = torch._foreach_div(nus, s(bc2))
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, s(eps))
+    us = torch._foreach_div(mus, s(bc1))
+    torch._foreach_div_(us, denom)
+    if weight_decay:
+        torch._foreach_add_(us, torch._foreach_mul(list(ps), s(weight_decay)))
+    torch._foreach_mul_(us, s(-lr))
+    return us
+
+
 @torch.no_grad()
 def lazy_adam_step(params: Tensors, grads: Tensors, state: OptState, lr: float,
                    b1: float = 0.9, b2: float = 0.999,
                    eps: float = 1e-8) -> Updates:
     """``lazy_adam``: Adam that only updates rows touched this step.  Row
     granularity is the leading axis of each leaf of rank >= 2; lower ranks
-    mask by element.  Uses the count ``state`` already holds."""
+    mask by element.  Uses the count ``state`` already holds.  The moments
+    step in the gradient's dtype, each operation rounded, in the reference's
+    order (``(1-b2)·g·g`` is ``((1-b2)·g)·g``); the update is float32, from
+    float32 bias corrections: ``((-lr·k)·(mu / bc1)) / (sqrt(nu / bc2) + eps)``
+    with ``-lr`` in the gradient's dtype."""
     count = state["count"]
     bc1 = _bias_correction(b1, count)
     bc2 = _bias_correction(b2, count)
     updates: Updates = {}
     for k in params:
-        g = grads[k].float()
+        g = grads[k]
+        s = functools.partial(_scalar, dtype=g.dtype)
         if g.dim() >= 2:
             touched = torch.any(g != 0, dim=tuple(range(1, g.dim())), keepdim=True)
         else:
             touched = g != 0
-        m, v = state["mu"][k].float(), state["nu"][k].float()
-        m = torch.where(touched, b1 * m + (1 - b1) * g, m)
-        v = torch.where(touched, b2 * v + (1 - b2) * g * g, v)
-        state["mu"][k].copy_(m)
-        state["nu"][k].copy_(v)
-        u = (m / bc1) / (torch.sqrt(v / bc2) + eps) * -lr
+        m, v = state["mu"][k], state["nu"][k]
+        m.copy_(torch.where(touched, m * s(b1) + g * s(1 - b1), m))
+        v.copy_(torch.where(touched, v * s(b2) + (g * s(1 - b2)) * g, v))
+        u = (s(-lr) * (m.float() / bc1)) / (torch.sqrt(v.float() / bc2) + eps)
         updates[k] = torch.where(touched, u, torch.zeros_like(u))
     return updates
 
@@ -232,12 +269,15 @@ def rmsprop_init(params: Tensors) -> OptState:
 @torch.no_grad()
 def rmsprop_step(params: Tensors, grads: Tensors, state: OptState, lr: float,
                  decay: float = 0.9, eps: float = 1e-8) -> Updates:
+    """``optax.rmsprop(lr)`` in the gradient's dtype, each operation rounded
+    and the scalars rounded to that dtype first, as the jitted optax step
+    does: ``nu = (1-decay)·g² + decay·nu``, ``u = -lr·(rsqrt(nu + eps)·g)``."""
     updates = {}
     for k in params:
-        g = grads[k].float()
-        nu = (1 - decay) * (g * g) + decay * state["nu"][k].float()
-        state["nu"][k].copy_(nu)
-        updates[k] = torch.rsqrt(nu + eps).mul_(g).mul_(-lr)
+        g, nu = grads[k], state["nu"][k]
+        s = functools.partial(_scalar, dtype=g.dtype)
+        nu.copy_((g * g) * s(1 - decay) + nu * s(decay))
+        updates[k] = (torch.rsqrt(nu + s(eps)) * g) * s(-lr)
     return updates
 
 

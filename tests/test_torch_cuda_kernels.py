@@ -407,6 +407,14 @@ K1B_PATHS = {
     "16-byte, fill mode, wrapped ids": (50000, 8, 4096, 1, "wrapped", "fill"),
     "one element a thread, D=1, fill mode": (63001, 1, 32, 1, "wrapped", "fill"),
     "full fill grid": (2200000, 4, 1000, 1, "uniform", "clip"),
+    # the match, content-understanding and recall models' tables
+    "match_pyramid words, 200-byte rows, fill": (193368, 50, 16640, 1, "wrapped", "fill"),
+    "tagspace text, D=10, fill": (75378, 10, 1024, 1, "wrapped", "fill"),
+    "tagspace tags, 4 rows under 128 ids": (4, 10, 128, 1, "uniform", "fill"),
+    "kim words, 1,891 x 300 under 52,800 ids": (1891, 300, 52800, 1, "uniform", "fill"),
+    "multiview bags, L=8": (89777, 128, 64, 8, "wrapped", "fill"),
+    "word2vec out_bias, D=1, N=192": (1000, 1, 192, 1, "uniform", "fill"),
+    "word2vec out_emb, D=300, N=192": (1000, 300, 192, 1, "uniform", "fill"),
 }
 
 

@@ -14,6 +14,21 @@ def test_a_model_without_a_module_is_not_ported():
         registry.get_model_class("rank.no_such_model")
     with pytest.raises(KeyError, match="is not ported"):
         registry.get_model_class("no_such_family.model")
+    # a family with ported models: its other models are still not ported
+    with pytest.raises(KeyError, match="'recall.mind' is not ported"):
+        registry.get_model_class("recall.mind")
+
+
+MATCH_SLICE = ("match.dssm", "match.multiview_simnet", "match.match_pyramid", "match.kim",
+               "contentunderstanding.tagspace", "contentunderstanding.textcnn",
+               "recall.ncf", "recall.word2vec")
+
+
+@pytest.mark.parametrize("name", MATCH_SLICE)
+def test_the_match_content_and_recall_names_resolve(name):
+    cls = registry.get_model_class(name)
+    assert cls.registry_name == name
+    assert cls.__module__ == f"paddlerec_tpu_torch.models.{name}.model"
 
 
 def test_a_broken_import_inside_a_ported_model_is_not_reported_as_a_missing_port(

@@ -153,7 +153,12 @@ def test_port_imports_nothing_of_jax():
                  "models.multitask.base",
                  *(f"models.multitask.{m}.model" for m in (
                      "share_bottom", "mmoe", "ple", "esmm", "aitm", "escm2", "dselect_k",
-                     "maml", "metaheac"))):
+                     "maml", "metaheac")),
+                 *(f"models.{m}.model" for m in (
+                     "match.dssm", "match.multiview_simnet", "match.match_pyramid",
+                     "match.kim", "contentunderstanding.textcnn",
+                     "contentunderstanding.tagspace", "recall.ncf", "recall.word2vec")),
+                 "data.alias", "tools.cal_pos_neg", "tools.analogy_eval"):
         assert f"paddlerec_tpu_torch.{name}" in walked, name
 
 
