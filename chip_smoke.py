@@ -11,10 +11,10 @@ and the CUDA toolkit:
 Phases, in order; any failure is fatal and the script exits non-zero
 without a result line.  ``--only k1`` runs phases 1 and 2, K1's checks of
 phase 3, and then K1 alone, checked against its plain version and timed at
-every shape of phases 7, 15, 18, 22 and 25 and at an output of more than 2^31
+every shape of phases 7, 15, 18, 22, 25 and 28 and at an output of more than 2^31
 elements (``k1_only``; a minute or two).  ``--only k1b`` does the same for
 K1b: phases 1 and 2, K1b's checks of phase 3, then K1b checked against its
-plain version and timed at every shape of phases 7, 10, 15, 18, 22 and 25
+plain version and timed at every shape of phases 7, 10, 15, 18, 22, 25 and 28
 and at ffm's rows under ids of every residue mod 4 (``k1b_only``).  Each
 ``--against`` source (another ``csrc/gather_pool.cu``, or
 ``csrc/gather_pool_bwd.cu``, with the same C interface, a parent commit's
@@ -156,7 +156,35 @@ say) is built beside it and timed in turns with it at every shape.
     50, 10, 300 and 128 lanes, the 4-row tag table and kim's 1,891-row word
     table under ~50,000 ids, multiview's masked bags of L = 8), each held
     against its plain version, then timed; every K1 and K1b launch of phases
-    23 and 24 is at one of them.
+    23 and 24 is at one of them;
+26. recall's deepwalk, mind, tisas, ensfm and mhcn and the graph family
+    (graph.gnn, graph.lightgcn, graph.transformer_conv, graph.deepwalk_million):
+    each model's ``configs/<family>/<model>/config.yaml`` at the ModelDef's
+    default widths (mhcn on its demo graph), card against a CPU twin from
+    one seed, one forward and three train steps at batch 32 (atol 1e-5;
+    mhcn's shuffles the same on both), K1 launches per forward and K1 and K1b
+    per step asserted (one and one; tisas five and five; ensfm four, then
+    five with its gather from q; mhcn two and two);
+27. each of them through ``Trainer.train()`` for two epochs and
+    ``evaluate()`` on rows in its reader's format with a planted signal (the
+    loss falling, ``auc`` above 0.5 where the model has one), the graph
+    models' batches from the native walk engine (``GraphChunkedDataset``;
+    the run fails if ``native/graph_engine.cpp`` does not build), mhcn also
+    through ``set_graph`` on a seeded graph; the serving calls (deepwalk's
+    ``node_embeddings``, mind's ``user_capsules``, tisas's ``score_items``,
+    ensfm's scores, mhcn's ``user_item_embeddings``) card against CPU at
+    batch 32, then timed at batch 32 and 1024 (p50, p99 of 300 calls); the
+    walk feeds (deepwalk's, graph.gnn's, graph.deepwalk_million's) read and
+    stepped for 400 batches on a graph of BlogCatalog's size (333,983 edges
+    at the configs' node counts); deepwalk,
+    graph.gnn, tisas and ensfm exported and served by ``run_predict`` card
+    against CPU; ``torch.profiler`` over a tisas and a mind step;
+28. K1 and K1b at the shapes of phases 26 and 27 (``GRAPH_SHAPES``: tisas's
+    time matrices, 257 × 50 at N = 80,000 and 2,560,000, its positions and
+    items, mind's 367,983 × 64 table, the graph tables, ensfm's tables and
+    its clip gather from an activation with half the ids clipped onto one
+    row, mhcn's clip gathers), each held against its plain version, then
+    timed; every K1 and K1b launch of phases 26 and 27 is at one of them.
 
 K1b's ``launches`` in the ``kernels`` line are those of each case's own
 (rows, D, dtable dtype, N) over the main path (a case the main path does
@@ -179,6 +207,7 @@ import argparse
 import collections
 import functools
 import gc
+import itertools
 import json
 import logging
 import math
@@ -558,13 +587,18 @@ SEQ_SHAPES = (
 
 def _fill_ids(kind: str, rows: int, n: int, g) -> torch.Tensor:
     """(n, 1) int32 ids of a ``*_SHAPES`` entry: ``uniform`` over the table,
-    ``zeros``, or ``period P`` (0..P-1 repeated: (B, T) position ids)."""
+    ``zeros``, ``period P`` (0..P-1 repeated: (B, T) position ids), or
+    ``half last`` (uniform, every other id the last row: padding clipped
+    onto it)."""
     if kind == "zeros":
         return torch.zeros((n, 1), dtype=torch.int32, device="cuda")
     if kind.startswith("period"):
         period = int(kind.split()[1])
         return (torch.arange(n, device="cuda", dtype=torch.int32) % period)[:, None]
-    return torch.randint(0, rows, (n, 1), device="cuda", generator=g, dtype=torch.int32)
+    ids = torch.randint(0, rows, (n, 1), device="cuda", generator=g, dtype=torch.int32)
+    if kind == "half last":
+        ids[1::2] = rows - 1
+    return ids
 
 
 def time_launch_floor(gp, iters: int = 500) -> float:
@@ -1000,13 +1034,16 @@ def table_dtype(module) -> str:
 
 
 def run_training(gp, cfg, seed: int, check_fall: bool = True, trainer=None,
-                 min_steps: int = 8, tables: int = 1, check_auc: bool = True) -> dict:
+                 min_steps: int = 8, tables: int = 1, check_auc: bool = True,
+                 eval_tables: Optional[int] = None) -> dict:
     """``Trainer.train()`` then ``evaluate()`` through the normal entry
     points; the kernels' counts are read around each: one K1 launch per
-    forward and one K1b launch per step for each of the model's ``tables``.
-    The model's metric (``auc``, or ``acc`` for an accuracy model) must be
-    above 0.5 or 0; ``check_auc`` is switched off only for a run whose CPU
-    twin's head died."""
+    forward and one K1b launch per step for each of the model's ``tables``
+    (``eval_tables`` K1 launches per evaluated batch where the inference
+    forward reads fewer: ensfm's).  The model's metric (``auc``, or ``acc``
+    for an accuracy model) must be above 0.5 or 0; ``check_auc`` is switched
+    off only for a run whose CPU twin's head died, and a model without a
+    streaming metric (``metrics = "none"``) has none to check."""
     from paddlerec_tpu_torch.core.config import resolve_path
     from paddlerec_tpu_torch.train.trainer import Trainer, logger
 
@@ -1045,12 +1082,12 @@ def run_training(gp, cfg, seed: int, check_fall: bool = True, trainer=None,
     eval_batches = sum(1 for _ in trainer.make_dataset(
         resolve_path(cfg, "runner.test_data_dir"), int(cfg.runner("infer_batch_size", 32)),
         drop_last=False))
-    if eval_launches != (tables * eval_batches, 0):
+    if eval_launches != ((tables if eval_tables is None else eval_tables) * eval_batches, 0):
         raise AssertionError(f"{eval_batches} eval batches launched K1, K1b {eval_launches}")
     metric = trainer.model_def.metrics
     floor = 0.5 if metric == "auc" else 0.0
-    if not (np.isfinite(evaluated[metric])
-            and (evaluated[metric] > floor or not check_auc)):
+    if metric != "none" and not (np.isfinite(evaluated[metric])
+                                 and (evaluated[metric] > floor or not check_auc)):
         raise AssertionError(f"evaluate: {evaluated}")
     return {
         "batch_size": batch, "steps": steps, "epochs": epochs,
@@ -1062,12 +1099,12 @@ def run_training(gp, cfg, seed: int, check_fall: bool = True, trainer=None,
         "last_epoch_seconds": metrics["epoch_time"],
         "last_epoch_examples_per_s": metrics["ips"],
         "last_epoch_steps_per_s": metrics["ips"] / batch,
-        "examples": examples, f"train_{metric}_last_epoch": metrics[metric],
+        "examples": examples, f"train_{metric}_last_epoch": metrics.get(metric),
         "k1_launches": launches[0], "k1b_launches": launches[1],
         # train() and evaluate() together, by the row width D of the launch
         "k1_launches_by_dim": dict(gp.gather_pool.launches_by_dim),
         "k1b_launches_by_dim": dict(gp.gather_pool_bwd.launches_by_dim),
-        "eval": {metric: evaluated[metric], "total_ins": evaluated.get("total_ins"),
+        "eval": {metric: evaluated.get(metric), "total_ins": evaluated.get("total_ins"),
                  "examples_per_s": evaluated["ips"], "batches": eval_batches,
                  "k1_launches": eval_launches[0]},
     }
@@ -1368,6 +1405,7 @@ def zoo_paths(gp, work: str, data_dir: str, cpu_rows: int, seeds: dict,
 SEQ = ("din", "dien", "bst", "dsin", "dmr", "dpin")  # the behaviour-sequence models
 SEQ_BATCH = 32  # the batch of their configs
 SEQ_ROWS = 300 * SEQ_BATCH  # din's and dien's synthetic rows: 300 steps an epoch
+SEQ_TWIN_ROWS = 1024  # the served rows the CPU run predicts too (rows are independent)
 SEQ_SERVE = (SEQ_BATCH, 1024)
 
 
@@ -1614,7 +1652,8 @@ def seq_paths(gp, work: str, seed: int, card: str) -> dict:
     below the first's, ``evaluate()`` from the checkpoint, one K1 launch per
     table and forward, one K1b per table and step; ``export_model`` of the
     checkpoint and ``run_predict`` at batch 32 and 1024 against the port's CPU
-    run of the artifact (atol 1e-5), with p50/p99; ``torch.profiler`` over
+    run of the artifact on the first ``SEQ_TWIN_ROWS`` rows (atol 1e-5), with
+    p50/p99; ``torch.profiler`` over
     the din and dien train step.  Then dmr through ``tools.train`` on rows in
     its own format."""
     from paddlerec_tpu_torch.core.config import Config
@@ -1625,6 +1664,11 @@ def seq_paths(gp, work: str, seed: int, card: str) -> dict:
 
     data = os.path.join(work, "din_data")
     write_din_data(data, SEQ_ROWS, seed + 14)
+    # the CPU run predicts the first rows only: a row's prediction does not
+    # depend on the others in its batch (histories padded to a static length)
+    twin = f"{data}_head"
+    with open(os.path.join(data, "part-0")) as fh:
+        _write_lines(twin, [fh.readline().rstrip("\n") for _ in range(SEQ_TWIN_ROWS)])
     out = {"k1": 0, "k1b": 0, "k1_by_dim": {}, "k1b_by_dim": {}, "runs": {}}
 
     for model in ("din", "dien"):
@@ -1650,13 +1694,13 @@ def seq_paths(gp, work: str, seed: int, card: str) -> dict:
         export_model(Config({**run_cfg.to_dict(),
                              "runner.model_init_path": os.path.join(ckpt, "1")}), export_dir)
         shutil.rmtree(ckpt)
-        cpu_preds = np.concatenate(run_predict(export_dir, data, SEQ_SERVE[-1], device="cpu")[0])
+        cpu_preds = np.concatenate(run_predict(export_dir, twin, SEQ_SERVE[-1], device="cpu")[0])
         for batch in SEQ_SERVE:
             _reset(gp)
             served, report = run_predict(export_dir, data, batch)
             launched = gp.gather_pool.launches
             preds = np.concatenate(served)
-            err = float(np.abs(preds - cpu_preds).max())
+            err = float(np.abs(preds[:SEQ_TWIN_ROWS] - cpu_preds).max())
             if launched != tables * math.ceil(SEQ_ROWS / batch):
                 raise AssertionError(f"{model}: {launched} K1 launches at batch {batch}")
             if preds.shape != (SEQ_ROWS,) or not np.ptp(preds) > 0 or err > ZOO_ATOL:
@@ -2962,7 +3006,620 @@ def check_match_shapes(gp, seed: int, card: str) -> None:
     emit({"match_kernel_checks": checks, "card": card})
 
 
-# -- K1 at every timed shape (phases 7, 15, 18, 22 and 25; ``--only k1``) ---
+# -- recall's last five and the graph family (phases 26-28) -----------------
+GRAPH_SLICE = ("recall.deepwalk", "graph.gnn", "graph.lightgcn", "graph.transformer_conv",
+               "graph.deepwalk_million", "recall.mind", "recall.tisas", "recall.ensfm",
+               "recall.mhcn")
+# K1 launches per inference forward and per train forward (= K1b per step):
+# one per Embed table, a table's several id tensors read in one launch (the
+# graph models' pair nodes with every hop, mind's history with its targets
+# and negatives, tisas's history with its positives and negatives or its
+# candidates); ensfm's step adds the gather of its positives' rows of q,
+# mhcn's two are the batch's rows of its final user and item embeddings
+GRAPH_LAUNCHES = {"recall.tisas": (5, 5), "recall.ensfm": (4, 5), "recall.mhcn": (2, 2)}
+GRAPH_SERVE = (SEQ_BATCH, 1024)
+SERVE_CALLS = 301  # a warm-up and 300 timed calls a batch size
+TISAS_CANDIDATES = 100  # scored a row when served: TiSASRec's 1 + 99 protocol
+GRAPH_STEPS = 30  # mind's, tisas's, ensfm's and mhcn's steps an epoch at batch 32
+# BlogCatalog (Tang & Liu, KDD 2009; DeepWalk's graph, the configs' 10,312
+# nodes): 333,983 undirected edges among 39 groups, a power-law degree
+BLOG_EDGES, BLOG_GROUPS = 333_983, 39
+SCALE_STEPS = 400  # the batches fed and stepped on the graph of BlogCatalog's size
+SCALE_WARM = 100  # of which the first, untimed: the preload thread's passes ahead
+# the walkers at scale: deepwalk's Python one, the native engine with a hop of
+# samples (graph.lightgcn and graph.transformer_conv read the same feed as
+# graph.gnn) and without
+SCALE_FEEDS = ("recall.deepwalk", "graph.gnn", "graph.deepwalk_million")
+
+
+def graph_config(model: str, **extra):
+    """The config of a model of phases 26-28 (``configs/<family>/<name>/
+    config.yaml``, the ModelDef's default widths, batch 32), with ``extra``
+    flat keys; mhcn on its demo graph unless ``extra`` says otherwise."""
+    if model == "recall.mhcn":
+        extra = {"hyper_parameters.demo_graph": True, **extra}
+    return slice_config(model, **extra)
+
+
+def _graph_batches(md) -> list:
+    """Four batches of 32 rows of the model's example batch (entries of
+    another leading size, ensfm's catalogue, whole in each)."""
+    n = 4 * SEQ_BATCH
+    rows = md.example_batch(n)
+    return [{k: v[i * SEQ_BATCH:(i + 1) * SEQ_BATCH] if v.shape[0] == n else v
+             for k, v in rows.items()} for i in range(4)]
+
+
+def _shared_perms(md, trainer, seed: int) -> None:
+    """mhcn on the card and its CPU twin shuffle alike: the permutations
+    drawn on the host from ``seed`` and the step, moved to the device."""
+    cls = type(md)
+
+    def draw(generator):
+        g = torch.Generator().manual_seed(seed + trainer.state.step)
+        return [tuple(p.to(trainer.device) for p in perm) for perm in cls.draw_perms(md, g)]
+
+    md.draw_perms = draw
+
+
+def _graph_output(md, module, batch) -> np.ndarray:
+    """What a forward is compared on: the predictions (the walk and graph
+    models, tisas), mind's positive logits, ensfm's (B, I) scores, mhcn's
+    BPR loss and its final user embedding."""
+    with torch.no_grad():
+        aux = md.infer_forward(module, batch)
+        if md.registry_name == "recall.mhcn":
+            users = md.user_item_embeddings(module)[0]
+            return np.concatenate([[float(aux["rec_loss"])], users.cpu().numpy().ravel()])
+    key = next(k for k in ("predictions", "pos_logit", "scores") if k in aux)
+    return aux[key].cpu().numpy()
+
+
+def graph_zoo(gp, seed: int, card: str) -> dict:
+    """Phase 26: each of ``GRAPH_SLICE`` at the full width of its config,
+    batch 32: a module on the card and its twin on the CPU from one seed,
+    one inference forward and three train steps on four of the model's
+    example batches (mhcn's shuffles the same on both: ``_shared_perms``);
+    outputs (``_graph_output``) and losses card against CPU (atol 1e-5),
+    with the K1 launches per forward and the K1 and K1b launches per step of
+    ``GRAPH_LAUNCHES`` (one and one by default)."""
+    from paddlerec_tpu_torch.core.device import to_tensors
+    from paddlerec_tpu_torch.train.trainer import Trainer
+
+    results, failed = [], []
+    totals = {"k1": 0, "k1b": 0, "k1_by_dim": {}, "k1b_by_dim": {}}
+    for model in GRAPH_SLICE:
+        cfg = graph_config(model)
+        t0 = time.perf_counter()
+        host = Trainer(cfg, device="cpu")
+        host.init_state(seed=seed)
+        chip = Trainer(cfg)
+        chip.init_state(seed=seed)
+        chip.state.module.load_state_dict(host.state.module.state_dict())
+        if host.stochastic:
+            for trainer in (host, chip):
+                _shared_perms(trainer.model_def, trainer, seed + 26)
+        batches = _graph_batches(host.model_def)
+        infer_k1, step_k1 = GRAPH_LAUNCHES.get(model, (1, 1))
+        outs, losses, launched = {}, {}, {}
+        for device, trainer in (("cuda", chip), ("cpu", host)):
+            _reset(gp)
+            outs[device] = _graph_output(trainer.model_def, trainer.state.module,
+                                         to_tensors(batches[0], trainer.device))
+            forward = _counts(gp)
+            _reset(gp)
+            ms, losses[device] = trainer._init_metric_state(), []
+            for b in batches[1:]:
+                ms, loss = trainer.train_step(to_tensors(b, trainer.device), ms)
+                losses[device].append(float(loss))
+            launched[device] = (forward, _counts(gp))
+        steps = len(batches) - 1
+        (f1, f1b, f1_dim, _), (s1, s1b, s1_dim, s1b_dim) = launched["cuda"]
+        if ((f1, f1b, s1, s1b) != (infer_k1, 0, step_k1 * steps, step_k1 * steps)
+                or launched["cpu"][0][:2] + launched["cpu"][1][:2] != (0, 0, 0, 0)):
+            raise AssertionError(f"{model}: K1, K1b launches {launched}, expected "
+                                 f"{infer_k1} a forward and {step_k1} a step")
+        _add_launched(totals, (f1 + s1, s1b, {}, s1b_dim))
+        _add_dims(totals, "k1_by_dim", f1_dim)
+        _add_dims(totals, "k1_by_dim", s1_dim)
+        out_err = float(np.abs(outs["cuda"] - outs["cpu"]).max())
+        loss_err = float(np.abs(np.array(losses["cuda"]) - np.array(losses["cpu"])).max())
+        ok = bool(np.all(np.isfinite(outs["cuda"])) and np.all(np.isfinite(losses["cuda"]))
+                  and np.ptp(outs["cuda"]) > 0 and len(set(losses["cuda"])) > 1
+                  and out_err <= ZOO_ATOL and loss_err <= ZOO_ATOL)
+        results.append({
+            "model": model, "ok": ok, "atol": ZOO_ATOL, "seed": seed,
+            "max_abs_err_outputs": out_err, "outputs_spread": float(np.ptp(outs["cuda"])),
+            "max_abs_err_loss": loss_err, "loss_cuda": losses["cuda"],
+            "k1_per_forward": f1, "k1b_per_step": s1b // steps,
+            "parameters": sum(p.numel() for p in chip.state.module.parameters()),
+            "seconds": time.perf_counter() - t0})
+        if not ok:
+            failed.append(model)
+        del host, chip, trainer, ms, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"graph_zoo": results, "batch_size": SEQ_BATCH, "card": card})
+    if failed:
+        raise AssertionError(f"card and CPU disagree for {failed}")
+    return totals
+
+
+def _spread_ids(rng, table_rows: int, n: int) -> np.ndarray:
+    """``n`` distinct ids spread over a table of ``table_rows`` rows."""
+    return rng.choice(table_rows, n, replace=False)
+
+
+def write_walk_edges(data_dir: str, seed: int, md, groups: int, size: int,
+                     files: int = 4) -> None:
+    """Edge files ``src dst [etype]`` with a planted signal: ``groups``
+    communities of ``size`` nodes spread over the table, each node linked to
+    four others of its community (a third of the lines with an edge type),
+    one bridge between consecutive communities; ``files`` files."""
+    rng = np.random.RandomState(seed)
+    nodes = _spread_ids(rng, md.num_nodes, groups * size).reshape(groups, size)
+    lines = []
+    for g in range(groups):
+        for i in range(size):
+            for j in rng.choice(np.delete(np.arange(size), i), 4, replace=False):
+                etype = f" {rng.randint(3)}" if rng.rand() < 1 / 3 else ""
+                lines.append(f"{nodes[g, i]} {nodes[g, j]}{etype}")
+        lines.append(f"{nodes[g, 0]} {nodes[(g + 1) % groups, 0]}")
+    os.makedirs(data_dir, exist_ok=True)
+    for f in range(files):
+        with open(os.path.join(data_dir, f"edges_{f}.txt"), "w") as fh:
+            fh.write("\n".join(lines[f::files]) + "\n")
+
+
+def write_blog_edges(data_dir: str, seed: int, num_nodes: int, files: int = 4) -> dict:
+    """Edge files ``src dst`` of BlogCatalog's shape over ``num_nodes``
+    nodes: ``BLOG_EDGES`` edges whose ends are drawn with weights 1 +
+    Pareto(2) (a mean degree of ~65, hubs of a few thousand), the second end
+    from the first's group of ``BLOG_GROUPS`` four times in five, self-loops
+    dropped; ``files`` files.  Returns the graph's counts."""
+    rng = np.random.RandomState(seed)
+    w = 1 + rng.pareto(2.0, num_nodes)
+    group = rng.randint(BLOG_GROUPS, size=num_nodes)
+    order = np.argsort(group, kind="stable")
+    cum = np.cumsum(w[order])
+    ends = np.searchsorted(group[order], np.arange(BLOG_GROUPS + 1))
+    lo = np.where(ends[:-1] > 0, cum[np.maximum(ends[:-1] - 1, 0)], 0.0)
+    hi = cum[ends[1:] - 1]
+
+    def draw(a, b):  # a node of weight-cumulative range [a, b) each
+        return order[np.minimum(np.searchsorted(cum, a + rng.rand(len(a)) * (b - a),
+                                                side="right"), num_nodes - 1)]
+
+    whole = np.zeros(BLOG_EDGES), np.full(BLOG_EDGES, cum[-1])
+    src = draw(*whole)
+    inside = rng.rand(BLOG_EDGES) < 0.8
+    g = group[src]
+    dst = np.where(inside, draw(lo[g], hi[g]), draw(*whole))
+    edges = np.stack([src, dst], 1)[src != dst]
+    os.makedirs(data_dir, exist_ok=True)
+    for f in range(files):
+        np.savetxt(os.path.join(data_dir, f"edges_{f}.txt"), edges[f::files], fmt="%d")
+    degree = np.bincount(edges.ravel(), minlength=num_nodes)
+    return {"nodes": int((degree > 0).sum()), "edges": len(edges),
+            "mean_degree": float(degree.mean()), "max_degree": int(degree.max())}
+
+
+def _read_batches(dataset, n: int) -> tuple:
+    """(seconds to the first batch, host ms a batch of the next ``n - 1``
+    or fewer, batches read) of one epoch of ``dataset`` read alone."""
+    batches = iter(dataset)
+    t0 = time.perf_counter()
+    next(batches)
+    t1 = time.perf_counter()
+    read = sum(1 for _ in itertools.islice(batches, n - 1))
+    return t1 - t0, 1e3 * (time.perf_counter() - t1) / max(read, 1), read + 1
+
+
+def walk_feeds_at_scale(gp, work: str, seed: int, card: str, out: dict, toy: dict) -> None:
+    """The feeds of ``SCALE_FEEDS`` on a graph of BlogCatalog's size at
+    their configs' node counts (``write_blog_edges``; deepwalk's 10,312,
+    the graph family's 10,000): the dataset ``Trainer.make_dataset`` picks
+    (the native engine's ``GraphChunkedDataset`` for ``graph.*``: the run
+    fails otherwise) is built (the engine's load), read alone for
+    ``SCALE_STEPS`` batches (host ms a batch, the first one apart: the
+    first walk pass, or deepwalk's parse of the edges), then fed and stepped
+    as ``train()`` does (``_device_batches`` and ``train_step``) for
+    ``SCALE_STEPS`` batches of a new epoch: examples/s of those after the
+    first ``SCALE_WARM`` (while the preload thread makes its passes ahead),
+    ended by a synchronise; one K1 and one K1b launch a step.  The
+    same feed is read on the model's planted graph (``toy``, its data
+    directory by model) for comparison.  The native feed's two parts are
+    timed alone: the engine's neighbour sample of a batch, and the shuffle
+    of one walk pass's pairs (``rng.shuffle`` of the (P, 2) rows, as the
+    dataset does, against the same permutation drawn on an index)."""
+    from paddlerec_tpu_torch.data.graph_dataset import GraphChunkedDataset, window_pairs
+    from paddlerec_tpu_torch.train.trainer import Trainer
+
+    graphs = {}
+    for model in SCALE_FEEDS:
+        trainer = Trainer(graph_config(model))
+        trainer.init_state(seed=seed)
+        md = trainer.model_def
+        data = os.path.join(work, f"blog_{md.num_nodes}")
+        if data not in graphs:
+            graphs[data] = write_blog_edges(data, seed + 29, md.num_nodes)
+        t0 = time.perf_counter()
+        dataset = trainer.make_dataset(data, SEQ_BATCH)
+        load_s = time.perf_counter() - t0
+        if model.startswith("graph.") and not isinstance(dataset, GraphChunkedDataset):
+            raise AssertionError(f"{model} did not read through the native engine")
+        first_s, feed_ms, read = _read_batches(dataset, SCALE_STEPS)
+        toy_first_s, toy_feed_ms, toy_read = _read_batches(
+            trainer.make_dataset(toy[model], SEQ_BATCH), SCALE_STEPS)
+        parts = {}
+        if isinstance(dataset, GraphChunkedDataset) and md.samples:
+            nodes = dataset._nodes[:2 * SEQ_BATCH].reshape(SEQ_BATCH, 2)
+            t0 = time.perf_counter()
+            for i in range(200):
+                dataset.engine.sample(nodes, md.samples[0], seed=i)
+            parts["sample_ms_per_batch"] = 1e3 * (time.perf_counter() - t0) / 200
+        if model == "graph.gnn":
+            pairs = window_pairs(dataset.engine.walks(
+                dataset._nodes[:dataset.chunk_nodes], md.walk_len, seed=seed), md.win_size)
+            rows, index = pairs.copy(), np.arange(len(pairs))
+            t0 = time.perf_counter()
+            np.random.RandomState(seed).shuffle(rows)
+            t1 = time.perf_counter()
+            np.random.RandomState(seed).shuffle(index)
+            shuffled = pairs[index]
+            t2 = time.perf_counter()
+            if not np.array_equal(rows, shuffled):
+                raise AssertionError("a pass's shuffle by rows and by index differ")
+            parts.update(pass_pairs=len(pairs), pass_shuffle_rows_ms=1e3 * (t1 - t0),
+                         pass_shuffle_index_ms=1e3 * (t2 - t1))
+        _reset(gp)
+        ms, losses = trainer._init_metric_state(), []
+        for i, batch in enumerate(itertools.islice(
+                trainer._device_batches(dataset, augment=True), SCALE_STEPS)):
+            ms, loss = trainer.train_step(batch, ms)
+            losses.append(loss)
+            if i == SCALE_WARM - 1:
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t2
+        launched = _counts(gp)
+        losses = [float(x) for x in losses]
+        if (read != SCALE_STEPS or len(losses) != SCALE_STEPS
+                or launched[:2] != (SCALE_STEPS, SCALE_STEPS)
+                or not np.all(np.isfinite(losses))):
+            raise AssertionError(f"{model} at scale: {read} batches read, "
+                                 f"{len(losses)} steps, K1, K1b {launched[:2]}")
+        _add_launched(out, launched)
+        emit({"walk_feed_at_scale": {
+            "model": model, "dataset": type(dataset).__name__, **graphs[data],
+            "batch_size": SEQ_BATCH, "load_s": load_s, "first_batch_s": first_s,
+            "feed_ms_per_batch": feed_ms, "planted_graph_first_batch_s": toy_first_s,
+            "planted_graph_feed_ms_per_batch": toy_feed_ms,
+            "planted_graph_batches_read": toy_read, **parts, "steps": SCALE_STEPS,
+            "examples_per_s_fed_and_stepped": (SCALE_STEPS - SCALE_WARM) * SEQ_BATCH / seconds,
+            "first_loss": losses[0], "last_loss": losses[-1]}, "card": card})
+        del trainer, dataset
+        gc.collect()
+    for data in graphs:
+        shutil.rmtree(data)
+
+
+def write_mind_data(data_dir: str, seed: int, md, users: int = 48, events: int = 21) -> None:
+    """``MINDDataset`` lines ``user,item,timestamp`` with a planted signal:
+    each user's ``events`` items from one of 20 bands of 100 items spread
+    over the table, in shuffled line order ((events - 1)·users rows)."""
+    rng = np.random.RandomState(seed)
+    bands = _spread_ids(rng, md.item_count, 2000).reshape(20, 100)
+    lines = []
+    for u in range(users):
+        band = bands[rng.randint(20)]
+        for t in range(events):
+            lines.append(f"{u},{band[rng.randint(100)]},{1000 * t + rng.randint(500)}")
+    rng.shuffle(lines)
+    _write_lines(data_dir, lines)
+
+
+def write_tisas_data(data_dir: str, seed: int, md, users: int) -> None:
+    """``TiSASDataset`` lines ``user item rating timestamp`` with a planted
+    signal: 12 to 60 events a user that walk a cycle of 30 items (the next
+    item is the cycle's next four times in five), at gaps of one to five
+    minutes."""
+    rng = np.random.RandomState(seed)
+    cycles = _spread_ids(rng, md.item_num, 30 * 20).reshape(20, 30)
+    lines = []
+    for u in range(users):
+        cycle, pos, ts = cycles[rng.randint(20)], rng.randint(30), 1_000_000
+        for _ in range(rng.randint(12, 61)):
+            lines.append(f"u{u} {cycle[pos]} 4 {ts}")
+            pos = (pos + 1) % 30 if rng.rand() < 0.8 else rng.randint(30)
+            ts += 60 * rng.randint(1, 6)
+    _write_lines(data_dir, lines)
+
+
+def write_ensfm_data(data_dir: str, seed: int, md, users: int) -> None:
+    """``ENSFMDataset`` lines ``ufeat-ufeat,ifeat-ifeat`` with a planted
+    signal: each user's 8 positives from one of 20 bands of 50 items."""
+    rng = np.random.RandomState(seed)
+    bands = rng.permutation(md.num_items)[:1000].reshape(20, 50)
+    lines = [f"u{u}-{u % 7},i{i}-{i % 5}" for u in range(users)
+             for i in bands[u % 20][rng.choice(50, 8, replace=False)]]
+    _write_lines(data_dir, lines)
+
+
+def mhcn_graph(seed: int, md):
+    """A social (U, U) and rating (U, I) 0/1 graph with a planted signal:
+    four groups of users and items; a user follows a third of its group and
+    rates half of its group's items, and a twentieth of the rest."""
+    rng = np.random.RandomState(seed)
+    ug, ig = np.arange(md.num_users) % 4, np.arange(md.num_items) % 4
+    social = (rng.rand(md.num_users, md.num_users)
+              < np.where(ug[:, None] == ug[None], 1 / 3, 0.02)).astype(np.float32)
+    np.fill_diagonal(social, 0)
+    rating = (rng.rand(md.num_users, md.num_items)
+              < np.where(ug[:, None] == ig[None], 0.5, 0.05)).astype(np.float32)
+    return social, rating
+
+
+def write_mhcn_data(data_dir: str, rating: np.ndarray, rows: int, seed: int) -> None:
+    """``MHCNDataset`` lines ``user item`` drawn from the rated pairs of
+    ``rating``, shuffled, ``rows`` of them."""
+    rng = np.random.RandomState(seed)
+    pairs = np.argwhere(rating > 0)
+    pairs = pairs[rng.randint(0, len(pairs), rows)]
+    _write_lines(data_dir, ["userID itemID"] + [f"{u} {i}" for u, i in pairs])
+
+
+def _serve_calls(model: str, md, module, batch: int, seed: int, device) -> tuple:
+    """(the model's serving call on ``batch`` rows made from ``seed`` as a
+    function of nothing, K1 launches per call)."""
+    from paddlerec_tpu_torch.core.device import to_tensors
+
+    rows = to_tensors(md.example_batch(batch), device)
+    if model == "recall.deepwalk":
+        nodes = torch.from_numpy(np.random.RandomState(seed).randint(
+            0, md.num_nodes, batch)).to(device)
+        return (lambda: md.node_embeddings(module, nodes)), 1
+    if model == "recall.mind":
+        return (lambda: module.user_capsules(rows["hist_items"], rows["seq_mask"])), 1
+    if model == "recall.tisas":
+        cand = torch.from_numpy(np.random.RandomState(seed).randint(
+            1, md.item_num + 1, (batch, TISAS_CANDIDATES))).to(device)
+        return (lambda: md.score_items(module, rows["log_seqs"], rows["time_matrices"],
+                                       cand)), 5
+    if model == "recall.ensfm":
+        return (lambda: md.infer_forward(module, rows)["scores"]), 4
+    return (lambda: md.user_item_embeddings(module)[0]), 0
+
+
+def serve_graph_models(gp, trainers: dict, seed: int, card: str, out: dict) -> None:
+    """The serving calls of deepwalk (``node_embeddings`` of a batch of
+    nodes), mind (``user_capsules``), tisas (``score_items`` of 100
+    candidates), ensfm (``infer_forward``'s scores of every item) and mhcn
+    (``user_item_embeddings``, the whole graph) on each trained module:
+    at batch 32 against a CPU twin of the same parameters (atol 1e-5), then
+    ``SERVE_CALLS`` calls at batch 32 and 1024, each ended by a synchronise:
+    p50 and p99 wall ms of the 300 after the warm-up, K1 launches per
+    call."""
+    for model in ("recall.deepwalk", "recall.mind", "recall.tisas", "recall.ensfm",
+                  "recall.mhcn"):
+        trainer = trainers[model]
+        md, module = trainer.model_def, trainer.state.module
+        twin = md.make_module(device="cpu")
+        twin.load_state_dict(module.state_dict())
+        with torch.inference_mode():
+            card_fn, per_call = _serve_calls(model, md, module, SEQ_BATCH, seed, trainer.device)
+            cpu_fn, _ = _serve_calls(model, md, twin, SEQ_BATCH, seed, torch.device("cpu"))
+            _reset(gp)
+            err = float((card_fn().cpu() - cpu_fn()).abs().max())
+            launched = _counts(gp)
+            if not err <= ZOO_ATOL or launched[:2] != (per_call, 0):
+                raise AssertionError(f"{model}: served, card vs CPU max err {err}, "
+                                     f"K1, K1b {launched[:2]}")
+            _add_launched(out, launched)
+            for batch in (GRAPH_SERVE if model != "recall.mhcn" else (None,)):
+                fn, per_call = _serve_calls(model, md, module, batch or SEQ_BATCH, seed + 1,
+                                            trainer.device)
+                _reset(gp)
+                times = []
+                for _ in range(SERVE_CALLS):
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    times.append(1e3 * (time.perf_counter() - t0))
+                launched = _counts(gp)
+                if launched[:2] != (per_call * SERVE_CALLS, 0):
+                    raise AssertionError(f"{model}: served K1, K1b {launched[:2]}")
+                _add_launched(out, launched)
+                timed = np.array(times[1:])
+                emit({"serve_call": {
+                    "model": model, "batch_size": batch, "calls": len(timed),
+                    "p50_ms": float(np.percentile(timed, 50)),
+                    "p99_ms": float(np.percentile(timed, 99)),
+                    "k1_per_call": per_call, "max_abs_err_vs_cpu_b32": err}, "card": card})
+        del twin
+        gc.collect()
+
+
+def graph_paths(gp, work: str, seed: int, card: str) -> dict:
+    """Phase 27, the nine registrations through the entry points at the
+    full width of their configs, batch 32, on rows written in each reader's
+    format with a planted signal:
+      * ``Trainer.train()`` for two epochs, the loss falling, then
+        ``evaluate()`` from the checkpoint (``auc`` above 0.5 where the
+        model has one); K1 and K1b launches per step and evaluated batch;
+        the graph models' batches from the native walk engine
+        (``GraphChunkedDataset``: the run fails if it is not built or not
+        picked); mhcn on its demo graph and again through ``set_graph`` on a
+        seeded graph;
+      * the serving calls (``serve_graph_models``);
+      * the walk feeds on a graph of BlogCatalog's size
+        (``walk_feeds_at_scale``);
+      * deepwalk, graph.gnn, tisas and ensfm exported from their checkpoints
+        and served by ``run_predict`` at batch 32, card against the port's
+        CPU run on the same artifact and rows (atol 1e-5);
+      * ``torch.profiler`` over one tisas and one mind step."""
+    from paddlerec_tpu_torch.core.registry import load_model_def
+    from paddlerec_tpu_torch.data.graph_dataset import GraphChunkedDataset
+    from paddlerec_tpu_torch.native.graph import graph_available
+    from paddlerec_tpu_torch.tools.export import export_model
+    from paddlerec_tpu_torch.tools.predict import run_predict
+    from paddlerec_tpu_torch.train.trainer import Trainer
+
+    if not graph_available():
+        raise AssertionError("the native graph engine (native/graph_engine.cpp) did not build")
+    out = {"k1": 0, "k1b": 0, "k1_by_dim": {}, "k1b_by_dim": {}, "runs": {}}
+    trainers, datas = {}, {}
+    runs = [(m, m, {}) for m in GRAPH_SLICE]
+    runs.append(("recall.mhcn", "recall.mhcn set_graph",
+                 {"hyper_parameters.demo_graph": False}))
+    for i, (model, label, extra) in enumerate(runs):
+        name = label.split(".")[1].replace(" ", "_")
+        md = load_model_def(graph_config(model, **extra))
+        data = datas[label] = os.path.join(work, f"{name}_data")
+        if model == "recall.deepwalk":
+            write_walk_edges(data, seed + 27, md, groups=2, size=8)
+        elif model.startswith("graph."):
+            write_walk_edges(data, seed + 27, md, groups=4, size=12)
+        elif model == "recall.mind":
+            write_mind_data(data, seed + 27 + i, md)
+        elif model == "recall.tisas":
+            write_tisas_data(data, seed + 27 + i, md, users=GRAPH_STEPS * SEQ_BATCH)
+        elif model == "recall.ensfm":
+            write_ensfm_data(data, seed + 27 + i, md, users=20 * SEQ_BATCH)
+        else:
+            social, rating = mhcn_graph(seed + 27, md)
+            write_mhcn_data(data, rating, GRAPH_STEPS * SEQ_BATCH, seed + 27 + i)
+        ckpt = os.path.join(work, f"ckpt_{name}")
+        cfg = graph_config(model, **{
+            **extra, "runner.train_data_dir": data, "runner.test_data_dir": data,
+            "runner.model_save_path": ckpt, "runner.infer_load_path": ckpt,
+            "runner.epochs": 2, "runner.print_interval": 5})
+        trainer = Trainer(cfg)
+        trainer.init_state(seed=seed)
+        if label == "recall.mhcn set_graph":
+            trainer.model_def.set_graph(social, rating)
+        if model.startswith("graph.") and not isinstance(
+                trainer.make_dataset(data, SEQ_BATCH), GraphChunkedDataset):
+            raise AssertionError(f"{model} did not read through the native engine")
+        infer_k1, step_k1 = GRAPH_LAUNCHES.get(model, (1, 1))
+        run = run_training(gp, cfg, seed, trainer=trainer, tables=step_k1,
+                           eval_tables=infer_k1, min_steps=20)
+        run["model"] = label
+        if model.startswith("graph."):
+            run["dataset"] = "GraphChunkedDataset (native engine)"
+        _add_run(out, run)
+        out["runs"][label] = run
+        trainers[label] = trainer
+        emit({"train": run, "card": card})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    serve_graph_models(gp, trainers, seed, card, out)
+    trainers.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    walk_feeds_at_scale(gp, work, seed, card, out, datas)
+
+    for model in ("recall.deepwalk", "graph.gnn", "recall.tisas", "recall.ensfm"):
+        name = model.split(".")[1]
+        export_dir = os.path.join(work, f"export_{name}")
+        t0 = time.perf_counter()
+        export_model(graph_config(model, **{"runner.model_init_path": os.path.join(
+            work, f"ckpt_{name}", "1")}), export_dir)
+        cpu_preds = np.concatenate([p.reshape(-1) for p in run_predict(
+            export_dir, datas[model], SEQ_BATCH, device="cpu")[0]])
+        _reset(gp)
+        served, report = run_predict(export_dir, datas[model], SEQ_BATCH)
+        launched = _counts(gp)
+        infer_k1 = GRAPH_LAUNCHES.get(model, (1, 1))[0]
+        if launched[:2] != (infer_k1 * len(served), 0):
+            raise AssertionError(f"{model}: K1, K1b {launched[:2]} for {len(served)} batches")
+        _add_launched(out, launched)
+        preds = np.concatenate([p.reshape(-1) for p in served])
+        err = float(np.abs(preds - cpu_preds).max())
+        if not (np.all(np.isfinite(preds)) and np.ptp(preds) > 0 and err <= ZOO_ATOL):
+            raise AssertionError(f"{model}: served predictions, card vs CPU max err {err}")
+        emit({"predict": {"model": model, "batch_size": SEQ_BATCH, **report,
+                          "max_abs_err_vs_cpu": err, "k1_launches": launched[0],
+                          "seconds_export_and_predict": time.perf_counter() - t0},
+              "card": card})
+        shutil.rmtree(export_dir)
+    for model in ("recall.tisas", "recall.mind"):
+        emit({"profile_train": profile_train(graph_config(model), SEQ_BATCH, seed, iters=20),
+              "card": card})
+    return out
+
+
+# the lookups of phases 26 and 27, each one K1 launch (fill mode, the
+# gathers from activations in clip mode): (shape, rows, D, N, ids, mode,
+# trained: K1b at the shape too); the served batch 1024 is a forward only
+GRAPH_SHAPES = (
+    ("deepwalk node_embedding, src + positive + 5 negatives", 10312, 16, 32 * 7,
+     "uniform", "fill", True),
+    ("deepwalk node_embeddings served, B=32", 10312, 16, 32, "uniform", "fill", False),
+    ("deepwalk node_embeddings served, B=1024", 10312, 16, 1024, "uniform", "fill", False),
+    ("gnn node_embedding, pair nodes + one hop of 5", 10000, 64, 32 * 2 * 6, "uniform",
+     "fill", True),
+    ("deepwalk_million node_embedding, pair nodes", 10000, 64, 32 * 2, "uniform", "fill",
+     True),
+    ("mind item_emb, history + target + 128 negatives", 367983, 64, 32 * 149, "uniform",
+     "fill", True),
+    ("mind user_capsules served, B=32", 367983, 64, 32 * 20, "uniform", "fill", False),
+    ("mind user_capsules served, B=1024", 367983, 64, 1024 * 20, "uniform", "fill", False),
+    ("tisas item_emb, history + positives + negatives (B=32 served: + 100 candidates)",
+     3418, 50, 32 * 150, "uniform", "fill", True),
+    ("tisas item_emb, history + 100 candidates, B=1024", 3418, 50, 1024 * 150, "uniform",
+     "fill", False),
+    ("tisas abs_pos_K/V_emb", 50, 50, 32 * 50, "period 50", "fill", True),
+    ("tisas abs_pos_K/V_emb, B=1024", 50, 50, 1024 * 50, "period 50", "fill", False),
+    ("tisas time_matrix_K/V_emb", 257, 50, 32 * 50 * 50, "uniform", "fill", True),
+    ("tisas time_matrix_K/V_emb, B=1024", 257, 50, 1024 * 50 * 50, "uniform", "fill", False),
+    ("ensfm user_feature_emb", 6069, 8, 32, "uniform", "fill", True),
+    ("ensfm user_feature_emb served, B=1024", 6069, 8, 1024, "uniform", "fill", False),
+    ("ensfm user_bias", 6069, 1, 32, "uniform", "fill", True),
+    ("ensfm user_bias served, B=1024", 6069, 1, 1024, "uniform", "fill", False),
+    ("ensfm all_item_feature_emb, the catalogue", 3954, 8, 3953, "period 3953", "fill", True),
+    ("ensfm item_bias, the catalogue", 3953, 1, 3953, "period 3953", "fill", True),
+    ("ensfm positives' rows of q, half of them pads clipped", 3953, 10, 32 * 64, "half last",
+     "clip", True),
+    ("mhcn users' rows of the user embedding", 64, 50, 32, "uniform", "clip", True),
+    ("mhcn positives' + negatives' rows of the item embedding", 64, 50, 64, "uniform",
+     "clip", True),
+)
+
+
+@_uncounted
+def check_graph_shapes(gp, seed: int, card: str) -> None:
+    """Phase 28, before the timing: K1 and K1b at ``GRAPH_SHAPES`` against
+    their plain versions on the ids the timing uses first: K1 bitwise, K1b
+    rtol 1e-5 and atol 1e-6 times the most adds a row takes (tisas's
+    time-matrix rows take about 311 a row at B=32), atomics adding in
+    another order."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    checks = []
+    for name, rows, dim, n, kind, mode, trained in GRAPH_SHAPES:
+        table = torch.randn(rows, dim, device="cuda", generator=g)
+        ids = _fill_ids(kind, rows, n, g)
+        out = gp.gather_pool(table, ids, None, mode=mode)
+        ref = gp.gather_pool_plain(table, ids, None, mode=mode)
+        check = {"shape": name, "n": n, "dim": dim, "rows": rows, "ids": kind, "mode": mode,
+                 "k1_max_abs_err": float((out - ref).abs().max()),
+                 "k1_ok": bool(torch.equal(out, ref)), "k1_tolerance": "bitwise"}
+        if trained:
+            grad = torch.randn(n, dim, device="cuda", generator=g)
+            err, ok, tol, adds = k1b_check(gp, grad, ids, None, rows, torch.float32, mode)
+            check.update(most_adds_per_row=adds, k1b_max_abs_err=err, k1b_tolerance=tol,
+                         k1b_ok=ok)
+        torch.cuda.synchronize()
+        checks.append(check)
+        del table, ids, out, ref
+        if not (check["k1_ok"] and check.get("k1b_ok", True)):
+            raise AssertionError(f"a kernel disagrees with its plain version: {check}")
+    emit({"graph_kernel_checks": checks, "card": card})
+
+
+# -- K1 at every timed shape (phases 7, 15, 18, 22, 25, 28; ``--only k1``) --
 class K1Shape(NamedTuple):
     """One timed lookup of K1: a (rows, dim) table in ``dtype`` read at n
     rows of ``pool`` ids.  ``ids`` as ``_k1_ids``; ``vocab`` bounds uniform
@@ -3013,14 +3670,17 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def k1_shapes(group: str) -> tuple:
     """The K1 rows of a phase: ``main`` (phase 7), ``seq`` (15), ``rest``
-    (18), ``mt`` (22), ``match`` (25), each from the one definition of its
-    shapes."""
+    (18), ``mt`` (22), ``match`` (25), ``graph`` (28), each from the one
+    definition of its shapes."""
     if group == "main":
         return MAIN_SHAPES
     if group == "match":
         return tuple(K1Shape(name, rows, dim, n, pool, "fill", masked=pool > 1,
                              library="embedding_bag" if pool > 1 else "embedding")
                      for name, rows, dim, n, pool, _ in MATCH_SHAPES)
+    if group == "graph":
+        return tuple(K1Shape(name, rows, dim, n, mode=mode, ids=kind, library="embedding")
+                     for name, rows, dim, n, kind, mode, _ in GRAPH_SHAPES)
     if group in ("seq", "rest"):
         return tuple(K1Shape(name, rows, dim, n, mode="fill", ids=kind, library="embedding")
                      for name, rows, dim, n, kind in (SEQ_SHAPES if group == "seq"
@@ -3036,9 +3696,10 @@ def k1_shapes(group: str) -> tuple:
 
 def _k1_ids(shape: K1Shape, g) -> torch.Tensor:
     """(n, pool) int32 ids: ``uniform`` over [0, vocab), ``zeros``,
-    ``period P`` (0..P-1 repeated: (B, T) position ids), or ``tenth
-    outside`` (uniform, a tenth moved past the table's end)."""
-    if shape.ids in ("zeros",) or shape.ids.startswith("period"):
+    ``period P`` (0..P-1 repeated: (B, T) position ids), ``half last`` (as
+    ``_fill_ids``), or ``tenth outside`` (uniform, a tenth moved past the
+    table's end)."""
+    if shape.ids in ("zeros", "half last") or shape.ids.startswith("period"):
         return _fill_ids(shape.ids, shape.rows, shape.n, g)
     ids = torch.randint(0, shape.vocab or shape.rows, (shape.n, shape.pool), device="cuda",
                         generator=g, dtype=torch.int32)
@@ -3227,7 +3888,7 @@ def k1_only(gp, seed: int, card: str, against) -> None:
     del wide
     floor_ms = time_launch_floor(gp)
     shapes = (k1_shapes("main") + k1_shapes("seq") + k1_shapes("rest") + k1_shapes("mt")
-              + k1_shapes("match") + EXTRA_SHAPES)
+              + k1_shapes("match") + k1_shapes("graph") + EXTRA_SHAPES)
     rows = time_k1_shapes(gp, shapes, seed + 9, variants)
     set_share(rows, floor_ms)
     for row in rows:
@@ -3237,7 +3898,7 @@ def k1_only(gp, seed: int, card: str, against) -> None:
 
 
 
-# -- K1b at every timed shape (phases 7, 10, 15, 18, 22, 25; ``--only k1b``) --
+# -- K1b at every timed shape (phases 7, 10, 15, 18, 22, 25, 28; --only k1b) -
 class K1bShape(NamedTuple):
     """One timed gradient of K1 (kernel K1b): g (n, dim) in ``g_dtype``
     scattered at (n, pool) ids into a dense (rows, dim) dtable in ``dtype``.
@@ -3286,8 +3947,8 @@ K1B_EXTRA_SHAPES = (
 def k1b_shapes(group: str) -> tuple:
     """The K1b rows of a phase: ``main`` (7), ``compact`` (10), ``seq``
     (15), ``rest`` (18), ``mt`` (22; K1 as K1b's backward is a K1 launch
-    only), ``match`` (25: the shapes that are trained), ``extra``
-    (``--only k1b``)."""
+    only), ``match`` (25) and ``graph`` (28: the shapes that are trained),
+    ``extra`` (``--only k1b``)."""
     if group == "main":
         return K1B_MAIN_SHAPES
     if group == "match":
@@ -3295,6 +3956,9 @@ def k1b_shapes(group: str) -> tuple:
                               library=("embedding_bag_backward" if pool > 1
                                        else "embedding_dense_backward"))
                      for name, rows, dim, n, pool, trained in MATCH_SHAPES if trained)
+    if group == "graph":
+        return tuple(K1bShape(name, rows, dim, n, mode=mode, ids=kind)
+                     for name, rows, dim, n, kind, mode, trained in GRAPH_SHAPES if trained)
     if group == "compact":
         return K1B_COMPACT_SHAPES
     if group == "extra":
@@ -3333,10 +3997,11 @@ def metaheac_k1b_shapes() -> tuple:
 def _k1b_sets(shape: K1bShape, g, rng) -> tuple:
     """(id sets, rows): (n, pool) int32 ids, ``uniform`` over [0, vocab) in
     enough distinct sets that a cycle through them touches more rows than
-    L2 holds, ``zeros`` or ``period P`` (one set, as ``_fill_ids``),
+    L2 holds, ``zeros``, ``period P`` or ``half last`` (one set, as
+    ``_fill_ids``),
     ``residues`` (uniform, id mod 4 = n mod 4), or ``compact`` (the lane
     ids of ``host_dedup``'s slots, the rows one buffer of 8·U for all)."""
-    if shape.ids == "zeros" or shape.ids.startswith("period"):
+    if shape.ids in ("zeros", "half last") or shape.ids.startswith("period"):
         return [_fill_ids(shape.ids, shape.rows, shape.n, g)], shape.rows
     n_sets = max(4, min(64, math.ceil(50e6 / (shape.n * shape.pool * max(shape.dim, 16) * 4))))
     if shape.ids == "compact":
@@ -3487,7 +4152,7 @@ def k1b_only(gp, seed: int, card: str, against) -> None:
     main_err = check_k1b(gp, seed, card)
     floor_ms = time_launch_floor(gp)
     shapes = sum((k1b_shapes(group) for group in
-                  ("main", "compact", "seq", "rest", "mt", "match", "extra")), ())
+                  ("main", "compact", "seq", "rest", "mt", "match", "graph", "extra")), ())
     rows = time_k1b_shapes(gp, shapes, seed + 9, variants)
     set_share(rows, floor_ms)
     for row in rows:
@@ -3720,6 +4385,18 @@ def main(argv=None) -> int:
         check_match_shapes(gp, args.seed + 25, card)  # phase 25
         match_cases = time_k1_shapes(gp, k1_shapes("match"), args.seed + 25)
         match_bwd_cases = time_k1b_shapes(gp, k1b_shapes("match"), args.seed + 25)
+        gc.collect()
+        torch.cuda.empty_cache()
+        gp.gather_pool.launches_by_shape.clear()  # from here: K1 of phases 26-27 by shape
+        k1b_before = collections.Counter(gp.gather_pool_bwd.launches_by_shape)
+        graph = graph_zoo(gp, args.seed, card)  # phase 26
+        graph_runs = graph_paths(gp, work, args.seed, card)  # phase 27
+        graph_k1_by_shape = dict(gp.gather_pool.launches_by_shape)
+        graph_k1b_by_shape = collections.Counter(gp.gather_pool_bwd.launches_by_shape)
+        graph_k1b_by_shape.subtract(k1b_before)
+        check_graph_shapes(gp, args.seed + 28, card)  # phase 28
+        graph_cases = time_k1_shapes(gp, k1_shapes("graph"), args.seed + 28)
+        graph_bwd_cases = time_k1b_shapes(gp, k1b_shapes("graph"), args.seed + 28)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for case, batch in zip(cases, BATCHES):
@@ -3783,17 +4460,29 @@ def main(argv=None) -> int:
             or not all(case["launches"] > 0 for case in match_cases)):
         raise AssertionError(f"phases 23-24 launched K1 {match_k1} times, by shape "
                              f"{match_k1_by_shape}")
+    # phases 26 and 27, counted by shape at the launch the same way
+    graph_k1 = graph["k1"] + graph_runs["k1"]
+    for case in graph_cases:
+        case["launches"] = graph_k1_by_shape.get(
+            (case["rows"], case["dim"], case["dtype"], case["n"], case["pool"]), 0)
+    if (sum(case["launches"] for case in graph_cases) != graph_k1
+            or sum(graph_k1_by_shape.values()) != graph_k1
+            or not all(case["launches"] > 0 for case in graph_cases)):
+        raise AssertionError(f"phases 26-27 launched K1 {graph_k1} times, by shape "
+                             f"{graph_k1_by_shape}")
     all_runs = list(train_runs.values()) + list(sparse["runs"].values())
     k1_launches = (sum(launches.values()) + first["k1_launches"]
                    + sparse["first"]["k1_launches"] + sparse["served_launches"]
                    + sum(r["k1_launches"] + r["eval"]["k1_launches"] for r in all_runs)
                    + zoo["k1_launches"] + paths["k1_launches"] + seq["k1"] + seq_runs["k1"]
-                   + rest["k1"] + rest_runs["k1"] + mt["k1"] + mt_runs["k1"] + match_k1)
+                   + rest["k1"] + rest_runs["k1"] + mt["k1"] + mt_runs["k1"] + match_k1
+                   + graph_k1)
     k1b_launches = (first["k1b_launches"] + sparse["first"]["k1b_launches"]
                     + sum(r["k1b_launches"] for r in all_runs)
                     + zoo["k1b_launches"] + paths["k1b_launches"] + seq["k1b"]
                     + seq_runs["k1b"] + rest["k1b"] + rest_runs["k1b"] + mt["k1b"]
-                    + mt_runs["k1b"] + match["k1b"] + match_runs["k1b"])
+                    + mt_runs["k1b"] + match["k1b"] + match_runs["k1b"] + graph["k1b"]
+                    + graph_runs["k1b"])
     if k1_launches < 1 or k1b_launches < 1:
         raise AssertionError("the main path launched a kernel no time")
     # K1b's launches per timed shape, from the whole run: those of the shape's
@@ -3807,7 +4496,7 @@ def main(argv=None) -> int:
     emit({"k1b_launches_by_shape": sorted([*k, v] for k, v in by_shape.items()),
           "card": card})
     bwd_all = (bwd_cases + bf16_bwd_cases + zoo_bwd_cases + compact_cases + seq_bwd_cases
-               + rest_bwd_cases + mt_bwd_cases + match_bwd_cases)
+               + rest_bwd_cases + mt_bwd_cases + match_bwd_cases + graph_bwd_cases)
     dense = {(c["rows"], c["dim"], c["dtype"], c["n"]) for c in bwd_all
              if c["ids"] != "compact"}
     for case in bwd_all:
@@ -3823,12 +4512,21 @@ def main(argv=None) -> int:
             or not all(case["launches"] > 0 for case in match_bwd_cases)):
         raise AssertionError(f"phases 23-24 launched K1b {match_k1b} times, by shape "
                              f"{[(c['name'], c['launches']) for c in match_bwd_cases]}")
+    graph_k1b = graph["k1b"] + graph_runs["k1b"]
+    graph_bwd_keys = {(c["rows"], c["dim"], c["dtype"], c["n"]) for c in graph_bwd_cases}
+    if (sum(case["launches"] for case in graph_bwd_cases) < graph_k1b
+            or sum(graph_k1b_by_shape.values()) != graph_k1b
+            or set(+graph_k1b_by_shape) - graph_bwd_keys
+            or not all(case["launches"] > 0 for case in graph_bwd_cases)):
+        raise AssertionError(f"phases 26-27 launched K1b {graph_k1b} times, by shape "
+                             f"{dict(+graph_k1b_by_shape)}")
     kernels = []
     for name, source, replaces, count, err, timed, top in (
         ("gather_pool", "paddlerec_tpu_torch/csrc/gather_pool.cu",
          "paddlerec_tpu/ops/pallas_embedding.py:37", k1_launches,
          max(main_err, sparse["lookup"]["k1_err"]),
-         cases + zoo_cases + big_cases + seq_cases + rest_cases + mt_cases + match_cases,
+         cases + zoo_cases + big_cases + seq_cases + rest_cases + mt_cases + match_cases
+         + graph_cases,
          cases[-1]),
         # the JAX package has no kernel for the gradient: K1b takes the
         # place of the XLA scatter-add of _packed_lookup_bwd

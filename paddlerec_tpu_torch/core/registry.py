@@ -17,7 +17,8 @@ from typing import Any, Dict
 _REGISTRY: Dict[str, Any] = {}
 # names registered by another model's module (the JAX package finds these by
 # importing its whole zoo)
-_ALIASES = {"rank.logistic_regression": "rank.lr"}
+_ALIASES = {"rank.logistic_regression": "rank.lr", "graph.lightgcn": "graph.gnn",
+            "graph.transformer_conv": "graph.gnn", "graph.deepwalk_million": "graph.gnn"}
 
 
 def register_model(name: str):

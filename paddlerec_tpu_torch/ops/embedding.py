@@ -186,7 +186,9 @@ class Embed(nn.Module):
     normal of std ``stddev`` (``initializers.normal(stddev)``), or with
     ``truncated=True`` as well ``initializers.truncated_normal(stddev)``:
     ``stddev`` times a standard normal cut at ±2, or a uniform on ``[0,
-    uniform)`` (``initializers.uniform(scale=uniform)``).
+    uniform)`` (``initializers.uniform(scale=uniform)``), or with a pair
+    ``uniform=(low, high)`` on ``[low, high)`` (``jax.random.uniform(key,
+    shape, dtype, low, high)``).
 
     ``emb(ids)`` looks up ids of any shape → ``ids.shape + (features,)``,
     one K1 launch, its gradient one K1b launch.  ``emb(a, b, ...)`` looks up
@@ -213,7 +215,7 @@ class Embed(nn.Module):
     def __init__(self, num_embeddings: int, features: int, zeros: bool = False,
                  device=None, generator: Optional[torch.Generator] = None,
                  stddev: Optional[float] = None, truncated: bool = False,
-                 uniform: Optional[float] = None):
+                 uniform: Optional[Union[float, Tuple[float, float]]] = None):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.features = features
@@ -222,7 +224,8 @@ class Embed(nn.Module):
         if zeros:
             table.zero_()
         elif uniform is not None:
-            table.uniform_(0.0, uniform, generator=generator)
+            low, high = uniform if isinstance(uniform, tuple) else (0.0, uniform)
+            table.uniform_(low, high, generator=generator)
         elif truncated:
             nn.init.trunc_normal_(table, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
@@ -257,3 +260,23 @@ class Embed(nn.Module):
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.embedding.T
+
+
+def take_rows(x: torch.Tensor, ids: torch.Tensor, wrap: bool = False) -> torch.Tensor:
+    """Rows of a 2-D tensor (a parameter or an activation) at ``ids`` of any
+    shape → ``ids.shape + (x.shape[1],)``: one K1 launch in ``clip`` mode,
+    its gradient into ``x`` one K1b launch.
+
+    ``wrap=False`` is ``jnp.take(x, ids, axis=0, mode="clip")``: every id
+    clipped into [0, R), in the forward and in the gradient alike.
+    ``wrap=True`` is numpy-style indexing ``x[ids]`` in JAX: a negative id
+    wrapped once (``id + R``), then an id still outside [0, R) reads the
+    clipped row and gives no gradient (K1's clip mode)."""
+    rows = x.shape[0]
+    flat = ids.reshape(-1)
+    if wrap:
+        flat = torch.where(flat < 0, flat + rows, flat).clamp(-1, rows)
+    else:
+        flat = flat.clamp(0, rows - 1)
+    out = gather_pool(x, flat.to(torch.int32)[:, None], mode="clip")
+    return out.reshape(ids.shape + (x.shape[1],))

@@ -158,7 +158,11 @@ def test_port_imports_nothing_of_jax():
                      "match.dssm", "match.multiview_simnet", "match.match_pyramid",
                      "match.kim", "contentunderstanding.textcnn",
                      "contentunderstanding.tagspace", "recall.ncf", "recall.word2vec")),
-                 "data.alias", "tools.cal_pos_neg", "tools.analogy_eval"):
+                 "data.alias", "tools.cal_pos_neg", "tools.analogy_eval",
+                 *(f"models.{m}.model" for m in (
+                     "recall.deepwalk", "recall.mind", "recall.tisas", "recall.ensfm",
+                     "recall.mhcn", "graph.gnn")),
+                 "models.graph.layers", "native", "native.graph", "data.graph_dataset"):
         assert f"paddlerec_tpu_torch.{name}" in walked, name
 
 
