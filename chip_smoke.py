@@ -11,14 +11,15 @@ and the CUDA toolkit:
 Phases, in order; any failure is fatal and the script exits non-zero
 without a result line.  ``--only k1`` runs phases 1 and 2, K1's checks of
 phase 3, and then K1 alone, checked against its plain version and timed at
-every shape of phases 7, 15, 18, 22, 25 and 28 and at an output of more than 2^31
-elements (``k1_only``; a minute or two).  ``--only k1b`` does the same for
-K1b: phases 1 and 2, K1b's checks of phase 3, then K1b checked against its
-plain version and timed at every shape of phases 7, 10, 15, 18, 22, 25 and 28
-and at ffm's rows under ids of every residue mod 4 (``k1b_only``).  Each
-``--against`` source (another ``csrc/gather_pool.cu``, or
-``csrc/gather_pool_bwd.cu``, with the same C interface, a parent commit's
+every shape of phases 7, 15, 18, 22, 25, 28 and 32 and at an output of more
+than 2^31 elements (``k1_only``; a minute or two).  ``--only k1b`` does the
+same for K1b: phases 1 and 2, K1b's checks of phase 3, then K1b checked
+against its plain version and timed at every shape of phases 7, 10, 15, 18,
+22, 25, 28 and 32 and at ffm's rows under ids of every residue mod 4
+(``k1b_only``).  Each ``--against`` source (another ``csrc/gather_pool.cu``,
+or ``csrc/gather_pool_bwd.cu``, with the same C interface, a parent commit's
 say) is built beside it and timed in turns with it at every shape.
+``--only 29-32`` runs phases 1, 2 and 29-32 (a few minutes).
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build every kernel of ``paddlerec_tpu_torch/csrc`` with ``nvcc``;
@@ -90,7 +91,7 @@ say) is built beside it and timed in turns with it at every shape.
     table and step, asserted by row width;
 14. din and dien through the entry points on rows in ``DINDataset``'s format
     written from ``--seed`` (a planted signal): ``Trainer.train()`` for two
-    epochs of 300 steps at batch 32, the loss falling, ``evaluate()`` from the
+    epochs of 100 steps at batch 32, the loss falling, ``evaluate()`` from the
     checkpoint, ``export_model`` and ``run_predict`` at batch 32 and 1024 card
     against CPU (atol 1e-5), ``torch.profiler`` over one train step each; dmr
     through ``tools.train`` on rows in its own format;
@@ -102,10 +103,10 @@ say) is built beside it and timed in turns with it at every shape.
     and forward and one K1b per table and step (deeprec 0, iprec 3, naml 3,
     fastformer 5, sign 2, bert4rec 3);
 17. naml (planted signal) and bert4rec (Markov-chain sequences) through
-    ``Trainer.train()`` for two epochs of 100 steps and ``evaluate()``
+    ``Trainer.train()`` for two epochs of 60 steps and ``evaluate()``
     (AUC above 0.5; accuracy above five times chance), the loss falling;
     deeprec, iprec, fastformer and sign through ``tools.train`` for two
-    epochs of 100 steps; iprec, naml and fastformer exported and served by
+    epochs of 60 steps; iprec, naml and fastformer exported and served by
     ``run_predict`` at batch 32 and 1024 card against CPU (atol 1e-5);
     ``torch.profiler`` over the iprec and fastformer train step;
 18. K1 and K1b at their new shapes (a 102-row word table under 19,200 ids,
@@ -173,9 +174,9 @@ say) is built beside it and timed in turns with it at every shape.
     through ``set_graph`` on a seeded graph; the serving calls (deepwalk's
     ``node_embeddings``, mind's ``user_capsules``, tisas's ``score_items``,
     ensfm's scores, mhcn's ``user_item_embeddings``) card against CPU at
-    batch 32, then timed at batch 32 and 1024 (p50, p99 of 300 calls); the
+    batch 32, then timed at batch 32 and 1024 (p50, p99 of 100 calls); the
     walk feeds (deepwalk's, graph.gnn's, graph.deepwalk_million's) read and
-    stepped for 400 batches on a graph of BlogCatalog's size (333,983 edges
+    stepped for 200 batches on a graph of BlogCatalog's size (333,983 edges
     at the configs' node counts); deepwalk,
     graph.gnn, tisas and ensfm exported and served by ``run_predict`` card
     against CPU; ``torch.profiler`` over a tisas and a mind step;
@@ -184,7 +185,26 @@ say) is built beside it and timed in turns with it at every shape.
     items, mind's 367,983 × 64 table, the graph tables, ensfm's tables and
     its clip gather from an activation with half the ids clipped onto one
     row, mhcn's clip gathers), each held against its plain version, then
-    timed; every K1 and K1b launch of phases 26 and 27 is at one of them.
+    timed; every K1 and K1b launch of phases 26 and 27 is at one of them;
+29. the tree family (``tree_paths``): TDM at the widths of
+    ``configs/treebased/tdm/config.yaml`` on a tree of 65,536 seeded items in
+    64 categories (16 levels, 131,071 nodes), card against a CPU twin, two
+    epochs of ``Trainer.train()`` and ``evaluate()``, the beam-search
+    ``retrieve`` at batch 32 and 1024 (the CPU twin's item lists, the
+    history's category recalled above chance, p50/p99 of 100 calls), and JTM
+    through ``tools/jtm.py`` on ``configs/treebased/jtm/config.yaml`` with a
+    4,096-item tree;
+30. rl.a2c at the ModelDef's defaults (``a2c_phase``): a rollout's loss and
+    gradients card against CPU on the same actions, then 20,000 frames of
+    ``train()``, the last greedy return above the untrained policy's;
+31. the movie demo (``movie_paths``) at vocab 600,000, dim 9, towers [512,
+    256, 128, 32], batch 32: both models card against a CPU twin, two epochs
+    of ``train_step`` each, every user's and movie's vector in a cosine
+    ``VectorIndex``, the five services and ``serve_http`` answering as the
+    CPU twin's (p50/p99 of 300 calls each);
+32. K1 and K1b at the shapes of phases 29-31 (``SLICE_SHAPES``), each held
+    against its plain version, then timed; every K1 and K1b launch of phases
+    29-31 is at one of them.  One line gives every phase's seconds.
 
 K1b's ``launches`` in the ``kernels`` line are those of each case's own
 (rows, D, dtable dtype, N) over the main path (a case the main path does
@@ -1404,8 +1424,8 @@ def zoo_paths(gp, work: str, data_dir: str, cpu_rows: int, seeds: dict,
 
 SEQ = ("din", "dien", "bst", "dsin", "dmr", "dpin")  # the behaviour-sequence models
 SEQ_BATCH = 32  # the batch of their configs
-SEQ_ROWS = 300 * SEQ_BATCH  # din's and dien's synthetic rows: 300 steps an epoch
-SEQ_TWIN_ROWS = 1024  # the served rows the CPU run predicts too (rows are independent)
+SEQ_ROWS = 100 * SEQ_BATCH  # din's and dien's synthetic rows: 100 steps an epoch
+SEQ_TWIN_ROWS = 256  # the served rows the CPU run predicts too (rows are independent)
 SEQ_SERVE = (SEQ_BATCH, 1024)
 
 
@@ -1492,6 +1512,39 @@ def _fill_zero_tables(module, seed: int) -> None:
                 m.embedding.normal_(0.0, 0.1, generator=g)
 
 
+def _twin_steps(gp, chip, host, batches, output) -> tuple:
+    """A module on the card (``chip``, a trainer) and its twin on the CPU
+    (``host``) holding the same parameters: ``output(model_def, module,
+    batch)`` on the first batch, then a train step on each of the others, on
+    both.  Returns (the comparison, atol ``ZOO_ATOL``; the card's
+    ``_counts`` of the forward and of the steps); the twin must launch no
+    kernel."""
+    from paddlerec_tpu_torch.core.device import to_tensors
+
+    outs, losses, launched = {}, {}, {}
+    for device, trainer in (("cuda", chip), ("cpu", host)):
+        _reset(gp)
+        outs[device] = output(trainer.model_def, trainer.state.module,
+                              to_tensors(batches[0], trainer.device))
+        forward = _counts(gp)
+        _reset(gp)
+        ms, losses[device] = trainer._init_metric_state(), []
+        for b in batches[1:]:
+            ms, loss = trainer.train_step(to_tensors(b, trainer.device), ms)
+            losses[device].append(float(loss))
+        launched[device] = (forward, _counts(gp))
+    if launched["cpu"][0][:2] + launched["cpu"][1][:2] != (0, 0, 0, 0):
+        raise AssertionError(f"the CPU twin launched a kernel: {launched['cpu']}")
+    out_err = float(np.abs(outs["cuda"] - outs["cpu"]).max())
+    loss_err = float(np.abs(np.array(losses["cuda"]) - np.array(losses["cpu"])).max())
+    ok = bool(np.all(np.isfinite(outs["cuda"])) and np.all(np.isfinite(losses["cuda"]))
+              and np.ptp(outs["cuda"]) > 0 and len(set(losses["cuda"])) > 1
+              and out_err <= ZOO_ATOL and loss_err <= ZOO_ATOL)
+    return ({"ok": ok, "atol": ZOO_ATOL, "max_abs_err_outputs": out_err,
+             "outputs_spread": float(np.ptp(outs["cuda"])), "max_abs_err_loss": loss_err,
+             "loss_cuda": losses["cuda"]}, launched["cuda"])
+
+
 def twin_zoo(gp, seed: int, card: str, models, name: str, config=None,
              expect_tables=None) -> dict:
     """Phases 13, 16 and 23: each of ``models`` at the full width of its
@@ -1504,7 +1557,6 @@ def twin_zoo(gp, seed: int, card: str, models, name: str, config=None,
     as ``expect_tables`` says where it names the model: ``REST_TABLES`` by
     default), K1b launches per step the same, both counted by row width.
     Emits one line under ``name``."""
-    from paddlerec_tpu_torch.core.device import to_tensors
     from paddlerec_tpu_torch.train.trainer import Trainer
 
     config = config or zoo_config
@@ -1531,45 +1583,25 @@ def twin_zoo(gp, seed: int, card: str, models, name: str, config=None,
         rows = host.model_def.example_batch(4 * SEQ_BATCH)
         batches = [{k: v[i * SEQ_BATCH:(i + 1) * SEQ_BATCH] for k, v in rows.items()}
                    for i in range(4)]
-        outs, losses, launched = {}, {}, {}
-        for device, trainer in (("cuda", chip), ("cpu", host)):
-            _reset(gp)
-            outs[device] = _twin_output(trainer.model_def, trainer.state.module,
-                                        to_tensors(batches[0], trainer.device))
-            forward = _counts(gp)
-            _reset(gp)
-            ms, losses[device] = trainer._init_metric_state(), []
-            for b in batches[1:]:
-                ms, loss = trainer.train_step(to_tensors(b, trainer.device), ms)
-                losses[device].append(float(loss))
-            launched[device] = (forward, _counts(gp))
+        twin, launched = _twin_steps(gp, chip, host, batches, _twin_output)
         steps = len(batches) - 1
         per_step = {d: c * steps for d, c in widths.items()}
-        (f1, f1b, f1_dim, _), (s1, s1b, s1_dim, s1b_dim) = launched["cuda"]
-        counted = (f1 == tables and f1b == 0 and f1_dim == dict(widths)
-                   and s1 == s1b == tables * steps and s1_dim == s1b_dim == per_step)
-        if not counted or launched["cpu"][0][:2] + launched["cpu"][1][:2] != (0, 0, 0, 0):
+        (f1, f1b, f1_dim, _), (s1, s1b, s1_dim, s1b_dim) = launched
+        if not (f1 == tables and f1b == 0 and f1_dim == dict(widths)
+                and s1 == s1b == tables * steps and s1_dim == s1b_dim == per_step):
             raise AssertionError(f"{model}: K1, K1b launches {launched}, "
                                  f"expected {tables} tables {dict(widths)}")
         _add_launched(totals, (f1 + s1, s1b, {}, s1b_dim))
         _add_dims(totals, "k1_by_dim", f1_dim)
         _add_dims(totals, "k1_by_dim", s1_dim)
-        out_err = float(np.abs(outs["cuda"] - outs["cpu"]).max())
-        loss_err = float(np.abs(np.array(losses["cuda"]) - np.array(losses["cpu"])).max())
-        ok = bool(np.all(np.isfinite(outs["cuda"])) and np.all(np.isfinite(losses["cuda"]))
-                  and np.ptp(outs["cuda"]) > 0 and len(set(losses["cuda"])) > 1
-                  and out_err <= ZOO_ATOL and loss_err <= ZOO_ATOL)
         results.append({
-            "model": model, "ok": ok, "atol": ZOO_ATOL, "seed": seed,
-            "max_abs_err_outputs": out_err, "outputs_spread": float(np.ptp(outs["cuda"])),
-            "max_abs_err_loss": loss_err, "loss_cuda": losses["cuda"],
-            "tables_by_dim": dict(widths), "k1_per_forward": f1,
-            "k1b_per_step": s1b // steps,
+            "model": model, **twin, "seed": seed, "tables_by_dim": dict(widths),
+            "k1_per_forward": f1, "k1b_per_step": s1b // steps,
             "parameters": sum(p.numel() for p in chip.state.module.parameters()),
             "seconds": time.perf_counter() - t0})
-        if not ok:
+        if not twin["ok"]:
             failed.append(model)
-        del host, chip, trainer, ms, loss
+        del host, chip
         gc.collect()
         torch.cuda.empty_cache()
     emit({name: results, "batch_size": SEQ_BATCH, "card": card})
@@ -1746,12 +1778,12 @@ REST = ("deeprec", "iprec", "naml", "fastformer", "sign", "bert4rec")  # the res
 REST_TABLES = {"deeprec": 0, "iprec": 3, "naml": 3, "fastformer": 5, "sign": 2, "bert4rec": 3}
 REST_SERVED = ("iprec", "naml", "fastformer")
 REST_SERVE_ROWS = 11 * 1024 + 64  # ten timed batches of 1024 after the warm-up
-REST_TWIN_ROWS = 512  # the served rows the CPU twin predicts too (rows are independent)
-REST_TRAIN_ROWS = 100 * SEQ_BATCH  # naml's and bert4rec's rows: 100 steps an epoch
+REST_TWIN_ROWS = 256  # the served rows the CPU twin predicts too (rows are independent)
+REST_TRAIN_ROWS = 60 * SEQ_BATCH  # naml's and bert4rec's rows: 60 steps an epoch
 CHAIN_ITEMS = 200  # bert4rec's Markov chain
-# the four models driven through tools.train: two epochs of 100 steps, the
+# the four models driven through tools.train: two epochs of 60 steps, the
 # second timed
-REST_CLI_ROWS = 100 * SEQ_BATCH
+REST_CLI_ROWS = 60 * SEQ_BATCH
 
 
 def _write_lines(data_dir: str, lines) -> None:
@@ -1866,10 +1898,10 @@ def rank_rest_paths(gp, work: str, seed: int, card: str) -> dict:
     full width of their configs, batch 32:
       * naml (planted signal: the positive shares the browsed category) and
         bert4rec (Markov-chain sequences): ``Trainer.train()`` for two
-        epochs of 100 steps, the loss falling, ``evaluate()`` reporting AUC
+        epochs of 60 steps, the loss falling, ``evaluate()`` reporting AUC
         above 0.5 / an accuracy above five times chance;
       * deeprec, iprec, fastformer and sign: ``tools.train`` for two epochs
-        of 100 steps each on rows in their format, every logged loss
+        of 60 steps each on rows in their format, every logged loss
         finite, the second epoch's examples/s;
       * iprec, naml and fastformer served: ``export_model`` (naml from its
         checkpoint, the others from a seed) and ``run_predict`` at batch 32
@@ -2044,7 +2076,7 @@ def check_fill_shapes(gp, seed: int, card: str, shapes) -> None:
 MULTITASK = ("share_bottom", "mmoe", "ple", "esmm", "aitm", "escm2", "dselect_k", "maml",
              "metaheac")
 ALI_CCP_MODELS = ("esmm", "aitm", "escm2")
-MT_TRAIN_STEPS = 100  # steps an epoch at the configs' batch 32
+MT_TRAIN_STEPS = 80  # steps an epoch at the configs' batch 32
 MT_EPISODES = 20  # maml's episodes an epoch (each a batch of 32 tasks)
 MT_SERVE_ROWS = REST_SERVE_ROWS  # ten timed batches of 1024 after the warm-up
 MT_SERVE_BATCHES = 11  # metaheac's served batches: a warm-up and ten timed
@@ -2329,8 +2361,8 @@ def multitask_paths(gp, work: str, seed: int, card: str) -> dict:
     """Phase 20, the multitask family through the entry points at the
     ModelDefs' default widths, batch 32, on rows written in each reader's
     format with a planted signal (``write_*_data``):
-      * every model: ``Trainer.train()`` for two epochs (100 steps each;
-        metaheac 25 steps of 5 tasks, maml 20 episodes of 32 tasks), the
+      * every model: ``Trainer.train()`` for two epochs (80 steps each;
+        metaheac 20 steps of 5 tasks, maml 20 episodes of 32 tasks), the
         mean of the second half of the logged losses below the first half's,
         then ``evaluate()`` from the checkpoint: every AUC above 0.5,
         dselect_k's accuracies above 0.1, maml's 5-way query accuracy after
@@ -2595,7 +2627,7 @@ W2V_SENTENCES = 120  # word2vec's sentences: about 280 windows of 32 pairs an ep
 MATCH_SERVED = ("match.match_pyramid", "contentunderstanding.textcnn",
                 "contentunderstanding.tagspace")  # served at batch 32 and 1024
 KIM_SERVE_BATCHES = 11  # kim served at batch 32: a warm-up and ten timed
-KIM_TWIN_ROWS = 64  # the served kim rows its CPU twin predicts too
+KIM_TWIN_ROWS = 32  # the served kim rows its CPU twin predicts too
 
 
 def slice_config(model: str, **extra):
@@ -3024,8 +3056,8 @@ GRAPH_STEPS = 30  # mind's, tisas's, ensfm's and mhcn's steps an epoch at batch 
 # BlogCatalog (Tang & Liu, KDD 2009; DeepWalk's graph, the configs' 10,312
 # nodes): 333,983 undirected edges among 39 groups, a power-law degree
 BLOG_EDGES, BLOG_GROUPS = 333_983, 39
-SCALE_STEPS = 400  # the batches fed and stepped on the graph of BlogCatalog's size
-SCALE_WARM = 100  # of which the first, untimed: the preload thread's passes ahead
+SCALE_STEPS = 200  # the batches fed and stepped on the graph of BlogCatalog's size
+SCALE_WARM = 50  # of which the first, untimed: the preload thread's passes ahead
 # the walkers at scale: deepwalk's Python one, the native engine with a hop of
 # samples (graph.lightgcn and graph.transformer_conv read the same feed as
 # graph.gnn) and without
@@ -3083,7 +3115,6 @@ def graph_zoo(gp, seed: int, card: str) -> dict:
     outputs (``_graph_output``) and losses card against CPU (atol 1e-5),
     with the K1 launches per forward and the K1 and K1b launches per step of
     ``GRAPH_LAUNCHES`` (one and one by default)."""
-    from paddlerec_tpu_torch.core.device import to_tensors
     from paddlerec_tpu_torch.train.trainer import Trainer
 
     results, failed = [], []
@@ -3101,42 +3132,23 @@ def graph_zoo(gp, seed: int, card: str) -> dict:
                 _shared_perms(trainer.model_def, trainer, seed + 26)
         batches = _graph_batches(host.model_def)
         infer_k1, step_k1 = GRAPH_LAUNCHES.get(model, (1, 1))
-        outs, losses, launched = {}, {}, {}
-        for device, trainer in (("cuda", chip), ("cpu", host)):
-            _reset(gp)
-            outs[device] = _graph_output(trainer.model_def, trainer.state.module,
-                                         to_tensors(batches[0], trainer.device))
-            forward = _counts(gp)
-            _reset(gp)
-            ms, losses[device] = trainer._init_metric_state(), []
-            for b in batches[1:]:
-                ms, loss = trainer.train_step(to_tensors(b, trainer.device), ms)
-                losses[device].append(float(loss))
-            launched[device] = (forward, _counts(gp))
+        twin, launched = _twin_steps(gp, chip, host, batches, _graph_output)
         steps = len(batches) - 1
-        (f1, f1b, f1_dim, _), (s1, s1b, s1_dim, s1b_dim) = launched["cuda"]
-        if ((f1, f1b, s1, s1b) != (infer_k1, 0, step_k1 * steps, step_k1 * steps)
-                or launched["cpu"][0][:2] + launched["cpu"][1][:2] != (0, 0, 0, 0)):
+        (f1, f1b, f1_dim, _), (s1, s1b, s1_dim, s1b_dim) = launched
+        if (f1, f1b, s1, s1b) != (infer_k1, 0, step_k1 * steps, step_k1 * steps):
             raise AssertionError(f"{model}: K1, K1b launches {launched}, expected "
                                  f"{infer_k1} a forward and {step_k1} a step")
         _add_launched(totals, (f1 + s1, s1b, {}, s1b_dim))
         _add_dims(totals, "k1_by_dim", f1_dim)
         _add_dims(totals, "k1_by_dim", s1_dim)
-        out_err = float(np.abs(outs["cuda"] - outs["cpu"]).max())
-        loss_err = float(np.abs(np.array(losses["cuda"]) - np.array(losses["cpu"])).max())
-        ok = bool(np.all(np.isfinite(outs["cuda"])) and np.all(np.isfinite(losses["cuda"]))
-                  and np.ptp(outs["cuda"]) > 0 and len(set(losses["cuda"])) > 1
-                  and out_err <= ZOO_ATOL and loss_err <= ZOO_ATOL)
         results.append({
-            "model": model, "ok": ok, "atol": ZOO_ATOL, "seed": seed,
-            "max_abs_err_outputs": out_err, "outputs_spread": float(np.ptp(outs["cuda"])),
-            "max_abs_err_loss": loss_err, "loss_cuda": losses["cuda"],
+            "model": model, **twin, "seed": seed,
             "k1_per_forward": f1, "k1b_per_step": s1b // steps,
             "parameters": sum(p.numel() for p in chip.state.module.parameters()),
             "seconds": time.perf_counter() - t0})
-        if not ok:
+        if not twin["ok"]:
             failed.append(model)
-        del host, chip, trainer, ms, loss
+        del host, chip
         gc.collect()
         torch.cuda.empty_cache()
     emit({"graph_zoo": results, "batch_size": SEQ_BATCH, "card": card})
@@ -3619,6 +3631,652 @@ def check_graph_shapes(gp, seed: int, card: str) -> None:
     emit({"graph_kernel_checks": checks, "card": card})
 
 
+# -- the tree family, a2c and the movie demo (phases 29-32) -----------------
+TREE_ITEMS, TREE_CATEGORIES = 65_536, 64  # by category: 16 levels, 131,071 nodes
+TREE_STEPS = 300  # steps an epoch at the config's batch 32
+TREE_EVAL_STEPS = 10
+TREE_SERVE = (SEQ_BATCH, 1024)
+TREE_SERVE_CALLS = 101  # a warm-up and 100 timed retrievals a batch size
+TREE_PROFILE_CALLS = 5  # then profiled: the profiler's cost grows with the kernels it records
+TREE_BEAM, TREE_TOPK = 20, 10
+JTM_ITEMS, JTM_STEPS = 4_096, 64  # the JTM run's tree (12 levels) and steps a round
+A2C_FRAMES, A2C_LOG_EVERY = 20_000, 2_000
+# MovieLens-1M's shape: users, movies, genres, words a title at most
+MOVIE_USERS, MOVIE_MOVIES, MOVIE_GENRES = 6_040, 3_883, 18
+MOVIE_WORDS = 5_000  # the titles' vocabulary
+MOVIE_STEPS = 150  # steps an epoch at batch 32
+MOVIE_SERVE_CALLS = 301  # a warm-up and 300 timed recommendations (and HTTP calls)
+MOVIE_TWIN_UIDS = 24  # the users whose recommendations the CPU twin answers too
+
+
+def tree_config(name: str = "tdm", **extra):
+    """``configs/treebased/<name>/config.yaml`` with ``extra`` flat keys."""
+    return slice_config(f"treebased.{name}", **extra)
+
+
+def category_tree(seed: int, items: int, categories: int):
+    """A ``TreeIndex`` built by category over item ids 1..items, each
+    category ``items / categories`` seeded items: every category fills one
+    subtree.  Returns (tree, category of each item id, 0 unused)."""
+    from paddlerec_tpu_torch.models.treebased.tree import TreeIndex
+
+    rng = np.random.RandomState(seed)
+    cats = np.zeros(items + 1, np.int64)
+    cats[1:] = rng.permutation(items) % categories
+    return TreeIndex.build_by_category(np.arange(1, items + 1), cats[1:]), cats
+
+
+def tdm_rows(cats, rows: int, hist_len: int, seed: int):
+    """(histories (rows, hist_len) of item ids, targets, categories): each
+    row's history and target from one category of ``cats``, its items drawn
+    by a Zipf law of exponent 1.2 over the category's (a few popular items
+    take most of the clicks); one history item in 20 an id the tree does not
+    hold (code 0 under mask 0)."""
+    rng = np.random.RandomState(seed)
+    items = len(cats) - 1
+    by_cat = [np.flatnonzero(cats[1:] == c) + 1 for c in range(int(cats[1:].max()) + 1)]
+    law = np.cumsum(1.0 / np.arange(1, len(by_cat[0]) + 1) ** 1.2)
+    law /= law[-1]
+    row_cat = rng.randint(len(by_cat), size=rows)
+    members = np.stack([by_cat[c] for c in row_cat])  # (rows, items a category)
+    picks = np.minimum(np.searchsorted(law, rng.rand(rows, hist_len + 1)), law.size - 1)
+    drawn = np.take_along_axis(members, picks, axis=1)
+    hist, targets = drawn[:, :hist_len], drawn[:, hist_len]
+    hist[rng.rand(rows, hist_len) < 0.05] = items + 1 + rng.randint(1000)
+    return hist, targets, row_cat
+
+
+def write_tdm_data(data_dir: str, cats, rows: int, hist_len: int, seed: int) -> None:
+    """``TDMDataset`` lines ``hist ... | target`` from ``tdm_rows``."""
+    hist, targets, _ = tdm_rows(cats, rows, hist_len, seed)
+    _write_lines(data_dir, [f"{_ids(h)} | {t}" for h, t in zip(hist, targets)])
+
+
+def tdm_histories(tree, cats, rows: int, hist_len: int, seed: int, device):
+    """Retrieval inputs of ``tdm_rows``: (hist codes, hist mask) on
+    ``device`` and the rows' categories."""
+    hist, _, row_cat = tdm_rows(cats, rows, hist_len, seed)
+    code = dict(zip(tree.item_ids.tolist(), tree.codes.tolist()))
+    codes = np.vectorize(lambda i: code.get(int(i), 0), otypes=[np.int64])(hist)
+    return (torch.from_numpy(codes).to(device),
+            torch.from_numpy((codes > 0).astype(np.float32)).to(device), row_cat)
+
+
+def _twins(cfg, seed: int, prepare=None):
+    """(card trainer, CPU trainer) of ``cfg`` holding the CPU twin's initial
+    parameters; ``prepare(model_def)`` runs on each model before its
+    parameters are made (a tree set)."""
+    from paddlerec_tpu_torch.train.trainer import Trainer
+
+    host, chip = Trainer(cfg, device="cpu"), Trainer(cfg)
+    for trainer in (host, chip):
+        if prepare is not None:
+            prepare(trainer.model_def)
+        trainer.init_state(seed=seed)
+    chip.state.module.load_state_dict(host.state.module.state_dict())
+    return chip, host
+
+
+def _tdm_output(md, module, batch) -> np.ndarray:
+    with torch.no_grad():
+        return md.infer_forward(module, batch)["predictions"].cpu().numpy()
+
+
+def _retrievals(md, module, hist, mask, calls: int) -> tuple:
+    """``calls`` retrievals of the same rows, each ended by a synchronise:
+    (the item lists, p50 and p99 wall ms of all but the first)."""
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        got = md.retrieve(module, hist, mask, topk=TREE_TOPK, beam=TREE_BEAM)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    timed = np.array(times[1:])
+    return got, float(np.percentile(timed, 50)), float(np.percentile(timed, 99))
+
+
+def tree_paths(gp, work: str, seed: int, card: str) -> dict:
+    """Phase 29, the tree family at the widths of
+    ``configs/treebased/tdm/config.yaml`` (``node_emb_size`` 24, the 69 ids
+    of the default ``fea_groups``, 4 negatives a level, batch 32) on a tree
+    of ``TREE_ITEMS`` seeded items in ``TREE_CATEGORIES`` categories, built
+    by category (16 levels, 131,071 nodes), rows whose history and target
+    come from one category:
+      * a module on the card and its CPU twin from one seed: a forward and
+        three train steps (atol 1e-5), one K1 a forward, one K1 and one K1b
+        a step;
+      * ``Trainer.train()`` for two epochs of ``TREE_STEPS`` steps, the loss
+        falling, and ``evaluate()`` from the checkpoint (AUC above 0.5);
+      * ``retrieve`` (beam ``TREE_BEAM``, top ``TREE_TOPK``) at batch 32 and
+        1024: the item lists equal to the CPU twin's on the same trained
+        parameters, the recall of the history's category above chance, then
+        p50/p99 of ``TREE_SERVE_CALLS - 1`` timed calls, then
+        ``TREE_PROFILE_CALLS`` more under ``profile_calls`` (device time and
+        idle share a call); one K1 a level and one for the final rescore;
+      * JTM through ``python -m paddlerec_tpu_torch.tools.jtm`` in-process on
+        ``configs/treebased/jtm/config.yaml`` (2 rounds, gap 3, 4 samples)
+        with a tree of ``JTM_ITEMS`` items: each round's tree a valid
+        permutation of the items onto its leaves."""
+    from paddlerec_tpu_torch.core.device import to_tensors
+    from paddlerec_tpu_torch.models.treebased.tree import TreeIndex
+    from paddlerec_tpu_torch.tools import jtm as jtm_cli
+
+    out = {"k1": 0, "k1b": 0, "k1_by_dim": {}, "k1b_by_dim": {}}
+    t0 = time.perf_counter()
+    tree, cats = category_tree(seed + 29, TREE_ITEMS, TREE_CATEGORIES)
+    build_s = time.perf_counter() - t0
+    if (tree.max_level, tree.total_nodes) != (16, 131_071):
+        raise AssertionError(f"tree of {tree.max_level} levels, {tree.total_nodes} nodes")
+    data, test = os.path.join(work, "tdm_train"), os.path.join(work, "tdm_test")
+    ckpt = os.path.join(work, "ckpt_tdm")
+    cfg = tree_config(**{"runner.train_data_dir": data, "runner.test_data_dir": test,
+                         "runner.model_save_path": ckpt, "runner.infer_load_path": ckpt,
+                         "runner.epochs": 2, "runner.print_interval": 10})
+    chip, host = _twins(cfg, seed, prepare=lambda md: md.set_tree(tree))
+    md = chip.model_def
+    hist_len = sum(md.fea_groups)
+    write_tdm_data(data, cats, TREE_STEPS * SEQ_BATCH, hist_len, seed + 29)
+    write_tdm_data(test, cats, TREE_EVAL_STEPS * SEQ_BATCH, hist_len, seed + 30)
+    t0 = time.perf_counter()
+    batches = list(itertools.islice(iter(md.make_dataset(data, SEQ_BATCH)), 4))
+    twin, ((f1, f1b, _, _), (s1, s1b, _, _)) = _twin_steps(gp, chip, host, batches,
+                                                            _tdm_output)
+    twin.update(model="treebased.tdm", seconds=time.perf_counter() - t0, tree_build_s=build_s,
+                units_per_row=batches[0]["unit_codes"].shape[1], k1_per_forward=f1,
+                k1b_per_step=s1b // 3)
+    if not twin["ok"] or (f1, f1b, s1, s1b) != (1, 0, 3, 3):
+        raise AssertionError(f"treebased.tdm card against CPU: {twin}, K1, K1b "
+                             f"{(f1, f1b, s1, s1b)}")
+    out["k1"] += f1 + s1
+    out["k1b"] += s1b
+    emit({"tree_twin": twin, "card": card})
+    # train a fresh module on the card alone
+    del host
+    chip.init_state(seed=seed)
+    run = run_training(gp, cfg, seed, trainer=chip, min_steps=2 * TREE_STEPS)
+    run["model"] = "treebased.tdm"
+    _add_run(out, run)
+    emit({"train": run, "card": card})
+
+    twin_module = md.make_module(device="cpu")
+    twin_module.load_state_dict(chip.state.module.state_dict())
+    for batch in TREE_SERVE:
+        hist, mask, row_cat = tdm_histories(tree, cats, batch, hist_len, seed + 31,
+                                            chip.device)
+        with torch.inference_mode():
+            want = md.retrieve(twin_module, hist.cpu(), mask.cpu(), topk=TREE_TOPK,
+                               beam=TREE_BEAM)
+            _reset(gp)
+            got, p50, p99 = _retrievals(md, chip.state.module, hist, mask, TREE_SERVE_CALLS)
+            prof = profile_calls(lambda: md.retrieve(chip.state.module, hist, mask,
+                                                     topk=TREE_TOPK, beam=TREE_BEAM),
+                                 TREE_PROFILE_CALLS, "call")
+        launched = _counts(gp)
+        per_call = len(tree.beam_layers(TREE_BEAM)) + 1
+        if launched[:2] != (per_call * (TREE_SERVE_CALLS + TREE_PROFILE_CALLS), 0):
+            raise AssertionError(f"retrieve at {batch}: K1, K1b {launched[:2]}")
+        _add_launched(out, launched)
+        differ = sum(a != b for a, b in zip(got, want))
+        hits = np.array([np.mean([cats[i] == c for i in items])
+                         for items, c in zip(got, row_cat)])
+        result = {"batch_size": batch, "beam": TREE_BEAM, "topk": TREE_TOPK,
+                  "calls": TREE_SERVE_CALLS - 1, "p50_ms": p50, "p99_ms": p99,
+                  "k1_per_call": per_call, "rows_differing_from_cpu": differ,
+                  "recall_of_the_category": float(hits.mean()),
+                  "chance": 1.0 / TREE_CATEGORIES,
+                  "items_per_row": float(np.mean([len(r) for r in got])),
+                  "profile": {"calls": TREE_PROFILE_CALLS, **prof}}
+        emit({"tdm_retrieve": result, "card": card})
+        if differ or not hits.mean() > 1.0 / TREE_CATEGORIES:
+            raise AssertionError(f"retrieve at {batch}: {result}")
+    del chip, twin_module
+
+    t0 = time.perf_counter()
+    jtm_tree, jtm_cats = category_tree(seed + 32, JTM_ITEMS, TREE_CATEGORIES)
+    tree_path = os.path.join(work, "jtm_tree.npz")
+    jtm_tree.save(tree_path)
+    jtm_data, jtm_out = os.path.join(work, "jtm_train"), os.path.join(work, "jtm_out")
+    jtm_cfg = tree_config("jtm")
+    jtm_hist = sum(int(x) for x in str(jtm_cfg.hyper("fea_groups")).split(","))
+    write_tdm_data(jtm_data, jtm_cats, JTM_STEPS * SEQ_BATCH, jtm_hist, seed + 33)
+    _reset(gp)
+    metrics = jtm_cli.main([
+        "-m", os.path.join(ROOT, "configs", "treebased", "jtm", "config.yaml"),
+        "-o", f"runner.train_data_dir={jtm_data}", f"runner.model_save_path={jtm_out}",
+        f"hyper_parameters.tree_path={tree_path}"])
+    launched = _counts(gp)
+    rounds = int(jtm_cfg.runner("jtm_rounds"))
+    moved, before = [], jtm_tree
+    for r in range(rounds):
+        new = TreeIndex.load(os.path.join(jtm_out, f"jtm_tree_round{r}.npz"))
+        valid = (sorted(new.item_ids.tolist()) == list(range(1, JTM_ITEMS + 1))
+                 and len(set(new.codes.tolist())) == JTM_ITEMS
+                 and {new._level(int(c)) for c in new.codes} == {jtm_tree.max_level})
+        if not valid:
+            raise AssertionError(f"JTM round {r}: not a permutation of the items")
+        old = dict(zip(before.item_ids.tolist(), before.codes.tolist()))
+        moved.append(sum(old[i] != c for i, c in zip(new.item_ids.tolist(),
+                                                     new.codes.tolist())))
+        before = new
+    steps = rounds * JTM_STEPS
+    if launched[1] != steps or launched[0] <= steps or not np.isfinite(metrics["auc"]):
+        raise AssertionError(f"JTM: {steps} steps launched K1, K1b {launched[:2]}")
+    _add_launched(out, launched)
+    emit({"jtm": {"items": JTM_ITEMS, "levels": jtm_tree.max_level, "rounds": rounds,
+                  "gap": int(jtm_cfg.hyper("jtm_gap")),
+                  "samples": int(jtm_cfg.hyper("jtm_sample_nums")), "steps": steps,
+                  "train_auc_last_round": metrics["auc"],
+                  "items_moved_each_round": moved, "k1_launches": launched[0],
+                  "k1b_launches": launched[1], "seconds": time.perf_counter() - t0},
+          "card": card})
+    return out
+
+
+def a2c_phase(seed: int, card: str) -> None:
+    """Phase 30, rl.a2c at the ModelDef's defaults (16 environments, hidden
+    256, 5 steps, γ 0.99, lr 1e-3; ``configs/rl/a2c/config.yaml``), dense
+    torch on the card (no lookup, so no K1 or K1b):
+      * one ``rollout_loss`` and every gradient, card against a CPU twin of
+        the same parameters and state, fed the same actions and reset states
+        (atol 1e-5);
+      * the untrained policy's greedy return, then ``train()`` for
+        ``A2C_FRAMES`` frames, the greedy return evaluated every
+        ``A2C_LOG_EVERY``: the history printed with frames/s, and the last
+        return above the first (the untrained policy's)."""
+    from paddlerec_tpu_torch.core.registry import load_model_def
+    from paddlerec_tpu_torch.models.rl.a2c.model import EnvState
+
+    md = load_model_def(slice_config("rl.a2c"))
+    device = torch.device("cuda")
+    module = md.make_module(device=device,
+                            generator=torch.Generator(device=device).manual_seed(seed))
+    twin = md.make_module(device="cpu")
+    twin.load_state_dict(module.state_dict())
+    rng = np.random.RandomState(seed + 30)
+    obs = rng.uniform(-0.05, 0.05, (md.num_envs, 4)).astype(np.float32)
+    steps = rng.randint(0, 200, md.num_envs).astype(np.int32)
+    steps[:3] = 197  # episodes that end inside the rollout
+    actions = [torch.from_numpy(rng.randint(0, 2, md.num_envs)) for _ in range(md.num_steps)]
+    fresh = [torch.from_numpy(rng.uniform(-0.05, 0.05, (md.num_envs, 4)).astype(np.float32))
+             for _ in range(md.num_steps)]
+    losses, grads = {}, {}
+    for name, m, dev in (("cuda", module, device), ("cpu", twin, torch.device("cpu"))):
+        state = EnvState(torch.from_numpy(obs).to(dev), torch.from_numpy(steps).to(dev), None)
+        loss, _ = md.rollout_loss(m, state, actions=[a.to(dev) for a in actions],
+                                  fresh=[f.to(dev) for f in fresh])
+        loss.backward()
+        losses[name] = float(loss.detach())
+        grads[name] = {k: p.grad.cpu() for k, p in m.named_parameters()}
+    grad_err = max(float((grads["cuda"][k] - grads["cpu"][k]).abs().max()) for k in grads["cpu"])
+    loss_err = abs(losses["cuda"] - losses["cpu"])
+    if not (loss_err <= ZOO_ATOL and grad_err <= ZOO_ATOL and np.isfinite(losses["cuda"])):
+        raise AssertionError(f"a2c rollout card vs CPU: loss {losses}, gradients {grad_err}")
+    untrained = md.evaluate_policy(module, torch.Generator(device=device).manual_seed(seed))
+    del module, twin
+    t0 = time.perf_counter()
+    trained, history = md.train(total_frames=A2C_FRAMES, seed=seed, log_every=A2C_LOG_EVERY)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    history = [untrained] + history
+    result = {"envs": md.num_envs, "hidden": md.hidden, "steps": md.num_steps,
+              "frames": A2C_FRAMES, "log_every": A2C_LOG_EVERY,
+              "greedy_returns_from_frame_0": history, "seconds": seconds,
+              "frames_per_s_with_evaluations": A2C_FRAMES / seconds,
+              "rollout_loss_cuda": losses["cuda"], "max_abs_err_loss": loss_err,
+              "max_abs_err_gradients": grad_err, "atol": ZOO_ATOL}
+    emit({"a2c": result, "card": card})
+    if not (len(history) == 1 + A2C_FRAMES // A2C_LOG_EVERY and history[-1] > history[0]):
+        raise AssertionError(f"a2c did not learn: {history}")
+
+
+MOVIE_OFFSETS = {"uid": 0, "gender": 6_041, "age": 6_043, "occupation": 6_050,
+                 "movie": 10_000, "word": 20_000, "genre": 30_000}
+
+
+def movie_catalogue(seed: int) -> dict:
+    """MovieLens-1M's shape in the shared vocabulary of 600,000 ids:
+    ``MOVIE_USERS`` users (uid, gender of 2, age of 7 buckets, occupation of
+    21), ``MOVIE_MOVIES`` movies (id, a title of 1-8 of ``MOVIE_WORDS`` words,
+    1-4 of ``MOVIE_GENRES`` genres, slots past them id 0 under mask 0), each
+    field's ids in a range of its own (``MOVIE_OFFSETS``).  The planted
+    taste: a user's favourite genre follows gender and age."""
+    o, rng = MOVIE_OFFSETS, np.random.RandomState(seed)
+    gender, age = rng.randint(2, size=MOVIE_USERS), rng.randint(7, size=MOVIE_USERS)
+    users = np.stack([o["uid"] + 1 + np.arange(MOVIE_USERS), o["gender"] + gender,
+                      o["age"] + age, o["occupation"] + rng.randint(21, size=MOVIE_USERS)],
+                     1).astype(np.int64)
+    words = rng.randint(1, 9, MOVIE_MOVIES)
+    title_mask = (np.arange(8)[None] < words[:, None]).astype(np.float32)
+    title = (o["word"] + 1 + rng.randint(MOVIE_WORDS, size=(MOVIE_MOVIES, 8))) * title_mask
+    genre_sets = [rng.choice(MOVIE_GENRES, rng.randint(1, 5), replace=False)
+                  for _ in range(MOVIE_MOVIES)]
+    genres = np.zeros((MOVIE_MOVIES, 4), np.int64)
+    genre_mask = np.zeros((MOVIE_MOVIES, 4), np.float32)
+    for i, g in enumerate(genre_sets):
+        genres[i, :len(g)] = o["genre"] + 1 + g
+        genre_mask[i, :len(g)] = 1.0
+    return {"users": users, "favourite": (gender * 7 + age) % MOVIE_GENRES,
+            "movie_id": o["movie"] + 1 + np.arange(MOVIE_MOVIES), "title": title.astype(np.int64),
+            "title_mask": title_mask, "genres": genres, "genre_mask": genre_mask,
+            "genre_sets": genre_sets}
+
+
+def movie_batches(cat: dict, steps: int, seed: int) -> list:
+    """``steps`` batches of 32 planted ratings: 5 where the movie holds the
+    user's favourite genre, else 1, plus noise, rounded into 1-5; half the
+    pairs drawn from the favourite genre's movies."""
+    rng = np.random.RandomState(seed)
+    n = steps * SEQ_BATCH
+    u = rng.randint(MOVIE_USERS, size=n)
+    liked = [np.flatnonzero([g in s for s in cat["genre_sets"]]) for g in range(MOVIE_GENRES)]
+    m = np.where(rng.rand(n) < 0.5, rng.randint(MOVIE_MOVIES, size=n),
+                 [rng.choice(liked[cat["favourite"][x]]) for x in u])
+    fav = np.array([cat["favourite"][x] in cat["genre_sets"][y] for x, y in zip(u, m)])
+    label = np.clip(np.rint(np.where(fav, 5.0, 1.0) + rng.randn(n) * 0.5), 1, 5)
+    rows = {"user_sparse": cat["users"][u], "movie_id": cat["movie_id"][m],
+            "title": cat["title"][m], "genres": cat["genres"][m],
+            "title_mask": cat["title_mask"][m], "genre_mask": cat["genre_mask"][m],
+            "label": label.astype(np.float32)}
+    return [{k: v[i * SEQ_BATCH:(i + 1) * SEQ_BATCH] for k, v in rows.items()}
+            for i in range(steps)]
+
+
+def _movie_output(md, module, batch) -> np.ndarray:
+    with torch.no_grad():
+        return md.infer_forward(module, batch)["predictions"].cpu().numpy()
+
+
+def movie_feeds(cat: dict, rows: str) -> dict:
+    """The model inputs of every user (``rows="users"``, the movie fields
+    those of the first movie) or of every movie (the user fields those of
+    the first user)."""
+    n = MOVIE_USERS if rows == "users" else MOVIE_MOVIES
+    pick = {"users": (np.arange(n), np.zeros(n, np.int64)),
+            "movies": (np.zeros(n, np.int64), np.arange(n))}[rows]
+    u, m = pick
+    return {"user_sparse": cat["users"][u], "movie_id": cat["movie_id"][m],
+            "title": cat["title"][m], "genres": cat["genres"][m],
+            "title_mask": cat["title_mask"][m], "genre_mask": cat["genre_mask"][m],
+            "label": np.zeros(n, np.float32)}
+
+
+def movie_app(cat: dict, recall_md, recall_module, rank_md, rank_module, device):
+    """The five services over the catalogue: um and cm from ``cat``, every
+    user's and movie's vector exported by ``recall_module`` into a cosine
+    ``VectorIndex`` on ``device``, rank by ``rank_module``."""
+    from paddlerec_tpu_torch.core.device import to_tensors
+    from paddlerec_tpu_torch.serving import movie_recommender as rec
+    from paddlerec_tpu_torch.serving.vector_index import VectorIndex
+
+    with torch.inference_mode():
+        users = recall_md.user_vector(recall_module, to_tensors(movie_feeds(cat, "users"),
+                                                                device)).cpu().numpy()
+        movies = recall_md.movie_vector(recall_module, to_tensors(movie_feeds(cat, "movies"),
+                                                                  device)).cpu().numpy()
+    index = VectorIndex("cosine", device=device)
+    index.insert(movies, ids=cat["movie_id"].tolist())
+    um, cm = rec.UserModelService(), rec.ContentModelService()
+    for i in range(MOVIE_USERS):
+        um.put(i + 1, {"user_sparse": cat["users"][i]})
+    for j, mid in enumerate(cat["movie_id"].tolist()):
+        cm.put(mid, {"movie_id": mid, **{k: cat[k][j] for k in (
+            "title", "genres", "title_mask", "genre_mask")}})
+    store = {i + 1: users[i] for i in range(MOVIE_USERS)}
+    return rec.ApplicationServer(um, cm, rec.RecallService(index, store),
+                                 rec.RankService(rank_md, rank_module))
+
+
+def movie_paths(gp, seed: int, card: str) -> dict:
+    """Phase 31, the movie demo at the full width of
+    ``configs/demo/movie_{recall,rank}/config.yaml`` (vocab 600,000, dim 9,
+    towers [512, 256, 128, 32], batch 32) on rows of MovieLens-1M's shape
+    written from ``seed`` (``movie_catalogue``; planted ratings):
+      * each model on the card and its CPU twin from one seed: a forward and
+        three train steps (atol 1e-5), three K1 a forward (the user fields
+        and the movie id in one lookup, the title's and the genres' masked
+        bags), three K1 and three K1b a step;
+      * each trained with ``Trainer.train_step`` for two epochs of
+        ``MOVIE_STEPS`` in-memory batches: the second epoch's mean loss
+        below the first's;
+      * every user's and movie's vector exported into a cosine
+        ``VectorIndex``; the five services (um, cm, recall, rank, as) and
+        ``serve_http``: ``recommend`` for ``MOVIE_TWIN_UIDS`` users equal to
+        a CPU twin's services on the same parameters (movie ids in order,
+        scores atol 1e-5), the share of the favourite genre in the top 10
+        above its share of the catalogue, and p50/p99 of ``recommend`` and
+        of ``GET /as/recommend`` over ``MOVIE_SERVE_CALLS - 1`` calls each,
+        the HTTP answer equal to ``recommend``'s."""
+    import urllib.request
+
+    from paddlerec_tpu_torch.core.device import to_tensors
+
+    out = {"k1": 0, "k1b": 0, "k1_by_dim": {}, "k1b_by_dim": {}}
+    cat = movie_catalogue(seed + 31)
+    train = movie_batches(cat, MOVIE_STEPS, seed + 32)
+    trained = {}
+    for model in ("demo.movie_recall", "demo.movie_rank"):
+        cfg = slice_config(model)
+        chip, host = _twins(cfg, seed)
+        t0 = time.perf_counter()
+        twin, ((f1, f1b, _, _), (s1, s1b, _, _)) = _twin_steps(gp, chip, host, train[:4],
+                                                                _movie_output)
+        twin.update(model=model, seconds=time.perf_counter() - t0, k1_per_forward=f1,
+                    k1b_per_step=s1b // 3,
+                    parameters=sum(p.numel() for p in chip.state.module.parameters()))
+        emit({"movie_twin": twin, "card": card})
+        if not twin["ok"] or (f1, f1b, s1, s1b) != (3, 0, 9, 9):
+            raise AssertionError(f"{model} card against CPU: {twin}, K1, K1b "
+                                 f"{(f1, f1b, s1, s1b)}")
+        out["k1"] += f1 + s1
+        out["k1b"] += s1b
+        del host
+        chip.init_state(seed=seed)
+        _reset(gp)
+        epochs, ms = [], {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            losses = []
+            for b in train:
+                ms, loss = chip.train_step(to_tensors(b, chip.device), ms)
+                losses.append(loss)
+            epochs.append(float(torch.stack(losses).mean()))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = _counts(gp)
+        steps = 2 * len(train)
+        if launched[:2] != (3 * steps, 3 * steps) or not epochs[1] < epochs[0]:
+            raise AssertionError(f"{model}: epoch losses {epochs}, K1, K1b {launched[:2]}")
+        _add_launched(out, launched)
+        emit({"movie_train": {"model": model, "steps": steps, "batch_size": SEQ_BATCH,
+                              "epoch_mean_losses": epochs,
+                              "examples_per_s": steps * SEQ_BATCH / seconds,
+                              "k1_launches": launched[0], "k1b_launches": launched[1]},
+              "card": card})
+        trained[model] = chip
+    recall, rank = trained["demo.movie_recall"], trained["demo.movie_rank"]
+    _reset(gp)
+    t0 = time.perf_counter()
+    app = movie_app(cat, recall.model_def, recall.state.module, rank.model_def,
+                    rank.state.module, recall.device)
+    export_s = time.perf_counter() - t0
+    twins = {}
+    for name, trainer in (("recall", recall), ("rank", rank)):
+        twins[name] = trainer.model_def.make_module(device="cpu")
+        twins[name].load_state_dict(trainer.state.module.state_dict())
+    cpu_app = movie_app(cat, recall.model_def, twins["recall"], rank.model_def,
+                        twins["rank"], torch.device("cpu"))
+    uids = np.random.RandomState(seed + 33).randint(1, MOVIE_USERS + 1, MOVIE_SERVE_CALLS)
+    score_err, liked, base = 0.0, [], []
+    for uid in uids[:MOVIE_TWIN_UIDS]:
+        got, want = app.recommend(int(uid)), cpu_app.recommend(int(uid))
+        if [r["movie_id"] for r in got] != [r["movie_id"] for r in want] or len(got) != 10:
+            raise AssertionError(f"uid {uid}: card {got}, CPU {want}")
+        score_err = max(score_err, max(abs(a["score"] - b["score"]) for a, b in zip(got, want)))
+        fav = cat["favourite"][uid - 1]
+        liked.append(np.mean([fav in cat["genre_sets"][r["movie_id"] - MOVIE_OFFSETS["movie"]
+                                                      - 1] for r in got]))
+        base.append(np.mean([fav in s for s in cat["genre_sets"]]))
+    served = {"export_s": export_s, "twin_uids": MOVIE_TWIN_UIDS,
+              "max_abs_err_scores_vs_cpu": score_err,
+              "favourite_genre_share_top10": float(np.mean(liked)),
+              "favourite_genre_share_catalogue": float(np.mean(base))}
+    if not (score_err <= ZOO_ATOL and np.mean(liked) > np.mean(base)):
+        raise AssertionError(f"the movie services: {served}")
+    server = app.serve_http(port=0)
+    try:
+        port = server.server_address[1]
+        for label, call in (
+                ("recommend", lambda uid: app.recommend(int(uid))),
+                ("http", lambda uid: json.loads(urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/as/recommend?uid={uid}&topk=10",
+                    timeout=30).read()))):
+            times, answers = [], []
+            for uid in uids:
+                t0 = time.perf_counter()
+                answers.append(call(uid))
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            timed = np.array(times[1:])
+            served[f"{label}_p50_ms"] = float(np.percentile(timed, 50))
+            served[f"{label}_p99_ms"] = float(np.percentile(timed, 99))
+            if label == "http" and any(a != {"uid": int(u), "items": app.recommend(int(u))}
+                                       for a, u in zip(answers[:MOVIE_TWIN_UIDS], uids)):
+                raise AssertionError("an HTTP answer differs from recommend()")
+    finally:
+        server.shutdown()
+        server.server_close()
+    launched = _counts(gp)
+    calls = 2 * MOVIE_SERVE_CALLS + 2 * len(uids[:MOVIE_TWIN_UIDS])  # timed, then compared
+    if launched[:2] != (3 * 2 + 3 * calls, 0):
+        raise AssertionError(f"the movie services launched K1, K1b {launched[:2]}")
+    _add_launched(out, launched)
+    served.update(calls=MOVIE_SERVE_CALLS - 1, k1_launches=launched[0])
+    emit({"movie_services": served, "card": card})
+    return out
+
+
+# the lookups of phases 29-31, each one K1 launch in fill mode (the movie
+# bags masked): (shape, rows, D, N, L, trained: K1b at the shape too).  TDM's
+# N is B·(69 history ids + the units or candidates); a retrieval reads 32
+# nodes at its first level, 40 children at each of the 11 levels below and
+# rescores the last beam of 20.  K1b keys a bag by its count N, not its L:
+# the movie's two bags of 32 share one key.
+_TDM_HIST, _JTM_HIST = 69, 20
+SLICE_SHAPES = {
+    "tree": tuple(
+        [("tdm node_emb, history + 16 levels × 5 units, B=32", 131071, 24,
+          32 * (_TDM_HIST + 80), 1, True)]
+        + [(f"tdm retrieve, {what}, B={b}", 131071, 24, b * (_TDM_HIST + c), 1, False)
+           for b in TREE_SERVE
+           for what, c in (("first level (32 nodes)", 32), ("a level (40 children)", 40),
+                           ("final rescore (20)", 20))]
+        + [("jtm node_emb, history + 12 levels × 5 units, B=32", 8191, 24,
+            32 * (_JTM_HIST + 60), 1, True),
+           ("jtm scorer, 256 items × 4 samples × (20 + 256 codes)", 8191, 24,
+            1024 * (_JTM_HIST + 256), 1, False)]),
+    "movie": tuple(
+        [("movie SparseFeatFactors, 4 user fields + movie id, B=32", 600000, 9, 160, 1, True),
+         ("movie title bags (L=8), B=32", 600000, 9, 32, 8, True),
+         ("movie genre bags (L=4), B=32", 600000, 9, 32, 4, True)]
+        + [(f"movie {what}, {label}", 600000, 9, n * mult, pool, False)
+           for label, n in (("6,040 users exported", MOVIE_USERS),
+                            ("3,883 movies exported", MOVIE_MOVIES),
+                            ("rank served, padded to 64", 64))
+           for what, mult, pool in (("fields + movie id", 5, 1), ("title bags", 1, 8),
+                                    ("genre bags", 1, 4))]),
+}
+
+
+class PhaseClock:
+    """Seconds of each phase of a run, from the end of the one before."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.seconds = {}
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self.last
+        self.last = now
+
+    def line(self, card: str) -> dict:
+        return {"phase_seconds": self.seconds, "total_s": self.last - self.start,
+                "card": card}
+
+
+def tree_rl_demo(gp, work: str, seed: int, card: str, clock: PhaseClock) -> tuple:
+    """Phases 29-32: the tree family, a2c and the movie demo, then phase 32,
+    K1 and K1b at ``SLICE_SHAPES``, each checked against its plain version
+    and timed (``time_k1_shapes``, ``time_k1b_shapes``).  Each shape's
+    launches are those its key (K1: rows, D, dtype, N, L; K1b: rows, D,
+    dtype, N) counted at the launch over the phases: every launch of theirs
+    is at a shape, and every shape has launches.  Returns (K1 cases, K1b
+    cases, K1 launches, K1b launches)."""
+    k1_before = collections.Counter(gp.gather_pool.launches_by_shape)
+    k1b_before = collections.Counter(gp.gather_pool_bwd.launches_by_shape)
+
+    def lap(phase: str) -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock.lap(phase)
+
+    tree = tree_paths(gp, work, seed, card)
+    lap("29 tree")
+    a2c_phase(seed, card)  # no lookup, so no K1 or K1b
+    lap("30 a2c")
+    movie = movie_paths(gp, seed, card)
+    lap("31 movie")
+    totals = {k: tree[k] + movie[k] for k in ("k1", "k1b")}
+    k1_by, k1b_by = (collections.Counter(c) for c in (gp.gather_pool.launches_by_shape,
+                                                       gp.gather_pool_bwd.launches_by_shape))
+    k1_by.subtract(k1_before)
+    k1b_by.subtract(k1b_before)
+    k1_by, k1b_by = +k1_by, +k1b_by
+    k1_cases = time_k1_shapes(gp, sum((k1_shapes(g) for g in SLICE_SHAPES), ()), seed + 32)
+    k1b_cases = time_k1b_shapes(gp, sum((k1b_shapes(g) for g in SLICE_SHAPES), ()), seed + 32)
+    for case in k1_cases:
+        case["launches"] = k1_by.get(
+            (case["rows"], case["dim"], case["dtype"], case["n"], case["pool"]), 0)
+    keys = set()
+    for case in k1b_cases:
+        key = (case["rows"], case["dim"], case["dtype"], case["n"])
+        case["launches"] = k1b_by.get(key, 0)  # the movie's two bags of 32 share a key
+        keys.add(key)
+    if (sum(c["launches"] for c in k1_cases) != totals["k1"]
+            or sum(k1_by.values()) != totals["k1"]
+            or not all(c["launches"] > 0 for c in k1_cases)):
+        raise AssertionError(f"phases 29-31 launched K1 {totals['k1']} times, by shape "
+                             f"{dict(k1_by)}")
+    if (sum(k1b_by.values()) != totals["k1b"] or set(k1b_by) - keys
+            or not all(c["launches"] > 0 for c in k1b_cases)):
+        raise AssertionError(f"phases 29-31 launched K1b {totals['k1b']} times, by shape "
+                             f"{dict(k1b_by)}")
+    clock.lap("32 K1/K1b at the new shapes")
+    return k1_cases, k1b_cases, totals["k1"], totals["k1b"]
+
+
+def slice_only(gp, seed: int, card: str) -> None:
+    """``--only 29-32``: phases 29-32, one JSON line a K1 and a K1b shape,
+    and the phases' seconds."""
+    clock = PhaseClock()
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        k1_cases, k1b_cases, k1, k1b = tree_rl_demo(gp, work, seed, card, clock)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    floor_ms = time_launch_floor(gp)
+    set_share(k1_cases, floor_ms)
+    set_share(k1b_cases, floor_ms)
+    for row in k1_cases:
+        emit({"k1": row, "card": card})
+    for row in k1b_cases:
+        emit({"k1b": row, "card": card})
+    emit({"slice_only": {"k1_launches": k1, "k1b_launches": k1b,
+                         "launch_floor_ms": floor_ms}, "card": card})
+    emit(clock.line(card))
+
+
 # -- K1 at every timed shape (phases 7, 15, 18, 22, 25, 28; ``--only k1``) --
 class K1Shape(NamedTuple):
     """One timed lookup of K1: a (rows, dim) table in ``dtype`` read at n
@@ -3670,14 +4328,14 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def k1_shapes(group: str) -> tuple:
     """The K1 rows of a phase: ``main`` (phase 7), ``seq`` (15), ``rest``
-    (18), ``mt`` (22), ``match`` (25), ``graph`` (28), each from the one
-    definition of its shapes."""
+    (18), ``mt`` (22), ``match`` (25), ``graph`` (28), ``tree`` and
+    ``movie`` (32), each from the one definition of its shapes."""
     if group == "main":
         return MAIN_SHAPES
-    if group == "match":
+    if group in ("match", "tree", "movie"):
         return tuple(K1Shape(name, rows, dim, n, pool, "fill", masked=pool > 1,
                              library="embedding_bag" if pool > 1 else "embedding")
-                     for name, rows, dim, n, pool, _ in MATCH_SHAPES)
+                     for name, rows, dim, n, pool, _ in SLICE_SHAPES.get(group, MATCH_SHAPES))
     if group == "graph":
         return tuple(K1Shape(name, rows, dim, n, mode=mode, ids=kind, library="embedding")
                      for name, rows, dim, n, kind, mode, _ in GRAPH_SHAPES)
@@ -3877,7 +4535,7 @@ def set_share(cases, floor_ms: float) -> None:
 
 def k1_only(gp, seed: int, card: str, against) -> None:
     """``--only k1``: phase 3's K1 checks, then every K1 shape of phases 7,
-    15, 18, 22 and 25 (``config_bigdata.yaml``'s view among them) and
+    15, 18, 22, 25, 28 and 32 (``config_bigdata.yaml``'s view among them) and
     ``EXTRA_SHAPES``, each
     checked and timed by ``time_k1_shapes`` (against the ``--against``
     sources where given), one JSON line a shape."""
@@ -3888,7 +4546,8 @@ def k1_only(gp, seed: int, card: str, against) -> None:
     del wide
     floor_ms = time_launch_floor(gp)
     shapes = (k1_shapes("main") + k1_shapes("seq") + k1_shapes("rest") + k1_shapes("mt")
-              + k1_shapes("match") + k1_shapes("graph") + EXTRA_SHAPES)
+              + k1_shapes("match") + k1_shapes("graph") + k1_shapes("tree")
+              + k1_shapes("movie") + EXTRA_SHAPES)
     rows = time_k1_shapes(gp, shapes, seed + 9, variants)
     set_share(rows, floor_ms)
     for row in rows:
@@ -3947,15 +4606,16 @@ K1B_EXTRA_SHAPES = (
 def k1b_shapes(group: str) -> tuple:
     """The K1b rows of a phase: ``main`` (7), ``compact`` (10), ``seq``
     (15), ``rest`` (18), ``mt`` (22; K1 as K1b's backward is a K1 launch
-    only), ``match`` (25) and ``graph`` (28: the shapes that are trained),
-    ``extra`` (``--only k1b``)."""
+    only), ``match`` (25), ``graph`` (28), ``tree`` and ``movie`` (32: the
+    shapes that are trained), ``extra`` (``--only k1b``)."""
     if group == "main":
         return K1B_MAIN_SHAPES
-    if group == "match":
+    if group in ("match", "tree", "movie"):
         return tuple(K1bShape(name, rows, dim, n, pool, "fill", masked=pool > 1,
                               library=("embedding_bag_backward" if pool > 1
                                        else "embedding_dense_backward"))
-                     for name, rows, dim, n, pool, trained in MATCH_SHAPES if trained)
+                     for name, rows, dim, n, pool, trained in SLICE_SHAPES.get(
+                         group, MATCH_SHAPES) if trained)
     if group == "graph":
         return tuple(K1bShape(name, rows, dim, n, mode=mode, ids=kind)
                      for name, rows, dim, n, kind, mode, trained in GRAPH_SHAPES if trained)
@@ -4145,14 +4805,15 @@ def time_k1b_shapes(gp, shapes, seed: int, variants=None) -> list:
 
 def k1b_only(gp, seed: int, card: str, against) -> None:
     """``--only k1b``: phase 3's K1b checks, then every K1b shape of phases
-    7, 10, 15, 18, 22 and 25 and ``K1B_EXTRA_SHAPES``, each checked and timed by
+    7, 10, 15, 18, 22, 25, 28 and 32 and ``K1B_EXTRA_SHAPES``, each checked and timed by
     ``time_k1b_shapes`` (against the ``--against`` sources where given), one
     JSON line a shape."""
     variants = kernel_libraries(against, "gather_pool_bwd") if against else {}
     main_err = check_k1b(gp, seed, card)
     floor_ms = time_launch_floor(gp)
     shapes = sum((k1b_shapes(group) for group in
-                  ("main", "compact", "seq", "rest", "mt", "match", "graph", "extra")), ())
+                  ("main", "compact", "seq", "rest", "mt", "match", "graph", "tree", "movie",
+                   "extra")), ())
     rows = time_k1b_shapes(gp, shapes, seed + 9, variants)
     set_share(rows, floor_ms)
     for row in rows:
@@ -4160,52 +4821,60 @@ def k1b_only(gp, seed: int, card: str, against) -> None:
     emit({"k1b_only": {"shapes": len(rows), "main_path_max_abs_err": main_err,
                        "launch_floor_ms": floor_ms}, "card": card})
 
-def profile_forward(model_def, module, batch_size: int, iters: int = 20) -> dict:
-    """Phase 8: ``torch.profiler`` over ``iters`` DeepFM forwards at one
-    batch size: device time per forward, the card's idle share of the wall
-    time (profiler on), and the kernels that take the most device time."""
+def profile_calls(call, iters: int, unit: str) -> dict:
+    """``torch.profiler`` over ``iters`` calls of ``call`` (each ending in a
+    copy to the host): wall and device time per call, the card's idle share
+    of the wall time (profiler on), and the kernels that take the most
+    device time; the keys name a call ``unit``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        f"wall_ms_per_{unit}": wall_ms,
+        f"device_ms_per_{unit}": device_ms if kernels else "not measured",
+        "device_idle_share": 1 - device_ms / wall_ms if kernels else "not measured",
+        f"kernels_per_{unit}": sum(e.count for e in kernels) / iters,
+        "top_kernels": [{"name": e.key[:90],
+                         f"ms_per_{unit}": e.self_device_time_total / 1e3 / iters,
+                         f"calls_per_{unit}": e.count / iters} for e in top],
+    }
+
+
+def profile_forward(model_def, module, batch_size: int, iters: int = 20) -> dict:
+    """Phase 8: ``profile_calls`` over ``iters`` DeepFM forwards at one
+    batch size."""
     from paddlerec_tpu_torch.core.device import to_tensors
 
     batch = to_tensors(model_def.example_batch(batch_size), torch.device("cuda"))
     with torch.inference_mode():
         for _ in range(3):
             model_def.infer_forward(module, batch)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                model_def.infer_forward(module, batch)["predictions"].cpu()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    return {
-        "batch_size": batch_size, "forwards": iters,
-        "wall_ms_per_forward": wall_ms,
-        "device_ms_per_forward": device_ms if kernels else "not measured",
-        "device_idle_share": 1 - device_ms / wall_ms if kernels else "not measured",
-        "kernels_per_forward": sum(e.count for e in kernels) / iters,
-        "top_kernels": [{"name": e.key[:90],
-                         "ms_per_forward": e.self_device_time_total / 1e3 / iters,
-                         "calls_per_forward": e.count / iters} for e in top],
-    }
+        prof = profile_calls(lambda: model_def.infer_forward(module, batch)["predictions"].cpu(),
+                             iters, "forward")
+    return {"batch_size": batch_size, "forwards": iters, **prof}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("k1", "k1b"),
+    parser.add_argument("--only", choices=("k1", "k1b", "29-32"),
                         help="k1 (k1b): phases 1-2, K1's (K1b's) checks of phase 3, then "
-                             "that kernel checked and timed at every shape (default: "
-                             "every phase)")
+                             "that kernel checked and timed at every shape; 29-32: "
+                             "phases 1-2 and 29-32 (default: every phase)")
     parser.add_argument("--against", action="append", default=[], metavar="SOURCE.cu",
                         help="with --only: another source of that kernel with the same C "
                              "interface, built and timed in turns with the current one")
     args = parser.parse_args(argv)
-    if args.against and not args.only:
+    if args.against and args.only not in ("k1", "k1b"):
         parser.error("--against needs --only k1 or --only k1b")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4222,6 +4891,7 @@ def main(argv=None) -> int:
     from paddlerec_tpu_torch.tools.predict import run_predict
 
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    clock = PhaseClock()
     card = card_line()
     print(card, flush=True)  # phase 1
 
@@ -4230,7 +4900,10 @@ def main(argv=None) -> int:
     emit({"build": {k: os.path.relpath(v, ROOT) for k, v in libs.items()},
           "seconds": time.perf_counter() - t0, "card": card})
     if args.only:
-        (k1_only if args.only == "k1" else k1b_only)(gp, args.seed, card, args.against)
+        if args.only in ("k1", "k1b"):
+            (k1_only if args.only == "k1" else k1b_only)(gp, args.seed, card, args.against)
+        else:
+            slice_only(gp, args.seed, card)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -4243,6 +4916,7 @@ def main(argv=None) -> int:
     bwd_err = check_k1b(gp, args.seed, card)
     sparse_checks(gp, args.seed, card)  # phase 9, the part at small size
     gp.gather_pool_bwd.launches_by_shape.clear()  # from here: the main path's K1b launches
+    clock.lap("1-3 card, build, kernel checks")
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:  # phase 4
@@ -4275,6 +4949,7 @@ def main(argv=None) -> int:
             reports[batch] = dict(report, max_abs_err_vs_cpu=err,
                                   k1_launches=launches[batch])
             emit({"predict": {"batch_size": batch, **reports[batch]}, "card": card})
+        clock.lap("4 predict")
 
         gp.gather_pool.launches = 0  # phase 5
         service = RecService(export_dir)
@@ -4297,6 +4972,7 @@ def main(argv=None) -> int:
         emit({"serve": {"requests": 3, "rows": int(got.shape[0]),
                         "max_abs_err_vs_predict": serve_err,
                         "k1_launches": launches["serve"]}, "card": card})
+        clock.lap("5 serve")
 
         train_cfgs, train_runs = {}, {}  # phase 6
         for batch in reversed(BATCHES):
@@ -4316,6 +4992,7 @@ def main(argv=None) -> int:
                 "runner.infer_load_path": os.path.join(work, "ckpt_bf16")})
         train_runs["bf16"] = run_training(gp, bf16_cfg, args.seed, check_fall=False)
         emit({"train": train_runs["bf16"], "card": card})
+        clock.lap("6 train")
 
         # phase 7: DeepFM's view at both batches; the zoo's shapes at the
         # training batch: ffm's unpacked rows, and the 8-lane view of a
@@ -4326,6 +5003,7 @@ def main(argv=None) -> int:
         main_bwd = time_k1b_shapes(gp, k1b_shapes("main"), args.seed + 3)
         bwd_cases, bf16_bwd_cases, zoo_bwd_cases = main_bwd[:2], main_bwd[2:3], main_bwd[3:]
         del wide
+        clock.lap("7 time K1/K1b")
         for batch in BATCHES:  # phase 8
             emit({"profile": profile_forward(service.model_def, service.module, batch),
                   "card": card})
@@ -4334,7 +5012,9 @@ def main(argv=None) -> int:
                   "card": card})
         floor_ms = time_launch_floor(gp)
         del service
+        clock.lap("8 profile")
         sparse = train_sparse(gp, work, args.seed, card)  # phase 9
+        clock.lap("9 sparse")
         from paddlerec_tpu_torch.core.config import Config  # phase 10
         bigdata = load_config(BIGDATA.format("deepfm")).to_dict()
         for batch in BATCHES:
@@ -4348,7 +5028,9 @@ def main(argv=None) -> int:
         compact_cases = time_k1b_shapes(gp, k1b_shapes("compact"), args.seed + 5)
         gc.collect()
         torch.cuda.empty_cache()
+        clock.lap("10 sparse profile, dedup")
         zoo = ctr_zoo(gp, args.seed, card)  # phase 11
+        clock.lap("11 zoo")
         paths = zoo_paths(gp, work, data_dir, ROWS, zoo["seeds"], card)  # phase 12
         for model in ("dcn_v2", "xdeepfm"):
             emit({"profile_train": profile_train(
@@ -4356,47 +5038,68 @@ def main(argv=None) -> int:
                 args.seed), "card": card})
         gc.collect()
         torch.cuda.empty_cache()
+        clock.lap("12 zoo paths")
         seq = twin_zoo(gp, args.seed, card, SEQ, "seq_zoo")  # phase 13
+        clock.lap("13 seq zoo")
         seq_runs = seq_paths(gp, work, args.seed, card)  # phase 14
+        clock.lap("14 seq paths")
         seq_cases = time_k1_shapes(gp, k1_shapes("seq"), args.seed + 13)  # phase 15
         seq_bwd_cases = time_k1b_shapes(gp, k1b_shapes("seq"), args.seed + 13)
         gc.collect()
         torch.cuda.empty_cache()
+        clock.lap("15 seq shapes")
         rest = twin_zoo(gp, args.seed, card, REST, "rank_rest_zoo")  # phase 16
+        clock.lap("16 rank rest zoo")
         rest_runs = rank_rest_paths(gp, work, args.seed, card)  # phase 17
+        clock.lap("17 rank rest paths")
         check_fill_shapes(gp, args.seed + 18, card, REST_SHAPES)  # phase 18
         rest_cases = time_k1_shapes(gp, k1_shapes("rest"), args.seed + 18)
         rest_bwd_cases = time_k1b_shapes(gp, k1b_shapes("rest"), args.seed + 18)
         gc.collect()
         torch.cuda.empty_cache()
+        clock.lap("18 rank rest shapes")
         mt = multitask_zoo(gp, args.seed, card)  # phase 19
+        clock.lap("19 multitask zoo")
         mt_runs = multitask_paths(gp, work, args.seed, card)  # phase 20
+        clock.lap("20 multitask paths")
         check_second_order(gp, args.seed + 21, card)  # phase 21
         check_multitask_shapes(gp, args.seed + 22, card)  # phase 22
         mt_cases = time_k1_shapes(gp, k1_shapes("mt"), args.seed + 22)
         mt_bwd_cases = time_k1b_shapes(gp, k1b_shapes("mt"), args.seed + 22)
         gc.collect()
         torch.cuda.empty_cache()
+        clock.lap("21-22 second order, multitask shapes")
         gp.gather_pool.launches_by_shape.clear()  # from here: K1 of phases 23-24 by shape
         match = twin_zoo(gp, args.seed, card, MATCH, "match_zoo", config=slice_config,
                          expect_tables=MATCH_TABLES)  # phase 23
+        clock.lap("23 match zoo")
         match_runs = match_paths(gp, work, args.seed, card)  # phase 24
+        clock.lap("24 match paths")
         match_k1_by_shape = dict(gp.gather_pool.launches_by_shape)
         check_match_shapes(gp, args.seed + 25, card)  # phase 25
         match_cases = time_k1_shapes(gp, k1_shapes("match"), args.seed + 25)
         match_bwd_cases = time_k1b_shapes(gp, k1b_shapes("match"), args.seed + 25)
         gc.collect()
         torch.cuda.empty_cache()
+        clock.lap("25 match shapes")
         gp.gather_pool.launches_by_shape.clear()  # from here: K1 of phases 26-27 by shape
         k1b_before = collections.Counter(gp.gather_pool_bwd.launches_by_shape)
         graph = graph_zoo(gp, args.seed, card)  # phase 26
+        clock.lap("26 graph zoo")
         graph_runs = graph_paths(gp, work, args.seed, card)  # phase 27
+        clock.lap("27 graph paths")
         graph_k1_by_shape = dict(gp.gather_pool.launches_by_shape)
         graph_k1b_by_shape = collections.Counter(gp.gather_pool_bwd.launches_by_shape)
         graph_k1b_by_shape.subtract(k1b_before)
         check_graph_shapes(gp, args.seed + 28, card)  # phase 28
         graph_cases = time_k1_shapes(gp, k1_shapes("graph"), args.seed + 28)
         graph_bwd_cases = time_k1b_shapes(gp, k1b_shapes("graph"), args.seed + 28)
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock.lap("28 graph shapes")
+        # phases 29-32: the tree family, a2c, the movie demo, their shapes
+        slice_cases, slice_bwd_cases, slice_k1, slice_k1b = tree_rl_demo(
+            gp, work, args.seed, card, clock)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for case, batch in zip(cases, BATCHES):
@@ -4476,13 +5179,13 @@ def main(argv=None) -> int:
                    + sum(r["k1_launches"] + r["eval"]["k1_launches"] for r in all_runs)
                    + zoo["k1_launches"] + paths["k1_launches"] + seq["k1"] + seq_runs["k1"]
                    + rest["k1"] + rest_runs["k1"] + mt["k1"] + mt_runs["k1"] + match_k1
-                   + graph_k1)
+                   + graph_k1 + slice_k1)
     k1b_launches = (first["k1b_launches"] + sparse["first"]["k1b_launches"]
                     + sum(r["k1b_launches"] for r in all_runs)
                     + zoo["k1b_launches"] + paths["k1b_launches"] + seq["k1b"]
                     + seq_runs["k1b"] + rest["k1b"] + rest_runs["k1b"] + mt["k1b"]
                     + mt_runs["k1b"] + match["k1b"] + match_runs["k1b"] + graph["k1b"]
-                    + graph_runs["k1b"])
+                    + graph_runs["k1b"] + slice_k1b)
     if k1_launches < 1 or k1b_launches < 1:
         raise AssertionError("the main path launched a kernel no time")
     # K1b's launches per timed shape, from the whole run: those of the shape's
@@ -4496,7 +5199,8 @@ def main(argv=None) -> int:
     emit({"k1b_launches_by_shape": sorted([*k, v] for k, v in by_shape.items()),
           "card": card})
     bwd_all = (bwd_cases + bf16_bwd_cases + zoo_bwd_cases + compact_cases + seq_bwd_cases
-               + rest_bwd_cases + mt_bwd_cases + match_bwd_cases + graph_bwd_cases)
+               + rest_bwd_cases + mt_bwd_cases + match_bwd_cases + graph_bwd_cases
+               + slice_bwd_cases)
     dense = {(c["rows"], c["dim"], c["dtype"], c["n"]) for c in bwd_all
              if c["ids"] != "compact"}
     for case in bwd_all:
@@ -4520,13 +5224,14 @@ def main(argv=None) -> int:
             or not all(case["launches"] > 0 for case in graph_bwd_cases)):
         raise AssertionError(f"phases 26-27 launched K1b {graph_k1b} times, by shape "
                              f"{dict(+graph_k1b_by_shape)}")
+    emit(clock.line(card))
     kernels = []
     for name, source, replaces, count, err, timed, top in (
         ("gather_pool", "paddlerec_tpu_torch/csrc/gather_pool.cu",
          "paddlerec_tpu/ops/pallas_embedding.py:37", k1_launches,
          max(main_err, sparse["lookup"]["k1_err"]),
          cases + zoo_cases + big_cases + seq_cases + rest_cases + mt_cases + match_cases
-         + graph_cases,
+         + graph_cases + slice_cases,
          cases[-1]),
         # the JAX package has no kernel for the gradient: K1b takes the
         # place of the XLA scatter-add of _packed_lookup_bwd

@@ -18,7 +18,9 @@ _REGISTRY: Dict[str, Any] = {}
 # names registered by another model's module (the JAX package finds these by
 # importing its whole zoo)
 _ALIASES = {"rank.logistic_regression": "rank.lr", "graph.lightgcn": "graph.gnn",
-            "graph.transformer_conv": "graph.gnn", "graph.deepwalk_million": "graph.gnn"}
+            "graph.transformer_conv": "graph.gnn", "graph.deepwalk_million": "graph.gnn",
+            "demo.movie_recall": "demo.movie_recommand",
+            "demo.movie_rank": "demo.movie_recommand"}
 
 
 def register_model(name: str):

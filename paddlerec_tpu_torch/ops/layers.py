@@ -6,8 +6,9 @@ Counterparts of ``MLP``, ``FMFirstOrder``, ``fm_second_order``,
 ``FMInteraction``, ``CrossNet``, ``CrossNetV2``, ``CrossNetMix``, ``CIN`` and
 ``TargetAttention`` in ``paddlerec_tpu/ops/layers.py`` and of flax's
 ``nn.LayerNorm``, ``nn.DenseGeneral`` and ``nn.Conv`` (``"SAME"`` padding:
-``SameConv1d``, ``SameConv2d``), with the flax tree's parameter names, and
-the masked max over time of the text models (``masked_max``).
+``SameConv1d``, ``SameConv2d``), with the flax tree's parameter names, the
+masked max over time of the text models (``masked_max``) and
+``jax.lax.top_k`` with its order on ties (``top_k``).
 Dense products stay ``nn.Linear`` / ``torch.einsum`` (cuBLAS on the card), as
 the JAX package left them to XLA outside any Pallas kernel; the one lookup
 here (``FMFirstOrder``) goes through kernel K1.
@@ -165,6 +166,15 @@ class SameConv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.pad(x.permute(0, 3, 1, 2), self.pads)
         return super().forward(x).permute(0, 2, 3, 1)
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the ``k`` largest values and
+    their indices, in descending order, the lower index first among equal
+    values (``torch.topk`` promises no order on ties).  A stable descending
+    sort, sliced."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
 
 
 def masked_max(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -50,6 +50,12 @@ bfloat16 table steps as it does there:
   gradients before the step.  ``embedding_l2`` is
   ``optax.add_decayed_weights(-embedding_l2 * lr)`` on the embedding tables
   only, applied to the updates after the step.
+* A learning-rate ``schedule`` (a function of the step count, as optax
+  takes one in place of the rate) is read at the count before the update
+  (``optax.scale_by_schedule``), which the state keeps as
+  ``schedule_count``.  ``exponential_decay`` is
+  ``optax.exponential_decay(lr, transition_steps, decay_rate)``, in float32
+  as optax computes it; a2c's optimizer needs it.
 * With ``optimizer.runtime_inject`` (``optax.inject_hyperparams``) the
   learning rate and ``embedding_l2`` live in the state under
   ``hyperparams`` and are read at every step, so
@@ -72,7 +78,7 @@ module's ``state_dict``, so ``convert`` maps optax's moment trees onto it.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -281,6 +287,21 @@ def rmsprop_step(params: Tensors, grads: Tensors, state: OptState, lr: float,
     return updates
 
 
+def exponential_decay(init_value: float, transition_steps: int,
+                      decay_rate: float):
+    """``optax.exponential_decay(init_value, transition_steps, decay_rate)``
+    (no staircase, no delay, no end value): count → ``init_value ·
+    decay_rate^(count / transition_steps)`` in float32, ``init_value`` at
+    count 0; a constant for ``transition_steps <= 0`` or ``decay_rate == 0``."""
+    def schedule(count: int) -> float:
+        if transition_steps <= 0 or decay_rate == 0 or count <= 0:
+            return float(np.float32(init_value))
+        p = np.float32(count) / np.float32(transition_steps)
+        return float(np.float32(init_value) * np.power(np.float32(decay_rate), p))
+
+    return schedule
+
+
 GRDA_ACCUMULATOR_SEED = 20211015
 
 
@@ -333,7 +354,8 @@ class Optimizer:
                  weight_decay: float = 1e-4, embedding_l2: float = 0.0,
                  runtime_inject: bool = False,
                  mu_dtype: Optional[torch.dtype] = torch.float32,
-                 grda_c: float = 0.0, grda_mu: float = 0.7):
+                 grda_c: float = 0.0, grda_mu: float = 0.7,
+                 schedule: Optional[Callable[[int], float]] = None):
         if name not in ("adam", "sgd", "adagrad", "rmsprop", "adamw", "grda"):
             raise ValueError(f"unknown optimizer {name!r}")
         self.name = name
@@ -349,6 +371,8 @@ class Optimizer:
         # with None, the parameter's dtype (``optax.adam(lr)``)
         self.mu_dtype = mu_dtype
         self.grda_c, self.grda_mu = float(grda_c), float(grda_mu)
+        # the learning rate as a function of the step count, or None (lr)
+        self.schedule = schedule
 
     def init(self, params: Tensors) -> OptState:
         if self.name in ("adam", "adamw"):
@@ -362,6 +386,8 @@ class Optimizer:
             state = rmsprop_init(params)
         else:
             state = sgd_init(params)
+        if self.schedule is not None:
+            state["schedule_count"] = 0
         if self.runtime_inject:
             state["hyperparams"] = {"learning_rate": self.lr,
                                     "embedding_l2": self.embedding_l2}
@@ -391,11 +417,16 @@ class Optimizer:
         hyper = state.get("hyperparams", {})
         lr = float(hyper.get("learning_rate", self.lr))
         el2 = float(hyper.get("embedding_l2", self.embedding_l2))
+        step_lr = lr
+        if self.schedule is not None:
+            # embedding_l2 keeps the configured rate, as in the JAX package
+            step_lr = self.schedule(state["schedule_count"])
+            state["schedule_count"] += 1
         if self.clip is not None:
             names = list(grads)
             clipped = clip_by_global_norm([grads[k] for k in names], self.clip)
             grads = dict(zip(names, clipped))
-        updates = self._step(params, grads, state, lr)
+        updates = self._step(params, grads, state, step_lr)
         if el2:
             for k, p in params.items():
                 if is_table_name(k):

@@ -1,5 +1,6 @@
-"""The port's registry tells a model that is not ported from a ported model
-whose own import fails."""
+"""The port's registry resolves every name of the JAX package's registry,
+and tells a model that is not ported from a ported model whose own import
+fails."""
 
 import sys
 import types
@@ -9,18 +10,41 @@ import pytest
 from paddlerec_tpu_torch.core import registry
 
 
-NOT_PORTED = ("treebased.tdm", "rl.a2c", "demo.movie_recall", "demo.movie_rank")
-
-
 def test_a_model_without_a_module_is_not_ported():
     with pytest.raises(KeyError, match="'rank.no_such_model' is not ported"):
         registry.get_model_class("rank.no_such_model")
     with pytest.raises(KeyError, match="is not ported"):
         registry.get_model_class("no_such_family.model")
-    # the families that wait for a later slice: tree, rl and demo
-    for name in NOT_PORTED:
-        with pytest.raises(KeyError, match=f"'{name}' is not ported"):
-            registry.get_model_class(name)
+
+
+TREE_RL_DEMO = {"treebased.tdm": "treebased.tdm", "rl.a2c": "rl.a2c",
+                "demo.movie_recall": "demo.movie_recommand",
+                "demo.movie_rank": "demo.movie_recommand"}
+
+
+@pytest.mark.parametrize("name", sorted(TREE_RL_DEMO))
+def test_the_tree_rl_and_demo_names_resolve(name):
+    """The last four registrations; the movie demo's two names live in one
+    module, as in the JAX package."""
+    cls = registry.get_model_class(name)
+    assert cls.registry_name == name
+    assert cls.__module__ == f"paddlerec_tpu_torch.models.{TREE_RL_DEMO[name]}.model"
+
+
+def test_every_name_of_the_jax_registry_resolves_in_the_port():
+    """``paddlerec_tpu/models/__init__.py``'s list, and every name its
+    modules register once all are imported."""
+    from paddlerec_tpu.core import registry as jax_registry
+    from paddlerec_tpu.models import _BUILTIN, import_all
+
+    import_all()
+    assert len(_BUILTIN) == 62
+    names = set(_BUILTIN) | set(jax_registry._REGISTRY)
+    for name in sorted(names):
+        # the same registration (rank.logistic_regression is rank.lr's class
+        # in both packages)
+        assert (registry.get_model_class(name).registry_name
+                == jax_registry.get_model_class(name).registry_name), name
 
 
 MATCH_SLICE = ("match.dssm", "match.multiview_simnet", "match.match_pyramid", "match.kim",

@@ -162,7 +162,10 @@ def test_port_imports_nothing_of_jax():
                  *(f"models.{m}.model" for m in (
                      "recall.deepwalk", "recall.mind", "recall.tisas", "recall.ensfm",
                      "recall.mhcn", "graph.gnn")),
-                 "models.graph.layers", "native", "native.graph", "data.graph_dataset"):
+                 "models.graph.layers", "native", "native.graph", "data.graph_dataset",
+                 "models.treebased.tree", "models.treebased.tdm.model", "models.treebased.jtm",
+                 "tools.jtm", "models.rl.a2c.model", "models.demo.movie_recommand.model",
+                 "serving.vector_index", "serving.movie_recommender"):
         assert f"paddlerec_tpu_torch.{name}" in walked, name
 
 
