@@ -19,7 +19,8 @@ against its plain version and timed at every shape of phases 7, 10, 15, 18,
 (``k1b_only``).  Each ``--against`` source (another ``csrc/gather_pool.cu``,
 or ``csrc/gather_pool_bwd.cu``, with the same C interface, a parent commit's
 say) is built beside it and timed in turns with it at every shape.
-``--only 29-32`` runs phases 1, 2 and 29-32 (a few minutes).
+``--only 29-32`` runs phases 1, 2 and 29-32 (a few minutes), ``--only
+33-36`` phases 1, 2 and 33-36.
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build every kernel of ``paddlerec_tpu_torch/csrc`` with ``nvcc``;
@@ -204,7 +205,39 @@ say) is built beside it and timed in turns with it at every shape.
     CPU twin's (p50/p99 of 300 calls each);
 32. K1 and K1b at the shapes of phases 29-31 (``SLICE_SHAPES``), each held
     against its plain version, then timed; every K1 and K1b launch of phases
-    29-31 is at one of them.  One line gives every phase's seconds.
+    29-31 is at one of them;
+33. the online day/pass loop on ``configs/rank/slot_dnn/config.yaml`` at
+    full width (vocab 1,000,001, dim 9, tower [512, 256, 128, 32], Adam,
+    batch 32) through ``tools/online_train.py``'s ``main`` (``online_slot_dnn``):
+    one seeded day of four passes of 2,048 planted-signal rows, each pass
+    directory marked ready by a data donefile; the first base, a checkpoint
+    every 2 passes, a delta every pass in 2 cube shards, the day's shrink and
+    base.  Each delta equal to K1's gather of its logical ids from the card's
+    table at its publish and to a checkpoint of the same state (bitwise);
+    the CPU port on the same day from the card's initial parameters (per-pass
+    losses atol 1e-4, join-time AUCs atol 1e-3, records and every
+    ``delta_meta.json`` equal); the evicted rows exactly 0 in the table and
+    its moments; a second run of the day trains no pass; the day's base
+    through ``tools/export_cube.py`` into 2 shards, served by two
+    ``cube_server`` processes and read back with ``RemoteCubeClient`` equal
+    to K1's gather from the final table (every key, and 1,024 past the
+    table as zeros);
+34. ``configs/rank/deepfm/config_bigdata.yaml`` online at its full
+    vocabulary (``online_bigdata``: the 3.2 GB bfloat16 table, row-wise
+    adagrad, batch 8192, the Python reader): one day of four passes of three
+    batches over the whole vocabulary, a delta every pass and the day's base;
+    each delta holds exactly the ids of the pass's touched rows, equal to
+    K1's bfloat16 → float32 gather bitwise; two servers answer the last
+    delta; the rows touched, the deltas' bytes against the table's, the
+    ``FeatureStats`` of its 12.5 M rows and the loop's ``phase_times``;
+35. din online at ``configs/rank/din/config.yaml``'s defaults
+    (``online_din``): one day of two passes; every delta covers the item,
+    category and item-bias tables that ``touched_tables`` names, and the
+    shrink acts per table;
+36. K1 at every shape of phases 33-35 (the lookups and each table's delta
+    gather, ``online_k1_shapes``) and K1b at their new shapes, each held
+    against its plain version, then timed; every K1 launch of phases 33-35 is
+    at one of them.  One line gives every phase's seconds.
 
 K1b's ``launches`` in the ``kernels`` line are those of each case's own
 (rows, D, dtable dtype, N) over the main path (a case the main path does
@@ -227,6 +260,7 @@ import argparse
 import collections
 import functools
 import gc
+import glob
 import itertools
 import json
 import logging
@@ -4256,6 +4290,803 @@ def tree_rl_demo(gp, work: str, seed: int, card: str, clock: PhaseClock) -> tupl
     return k1_cases, k1b_cases, totals["k1"], totals["k1b"]
 
 
+# -- phases 33-36: the online day/pass loop and the cube KV store ------------
+SLOT_DNN = os.path.join(ROOT, "configs", "rank", "slot_dnn", "config.yaml")
+DIN = os.path.join(ROOT, "configs", "rank", "din", "config.yaml")
+ONLINE_DAY = "20240101"
+ONLINE_DONE = "to.hadoop.done"  # the producer's data donefile in each pass directory
+ONLINE_SPLIT = 360  # minutes a pass: four passes a day (slot_dnn, the 10^8 run)
+ONLINE_ROWS = 2048  # slot_dnn's rows a pass: 64 steps of its batch 32
+BIG_ONLINE_BATCHES = 3  # config_bigdata.yaml's batches of 8192 a pass
+DIN_ONLINE_ROWS = 512  # din's rows a pass: 16 steps of its batch 32
+# delete_threshold: a row shown once in the day (decayed to 0.98) is evicted
+# at the day's end, a row shown twice (1.96) stays
+ONLINE_EVICT = 1.5
+NEVER_SEEN = 1024  # keys past the table, which no base or delta holds
+
+
+def write_online_day(root: str, split: int, write, seed: int) -> list:
+    """One day of pass directories ``<root>/<day>/<HHMM>`` (the schedule of
+    ``get_online_pass_interval``), each written by ``write(dir, seed)`` and
+    then marked ready by an empty data donefile, as a producer does."""
+    from paddlerec_tpu_torch.train.online import get_online_pass_interval
+
+    dirs = []
+    for p, (sub,) in enumerate(get_online_pass_interval(split, 1)):
+        d = os.path.join(root, ONLINE_DAY, sub)
+        write(d, seed + p)
+        open(os.path.join(d, ONLINE_DONE), "w").close()
+        dirs.append(d)
+    return dirs
+
+
+def online_config(path: str, data: str, out: str, **extra):
+    """A config file's keys with the online loop's settings."""
+    from paddlerec_tpu_torch.core.config import Config, load_config
+
+    flat = dict(load_config(path).to_dict())
+    flat.update({
+        "runner.train_data_dir": data, "runner.model_save_path": out,
+        "runner.days": ONLINE_DAY, "runner.split_per_pass": 1,
+        "runner.data_donefile": ONLINE_DONE, "runner.save_delta_frequency": 1,
+        "runner.delta_cube_shards": 2, "runner.print_interval": 1000,
+        "table_parameters.delete_threshold": ONLINE_EVICT,
+    })
+    flat.update(extra)
+    return Config(flat)
+
+
+def _overrides(cfg) -> list:
+    """``-o`` arguments giving a config's keys (lists and None as Python
+    literals, which the parser reads back)."""
+    return [f"{k}={v!r}" if isinstance(v, list) or v is None else f"{k}={v}"
+            for k, v in cfg.to_dict().items() if k not in ("config_dir", "runner.model")]
+
+
+def _launches(before: tuple) -> tuple:
+    """K1's and K1b's launches by shape since ``before`` (``_counted()``)."""
+    from paddlerec_tpu_torch.ops import gather_pool as gp
+
+    out = []
+    for counter, old in zip((gp.gather_pool.launches_by_shape,
+                             gp.gather_pool_bwd.launches_by_shape), before):
+        diff = collections.Counter(counter)
+        diff.subtract(old)
+        out.append(+diff)
+    return tuple(out)
+
+
+def _counted() -> tuple:
+    from paddlerec_tpu_torch.ops import gather_pool as gp
+
+    return (collections.Counter(gp.gather_pool.launches_by_shape),
+            collections.Counter(gp.gather_pool_bwd.launches_by_shape))
+
+
+def _shard_keys(path: str) -> np.ndarray:
+    """The keys of a cube shard, from its layout (u64 magic, dim, count,
+    i64 keys[count], f32 values[count·dim])."""
+    count = int(np.fromfile(path, np.uint64, 3)[2])
+    return np.fromfile(path, np.int64, count, offset=24)
+
+
+def _records(root: str) -> list:
+    with open(os.path.join(root, "online_donefile.txt")) as f:
+        return [(r["day"], r["pass"], r["kind"], os.path.relpath(r["path"], root))
+                for r in map(json.loads, filter(str.strip, f))]
+
+
+class OnlineWatch:
+    """Wrappers around ``OnlineTrainer``'s methods for the runs inside a
+    ``with`` block: each trainer, its initial parameters, the step losses
+    (device scalars, read once after the run) and the streaming metrics of
+    each pass (the join-time eval, then the train leg), the rows each shrink
+    evicts, and ``on_delta(trainer, delta_dir, touched masks)`` after each
+    publish.  ``init_from`` (a state_dict) replaces the initial parameters of
+    each trainer (a CPU twin starts from the card's); ``on_init(state_dict)``
+    is called with each trainer's initial parameters."""
+
+    def __init__(self, on_delta=None, init_from=None, on_init=None):
+        self.on_delta, self.init_from, self.on_init = on_delta, init_from, on_init
+        self.trainers, self.init, self.passes = [], None, []
+        self.losses, self.metrics, self.evicted = {}, {}, {}
+
+    def __enter__(self):
+        from paddlerec_tpu_torch.train.online import OnlineTrainer
+
+        cls, watch = OnlineTrainer, self
+        names = ("init_state", "train_step", "_compute_metrics", "train_pass", "save_delta",
+                 "_zero_table_rows")
+        # the class's own attributes, restored on exit (None: inherited)
+        self._saved = {k: cls.__dict__.get(k) for k in names}
+        orig = {k: getattr(cls, k) for k in names}
+
+        def init_state(trainer, *a, **k):
+            state = orig["init_state"](trainer, *a, **k)
+            if watch.init_from is not None:
+                state.module.load_state_dict(watch.init_from)
+            watch.init = {n: v.detach().cpu().clone()
+                          for n, v in state.module.state_dict().items()}
+            watch.trainers.append(trainer)
+            if watch.on_init is not None:
+                watch.on_init(watch.init)
+            return state
+
+        def train_step(trainer, batch, metric_state):
+            metric_state, loss = orig["train_step"](trainer, batch, metric_state)
+            watch.losses.setdefault(watch.passes[-1], []).append(loss)
+            return metric_state, loss
+
+        def compute_metrics(trainer, metric_state):
+            out = orig["_compute_metrics"](trainer, metric_state)
+            watch.metrics.setdefault(watch.passes[-1], []).append(out)
+            return out
+
+        def train_pass(trainer, pass_dir, day, pass_id, dataset=None):
+            watch.passes.append((day, pass_id))
+            return orig["train_pass"](trainer, pass_dir, day, pass_id, dataset=dataset)
+
+        def save_delta(trainer, root, tag):
+            masks = {n: m.copy() for n, m in trainer._touched.items()}
+            out = orig["save_delta"](trainer, root, tag)
+            if watch.on_delta is not None:
+                watch.on_delta(trainer, out, masks)
+            return out
+
+        def zero_rows(trainer, name, rows):
+            watch.evicted[name] = np.array(rows)
+            return orig["_zero_table_rows"](trainer, name, rows)
+
+        for name, fn in (("init_state", init_state), ("train_step", train_step),
+                         ("_compute_metrics", compute_metrics), ("train_pass", train_pass),
+                         ("save_delta", save_delta), ("_zero_table_rows", zero_rows)):
+            setattr(cls, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        from paddlerec_tpu_torch.train.online import OnlineTrainer
+
+        for name, fn in self._saved.items():
+            if fn is None:
+                delattr(OnlineTrainer, name)
+            else:
+                setattr(OnlineTrainer, name, fn)
+
+    def pass_losses(self) -> list:
+        """The mean step loss of each trained pass."""
+        return [float(torch.stack([l.float() for l in self.losses[p]]).mean().cpu())
+                for p in self.passes]
+
+    def join_aucs(self) -> list:
+        """The join-time eval's AUC of each trained pass."""
+        return [self.metrics[p][0]["auc"] for p in self.passes]
+
+
+@_uncounted
+def check_cube_delta(gp, trainer, out_dir: str, masks: dict, pass_rows=None) -> dict:
+    """A published delta of packed tables against the card: each table's
+    shards hold exactly the logical ids of its touched physical rows (and,
+    given ``pass_rows``, those are the rows the pass's data maps to), and
+    their vectors equal K1's gather of the same ids from the table's logical
+    view as it stands, bitwise (float32 out, from a bfloat16 table as
+    well).  Returns (keys by table, vectors by table, the check's numbers)."""
+    from paddlerec_tpu_torch.native.cube import CubeClient
+    from paddlerec_tpu_torch.ops.packed_embedding import sub_width
+
+    with open(os.path.join(out_dir, "delta_meta.json")) as f:
+        meta = json.load(f)
+    vocab, dim = meta["vocab"], meta["dim"]
+    w = sub_width(dim)
+    pack = 128 // w
+    keys_by, vals_by = {}, {}
+    for name, table in trainer._embedding_entries():
+        rows = np.nonzero(masks[name])[0]
+        if pass_rows is not None and not np.array_equal(rows, pass_rows):
+            raise AssertionError(f"{out_dir}: {name}'s touched rows are not the pass's rows")
+        keys = (rows[:, None] * pack + np.arange(pack)[None, :]).reshape(-1)
+        keys = keys[keys < vocab]
+        shards = sorted(glob.glob(os.path.join(out_dir, name.replace("/", "_"),
+                                               "cube_shard_*.bin")))
+        stored = np.sort(np.concatenate([_shard_keys(s) for s in shards]))
+        if len(shards) != 2 or not np.array_equal(stored, keys):
+            raise AssertionError(f"{out_dir}: {len(shards)} shards holding {len(stored)} "
+                                 f"keys, {len(keys)} touched")
+        with CubeClient(shards) as client:
+            got = client.seek(keys)
+        ids = torch.from_numpy(keys.astype(np.int32)).cuda()[:, None]
+        want = gp.gather_pool(table.detach().view(-1, w), ids, out_dtype=torch.float32,
+                              mode="clip")[:, :dim].cpu().numpy()
+        if got.tobytes() != want.tobytes():
+            raise AssertionError(f"{out_dir}: {name}'s vectors differ from K1's gather by "
+                                 f"{float(np.abs(got - want).max())}")
+        keys_by[name], vals_by[name] = keys, got
+    return keys_by, vals_by, meta
+
+
+def _unpacked(table: torch.Tensor, keys: np.ndarray, dim: int) -> np.ndarray:
+    from paddlerec_tpu_torch.ops.packed_embedding import sub_width
+
+    return table.float().numpy().reshape(-1, sub_width(dim))[keys, :dim]
+
+
+def _serve(shard_paths: list) -> tuple:
+    """One ``cube_server`` process a shard, each on a free port: (processes,
+    addresses)."""
+    import socket
+
+    from paddlerec_tpu_torch.native.cube import start_cube_server
+
+    procs, addrs = [], []
+    try:
+        for path in shard_paths:
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            procs.append(start_cube_server(port, [path]))
+            addrs.append(f"127.0.0.1:{port}")
+    except Exception:
+        _stop(procs)
+        raise
+    return procs, addrs
+
+
+def _stop(procs) -> None:
+    for proc in procs:
+        proc.kill()
+        proc.wait()
+
+
+def _online_twin(argv: list, init_path: str, out_path: str, threads: int) -> None:
+    """The CPU twin of phase 33, in a process of its own: ``tools/online_train``'s
+    ``main`` with ``argv`` (``--device cpu``) from the parameters saved at
+    ``init_path``; its per-pass losses, join-time AUCs and passes to
+    ``out_path`` as JSON."""
+    sys.path.insert(0, ROOT)
+    torch.set_num_threads(threads)
+    from paddlerec_tpu_torch.tools import online_train
+
+    t0 = time.perf_counter()
+    with OnlineWatch(init_from=torch.load(init_path, weights_only=True)) as run:
+        online_train.main(argv)
+    with open(out_path, "w") as f:
+        json.dump({"pass_losses": run.pass_losses(), "join_aucs": run.join_aucs(),
+                   "passes": run.passes, "seconds": time.perf_counter() - t0}, f)
+
+
+class OnlineTwin:
+    """Phase 33's CPU twin, run beside the card's phases 33-35: started once
+    the card's trainer has its initial parameters, joined and compared by
+    ``finish``; ``stop`` ends its process whatever happened."""
+
+    def __init__(self, work: str, argv: list, out_root: str):
+        self.work, self.argv, self.out_root = work, argv, out_root
+        self.proc = None
+        self.result = os.path.join(work, "online_twin.json")
+
+    def start(self, init: dict) -> None:
+        import multiprocessing
+
+        if self.proc is not None:
+            return
+        path = os.path.join(self.work, "online_twin_init.pt")
+        torch.save(init, path)
+        # all but two of the host's cores: the card's phases beside it run
+        # one Python thread and single-threaded numpy and cube builds
+        threads = max(1, (os.cpu_count() or 4) - 2)
+        self.started = time.perf_counter()
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=_online_twin, args=(self.argv, path, self.result, threads), daemon=True)
+        self.proc.start()
+
+    def stop(self) -> None:
+        if self.proc is not None and self.proc.is_alive():
+            self.proc.kill()
+        if self.proc is not None:
+            self.proc.join()
+
+    def finish(self, card_row: dict, timeout: float = 600.0) -> dict:
+        """Wait for the twin; its per-pass losses (atol 1e-4: float32 sums in
+        another order over 256 Adam steps) and join-time AUCs (atol 1e-3)
+        against the card's, its records and every ``delta_meta.json`` equal
+        to the card's."""
+        t0 = time.perf_counter()
+        self.proc.join(timeout)
+        waited = time.perf_counter() - t0
+        if self.proc.is_alive() or self.proc.exitcode != 0:
+            self.stop()
+            raise AssertionError(f"the CPU twin ended with {self.proc.exitcode}")
+        with open(self.result) as f:
+            twin = json.load(f)
+        loss_err = float(np.abs(np.subtract(card_row["pass_losses"],
+                                            twin["pass_losses"])).max())
+        auc_err = float(np.abs(np.subtract(card_row["join_aucs"], twin["join_aucs"])).max())
+        card_root = card_row.pop("root")
+        metas = []
+        for p in range(len(card_row["join_aucs"])):
+            tag = f"delta_{ONLINE_DAY}_{p}"
+            with open(os.path.join(card_root, tag, "delta_meta.json")) as f, \
+                    open(os.path.join(self.out_root, tag, "delta_meta.json")) as g:
+                metas.append(json.load(f) == json.load(g))
+        records = _records(self.out_root) == card_row["records_full"]
+        if (loss_err > 1e-4 or auc_err > 1e-3 or not records or not all(metas)
+                or [tuple(p) for p in twin["passes"]] != card_row["pass_keys"]):
+            raise AssertionError(f"slot_dnn online, card against CPU: losses {loss_err}, "
+                                 f"AUCs {auc_err}, records {records}, delta_meta {metas}")
+        return {"max_pass_loss_err": loss_err, "max_join_auc_err": auc_err,
+                "records_equal": records, "delta_meta_equal": all(metas),
+                "pass_losses": twin["pass_losses"], "seconds": twin["seconds"],
+                "waited_s": waited, "wall_s": time.perf_counter() - self.started}
+
+
+def online_slot_dnn(gp, work: str, seed: int, card: str, twin_box: list) -> dict:
+    """Phase 33: ``configs/rank/slot_dnn/config.yaml`` at its full width
+    (vocab 1,000,001, dim 9, 27 slots, tower [512, 256, 128, 32], Adam,
+    batch 32) through ``tools/online_train.py``'s ``main`` on the card, one
+    day of four passes of ``ONLINE_ROWS`` planted-signal rows, each pass
+    directory marked by a data donefile; the first base, a checkpoint every
+    2 passes, a delta every pass in 2 cube shards, the day's shrink at
+    ``ONLINE_EVICT`` and its base:
+      * each delta against K1's gather from the card's table at its publish
+        (``check_cube_delta``), and against a checkpoint of the same state:
+        the loop's own where it wrote one at that pass, else one the check
+        writes (bitwise, the numpy unpack of the checkpoint's table);
+      * the CPU port on the same day from the card's initial parameters, in
+        a process of its own beside the card's phases 33-35 (``OnlineTwin``,
+        put into ``twin_box``; its ``finish`` compares);
+      * the evicted rows exactly 0 in the table and both Adam moments, every
+        other value as the last checkpoint (before the shrink) holds it;
+      * a second run of the day trains no pass and writes no record;
+      * the day's base through ``tools/export_cube.py`` into 2 shards,
+        served by two ``cube_server`` processes: ``RemoteCubeClient.seek``
+        of every key and ``NEVER_SEEN`` keys past the table equal to K1's
+        gather from the final table (drop mode: zeros past it), bitwise."""
+    from paddlerec_tpu_torch.core.config import Config
+    from paddlerec_tpu_torch.native.cube import RemoteCubeClient
+    from paddlerec_tpu_torch.tools import export_cube, online_train
+    from paddlerec_tpu_torch.train import checkpoint as ckpt_lib
+
+    t0 = time.perf_counter()
+    data, out, cpu_out = (os.path.join(work, d) for d in ("online", "online_out", "online_cpu"))
+    snaps = os.path.join(work, "online_snapshots")
+    cfg = online_config(SLOT_DNN, data, out, **{
+        "runner.split_interval": ONLINE_SPLIT, "runner.checkpoint_per_pass": 2,
+        "runner.save_first_base": True, "runner.seed": seed})
+    vocab = int(cfg.hyper("sparse_feature_number"))
+    write_online_day(data, ONLINE_SPLIT,
+                     lambda d, s: write_train_data(d, ONLINE_ROWS, vocab, s), seed + 33)
+    args = ["-m", SLOT_DNN, "-o", *_overrides(cfg)]
+    checked = []
+
+    @_uncounted
+    def on_delta(trainer, out_dir, masks):
+        keys, vals, meta = check_cube_delta(gp, trainer, out_dir, masks)
+        (name,) = keys
+        tag = os.path.basename(out_dir).replace("delta_", "ckpt_")
+        if os.path.exists(os.path.join(out, tag)):
+            table = ckpt_lib.load_model(out, tag)[0]["embedding.embedding"]
+        else:
+            ckpt_lib.save_params_only(trainer.state.module.state_dict(), snaps, tag)
+            table = ckpt_lib.load_params_only(snaps, tag)["embedding.embedding"]
+        if _unpacked(table, keys[name], meta["dim"]).tobytes() != vals[name].tobytes():
+            raise AssertionError(f"{out_dir}: the delta differs from the checkpoint {tag}")
+        checked.append({"delta": os.path.basename(out_dir), "keys": int(len(keys[name])),
+                        "rows_touched": meta["rows_touched"],
+                        "bytes": sum(os.path.getsize(p) for p in glob.glob(
+                            os.path.join(out_dir, "*", "*")))})
+
+    cpu_cfg = Config({**cfg.to_dict(), "runner.model_save_path": cpu_out})
+    twin = OnlineTwin(work, ["-m", SLOT_DNN, "-o", *_overrides(cpu_cfg), "--device", "cpu"],
+                      cpu_out)
+    twin_box.append(twin)
+    before = _counted()
+    with OnlineWatch(on_delta, on_init=twin.start) as card_run:
+        metrics = online_train.main(args)
+    trainer = card_run.trainers[0]
+    k1, k1b = (sum(c.values()) for c in _launches(before))
+    card_s = time.perf_counter() - t0
+    steps = ONLINE_ROWS // int(cfg.runner("train_batch_size"))
+    # one K1 a step of each leg and one a delta; one K1b a train step
+    if (trainer.device.type != "cuda" or len(checked) != 4 or len(card_run.passes) != 4
+            or (k1, k1b) != (4 * 2 * steps + 4, 4 * steps)):
+        raise AssertionError(f"slot_dnn online: {trainer.device}, {len(checked)} deltas, "
+                             f"passes {card_run.passes}, K1 {k1}, K1b {k1b}")
+    table = trainer.state.module.embedding.embedding.detach()
+    opt = trainer.state.opt_state
+    # the evicted rows are 0 in the table and its moments; all else is as the
+    # last checkpoint, written before the shrink, holds it
+    (name, evicted), = card_run.evicted.items()
+    params, opt_last, _ = ckpt_lib.load_model(out, f"ckpt_{ONLINE_DAY}_3")
+    keep = np.ones(table.shape[0], bool)
+    keep[evicted] = False
+    keep_t = torch.from_numpy(keep).cuda()
+    for now, last in ((table, params["embedding.embedding"]),
+                      (opt["mu"]["embedding.embedding"], opt_last["mu"]["embedding.embedding"]),
+                      (opt["nu"]["embedding.embedding"], opt_last["nu"]["embedding.embedding"])):
+        if now[~keep_t].any() or not torch.equal(now[keep_t].cpu(), last[keep]):
+            raise AssertionError("the shrink left an evicted row or changed a kept one")
+    if not 0 < len(evicted) < int(trainer.stats[name].seen.sum()) + len(evicted):
+        raise AssertionError(f"{len(evicted)} rows evicted")
+    records = _records(out)
+
+    # a second run of the day: every pass is done
+    with OnlineWatch() as again:
+        online_train.main(args)
+    if again.passes or _records(out) != records:
+        raise AssertionError(f"the second run trained {again.passes}")
+    again.trainers.clear()
+
+    # the day's base to two cube shards, served by two daemons
+    t2 = time.perf_counter()
+    cube_dir = os.path.join(work, "online_cube")
+    base = os.path.join(out, f"base_{ONLINE_DAY}")
+    if export_cube.main(["-m", SLOT_DNN, "--out", cube_dir, "--shards", "2", "-o",
+                         *_overrides(Config({**cfg.to_dict(),
+                                             "runner.model_init_path": base}))]) != 0:
+        raise AssertionError("export_cube found no table")
+    export_s = time.perf_counter() - t2
+    shards = sorted(glob.glob(os.path.join(cube_dir, "embedding_embedding", "*.bin")))
+    view = table.view(-1, 16)
+    keys = np.concatenate([np.arange(vocab), view.shape[0] + np.arange(NEVER_SEEN)])
+    procs, addrs = _serve(shards)
+    try:
+        t3 = time.perf_counter()
+        with RemoteCubeClient(addrs) as remote:
+            served = remote.seek(keys)
+        seek_s = time.perf_counter() - t3
+    finally:
+        _stop(procs)
+    want = _uncounted(gp.gather_pool)(view, torch.from_numpy(keys.astype(np.int32)).cuda()[:, None],
+                                      mode="drop").cpu().numpy()
+    if len(shards) != 2 or served.tobytes() != want.tobytes() or served[-NEVER_SEEN:].any():
+        raise AssertionError("the served base differs from K1's gather of the final table")
+    out_row = {
+        "model": "rank.slot_dnn", "vocab": vocab, "passes": len(card_run.passes),
+        "rows_a_pass": ONLINE_ROWS, "records": [r[2] for r in records],
+        "pass_losses": card_run.pass_losses(), "join_aucs": card_run.join_aucs(),
+        "auc": metrics["auc"], "deltas": checked, "evicted_rows": int(len(evicted)),
+        "seen_rows_after_shrink": int(trainer.stats[name].seen.sum()),
+        "root": out, "records_full": records, "pass_keys": card_run.passes,
+        "base_served": {"keys": int(len(keys)), "servers": len(addrs),
+                        "export_s": export_s, "seek_s": seek_s, "bitwise": True},
+        "phase_times": {k: v for k, v in metrics.items() if k.startswith("phase_")},
+        "card_run_s": card_s, "k1": k1, "k1b": k1b,
+    }
+    card_run.trainers.clear()
+    del trainer, table, view, opt
+    return out_row
+
+
+def online_bigdata(gp, work: str, seed: int, card: str) -> dict:
+    """Phase 34: ``configs/rank/deepfm/config_bigdata.yaml`` online at its
+    full vocabulary (100,000,001 ids, the 3.2 GB bfloat16 table, row-wise
+    adagrad with stochastic rounding, batch 8192; the Python reader of
+    slotbin files, ``feed_superbatch`` 3 and ``wire_format: compact``), one
+    day of four passes of ``BIG_ONLINE_BATCHES`` batches over the whole
+    vocabulary (half of the ids from 4,096 hot ids per slot), a delta every
+    pass, no checkpoint inside the day, the day's shrink and base:
+      * each delta holds exactly the logical ids of the physical rows its
+        pass's data maps to, and their vectors equal K1's bfloat16 → float32
+        gather from the card's table at its publish, bitwise
+        (``check_cube_delta``);
+      * two ``cube_server`` processes answer the last delta as its shards do;
+      * the evicted rows are 0 in the table and its row state.
+    Prints the rows touched, each delta's bytes against the table's, the
+    ``FeatureStats`` over its 12.5 M physical rows and the loop's
+    ``phase_times``."""
+    from paddlerec_tpu_torch.data.binary import SlotBinFile
+    from paddlerec_tpu_torch.native.cube import RemoteCubeClient
+    from paddlerec_tpu_torch.train.online import OnlineTrainer
+
+    t0 = time.perf_counter()
+    data, out = os.path.join(work, "online_big"), os.path.join(work, "online_big_out")
+    cfg = online_config(BIGDATA.format("deepfm"), data, out, **{
+        "runner.split_interval": ONLINE_SPLIT, "runner.checkpoint_per_pass": 1000,
+        "runner.reader_type": "", "runner.feed_superbatch": BIG_ONLINE_BATCHES,
+        "runner.wire_format": "compact", "runner.seed": seed})
+    vocab, batch = int(cfg.hyper("sparse_feature_number")), int(cfg.runner("train_batch_size"))
+    dirs = write_online_day(data, ONLINE_SPLIT, lambda d, s: write_sparse_train_data(
+        d, BIG_ONLINE_BATCHES * batch, vocab, s, files=1), seed + 34)
+    pass_rows = []
+    for d in dirs:
+        ids = np.concatenate([np.asarray(SlotBinFile(f).sparse).reshape(-1)
+                              for f in sorted(glob.glob(os.path.join(d, "*.bin")))])
+        pass_rows.append(np.unique((ids.astype(np.int64) % vocab) // 8))
+    data_s = time.perf_counter() - t0
+    deltas, last = [], {}
+
+    def on_delta(trainer, out_dir, masks):
+        t = time.perf_counter()
+        p = int(out_dir.rsplit("_", 1)[1])
+        keys, vals, meta = check_cube_delta(gp, trainer, out_dir, masks, pass_rows[p])
+        last.update(dir=out_dir, keys=keys["embedding/embedding"],
+                    vals=vals["embedding/embedding"])
+        deltas.append({"delta": os.path.basename(out_dir), "rows_touched": meta["rows_touched"],
+                       "keys": int(len(last["keys"])),
+                       "bytes": sum(os.path.getsize(f) for f in glob.glob(
+                           os.path.join(out_dir, "*", "*"))),
+                       "check_s": time.perf_counter() - t})
+
+    before = _counted()
+    t1 = time.perf_counter()
+    with OnlineWatch(on_delta) as run:
+        trainer = OnlineTrainer(cfg)
+        trainer.init_state(seed=seed)
+        init_s = time.perf_counter() - t1
+        metrics = trainer.run()
+    run_s = time.perf_counter() - t1
+    k1, k1b = (sum(c.values()) for c in _launches(before))
+    table = trainer.state.module.embedding.embedding.detach()
+    acc = trainer.state.extra["embedding/embedding_delta"].acc
+    table_bytes = table.numel() * table.element_size()
+    if (tuple(table.shape) != (12500001, 128) or table.dtype != torch.bfloat16
+            or len(deltas) != 4 or (k1, k1b) != (4 * 2 * BIG_ONLINE_BATCHES + 4,
+                                                 4 * BIG_ONLINE_BATCHES)):
+        raise AssertionError(f"the 10^8 online run: {tuple(table.shape)} {table.dtype}, "
+                             f"{len(deltas)} deltas, K1 {k1}, K1b {k1b}")
+    name = "embedding/embedding"
+    evicted = run.evicted.get(name, np.zeros(0, np.int64))
+    rows = torch.from_numpy(evicted).cuda()
+    if len(evicted) and (table[rows].any() or acc[rows].any()):
+        raise AssertionError("an evicted row of the 10^8 table is not 0")
+    stats = trainer.stats[name]
+    shards = sorted(glob.glob(os.path.join(last["dir"], "embedding_embedding", "*.bin")))
+    procs, addrs = _serve(shards)
+    try:
+        t2 = time.perf_counter()
+        with RemoteCubeClient(addrs) as remote:
+            served = remote.seek(last["keys"])
+        seek_s = time.perf_counter() - t2
+    finally:
+        _stop(procs)
+    if served.tobytes() != last["vals"].tobytes():
+        raise AssertionError("the servers answer the last delta otherwise than its shards")
+    out_row = {
+        "config": "configs/rank/deepfm/config_bigdata.yaml", "vocab": vocab,
+        "table_shape": list(table.shape), "table_bytes": table_bytes, "batch": batch,
+        "passes": len(run.passes), "batches_a_pass": BIG_ONLINE_BATCHES,
+        "deltas": [dict(d, bytes_over_table=d["bytes"] / table_bytes) for d in deltas],
+        "feature_stats": {"physical_rows": int(len(stats.show)),
+                          "seen_after_shrink": int(stats.seen.sum()),
+                          "evicted": int(len(evicted))},
+        "last_delta_served": {"keys": int(len(last["keys"])), "servers": len(addrs),
+                              "seek_s": seek_s, "bitwise": True},
+        "pass_losses": run.pass_losses(), "join_aucs": run.join_aucs(),
+        "phase_times": {k: v for k, v in metrics.items() if k.startswith("phase_")},
+        "data_s": data_s, "init_s": init_s, "run_s": run_s, "k1": k1, "k1b": k1b,
+    }
+    run.trainers.clear()
+    del trainer, table, acc, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out_row
+
+
+@_uncounted
+def check_npz_delta(gp, trainer, out_dir: str, masks: dict, pass_rows: dict) -> dict:
+    """A delta of unpacked tables (din's) against the card: each table's
+    ``<name>_delta.npz`` holds exactly the rows the pass's batches name
+    through the model's ``touched_tables``, and their values equal K1's
+    gather of those rows from the table at its publish, bitwise."""
+    touched = {}
+    for name, table in trainer._embedding_entries():
+        npz = np.load(os.path.join(out_dir, f"{name.replace('/', '_')}_delta.npz"))
+        rows = np.nonzero(masks[name])[0]
+        if not (np.array_equal(npz["rows"], rows) and np.array_equal(rows, pass_rows[name])):
+            raise AssertionError(f"{out_dir}: {name}'s rows are not the pass's")
+        ids = torch.from_numpy(rows.astype(np.int32)).cuda()[:, None]
+        want = gp.gather_pool(table.detach(), ids, mode="clip").cpu().numpy()
+        if npz["values"].tobytes() != want.tobytes():
+            raise AssertionError(f"{out_dir}: {name}'s values differ from K1's gather")
+        touched[name] = int(len(rows))
+    return touched
+
+
+def online_din(gp, work: str, seed: int, card: str) -> dict:
+    """Phase 35: ``configs/rank/din/config.yaml`` at its defaults (item
+    table 63,001 × 64, category table 801 × 64, item bias, batch 32) online,
+    one day of two passes of ``DIN_ONLINE_ROWS`` planted-signal rows, a
+    delta every pass, a checkpoint at the day's last pass, the shrink at
+    ``ONLINE_EVICT`` and the base: every delta covers the three tables that
+    ``touched_tables`` names (``check_npz_delta``), and the shrink acts on
+    each table by its own counters: its evicted rows 0 in the table and both
+    Adam moments, every other value as the checkpoint before the shrink."""
+    from paddlerec_tpu_torch.train import checkpoint as ckpt_lib
+    from paddlerec_tpu_torch.train.online import OnlineTrainer
+
+    t0 = time.perf_counter()
+    data, out = os.path.join(work, "online_din"), os.path.join(work, "online_din_out")
+    cfg = online_config(DIN, data, out, **{
+        "runner.split_interval": 720, "runner.checkpoint_per_pass": 2, "runner.seed": seed})
+    dirs = write_online_day(data, 720, lambda d, s: write_din_data(d, DIN_ONLINE_ROWS, s),
+                            seed + 35)
+    deltas = []
+    before = _counted()
+    with OnlineWatch() as run:
+        trainer = OnlineTrainer(cfg)
+        md = trainer.model_def
+        pass_rows = []
+        for d in dirs:
+            hooked = collections.defaultdict(list)
+            for b in md.make_dataset(d, int(cfg.runner("train_batch_size"))):
+                for name, r in md.touched_tables(b).items():
+                    hooked[name].append(r)
+            pass_rows.append({n: np.unique(np.concatenate(r)) for n, r in hooked.items()})
+        run.on_delta = lambda tr, out_dir, masks: deltas.append(check_npz_delta(
+            gp, tr, out_dir, masks, pass_rows[int(out_dir.rsplit("_", 1)[1])]))
+        trainer.run()
+    k1, k1b = (sum(c.values()) for c in _launches(before))
+    steps = DIN_ONLINE_ROWS // SEQ_BATCH
+    tables = {"item_emb/embedding", "cat_emb/embedding", "item_b/embedding"}
+    if (len(deltas) != 2 or any(set(d) != tables for d in deltas)
+            or (k1, k1b) != (2 * 3 * 2 * steps + 2 * 3, 2 * 3 * steps)):
+        raise AssertionError(f"din online: deltas {deltas}, K1 {k1}, K1b {k1b}")
+    params, opt_last, _ = ckpt_lib.load_model(out, f"ckpt_{ONLINE_DAY}_1")
+    state = dict(trainer.state.module.named_parameters())
+    opt = trainer.state.opt_state
+    evicted = {}
+    for name in tables:
+        key = name.replace("/", ".")
+        rows = run.evicted.get(name, np.zeros(0, np.int64))
+        keep = np.ones(state[key].shape[0], bool)
+        keep[rows] = False
+        keep_t = torch.from_numpy(keep).cuda()
+        for now, last in ((state[key].detach(), params[key]),
+                          (opt["mu"][key], opt_last["mu"][key]),
+                          (opt["nu"][key], opt_last["nu"][key])):
+            if now[~keep_t].any() or not torch.equal(now[keep_t].cpu(), last[keep]):
+                raise AssertionError(f"din's shrink of {name} left an evicted row or "
+                                     "changed a kept one")
+        evicted[name] = int(len(rows))
+    # item_b and item_emb see the same rows; the category table has its own
+    if (not evicted["item_emb/embedding"]
+            or not np.array_equal(run.evicted["item_emb/embedding"],
+                                  run.evicted["item_b/embedding"])):
+        raise AssertionError(f"din's shrink: {evicted}")
+    run.trainers.clear()
+    del trainer, state, opt
+    return {"model": "rank.din", "passes": len(run.passes), "rows_a_pass": DIN_ONLINE_ROWS,
+            "touched_rows_by_delta": deltas, "evicted_by_table": evicted,
+            "pass_losses": run.pass_losses(), "join_aucs": run.join_aucs(),
+            "seconds": time.perf_counter() - t0, "k1": k1, "k1b": k1b}
+
+
+def online_k1_shapes(k1_by: collections.Counter) -> tuple:
+    """Phase 36's K1 rows: each lookup of phases 33-35 at its batch, and each
+    table's delta gather (its touched packed or plain rows, sorted and
+    distinct, N the largest of the run's deltas).  Returns (shapes, the
+    (rows, D, dtype, N, pool) of the lookups)."""
+    lookups = (
+        K1Shape("slot_dnn view, B=32", 125001 * 8, 16, SEQ_BATCH * SLOTS, vocab=1000001,
+                library="embedding"),
+        K1Shape("config_bigdata.yaml bf16 view into float32, B=8192", 12500001 * 8, 16,
+                8192 * SLOTS, vocab=100000001, dtype="bfloat16"),
+        K1Shape("din item_emb, B=32", 63001, 64, SEQ_BATCH * 129, mode="fill",
+                library="embedding"),
+        K1Shape("din cat_emb, B=32", 801, 64, SEQ_BATCH * 129, mode="fill",
+                library="embedding"),
+        K1Shape("din item_b, B=32", 63001, 1, SEQ_BATCH, mode="fill", library="embedding"),
+    )
+    named = {(s.rows, s.dim, s.dtype, s.n, s.pool) for s in lookups}
+    gathers = []
+    for what, rows, dim, dtype in (("slot_dnn", 125001, 128, "float32"),
+                                   ("config_bigdata.yaml", 12500001, 128, "bfloat16"),
+                                   ("din item_emb", 63001, 64, "float32"),
+                                   ("din cat_emb", 801, 64, "float32"),
+                                   ("din item_b", 63001, 1, "float32")):
+        ns = [k[3] for k in k1_by if k[:3] == (rows, dim, dtype) and k[4] == 1
+              and k not in named]
+        if not ns:
+            raise AssertionError(f"no delta of {what} launched K1: {dict(k1_by)}")
+        gathers.append(K1Shape(f"{what} delta: touched rows, N the run's largest", rows,
+                               dim, max(ns), ids="sorted unique", dtype=dtype,
+                               library=None if dtype == "bfloat16" else "embedding"))
+    return lookups + tuple(gathers), named
+
+
+def online_k1b_shapes() -> tuple:
+    """Phase 36's K1b rows: slot_dnn's view at its batch and din's category
+    table are new; din's item tables (phase 15) and the 10^8 run's compact
+    rows (phase 10) have their cases, which count the launches of their
+    key."""
+    return (
+        K1bShape("slot_dnn view, B=32", 125001 * 8, 16, SEQ_BATCH * SLOTS, vocab=1000001),
+        K1bShape("din cat_emb, B=32", 801, 64, SEQ_BATCH * 129, mode="fill"),
+    )
+
+
+def _earlier_k1b(key) -> bool:
+    rows, dim, dtype, n = key
+    seq = {(r, d, "float32", n) for _, r, d, n, _ in SEQ_SHAPES}
+    return key in seq or (dim, dtype, n) == (16, "float32", 8192 * SLOTS)
+
+
+def online_phases(gp, work: str, seed: int, card: str, clock: PhaseClock) -> tuple:
+    """Phases 33-36: the online loop on slot_dnn, the 10^8 table and din,
+    then phase 36, K1 at every shape of theirs and K1b at their new shapes,
+    each checked against its plain version and timed.  Every K1 launch of
+    phases 33-35 is at a case (a delta gather's at its table's, whatever its
+    N); every K1b launch at a case or at an earlier phase's.  Returns (K1
+    cases, K1b cases, K1 launches, K1b launches)."""
+    before = _counted()
+
+    def lap(phase: str) -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock.lap(phase)
+
+    twin = []
+    try:
+        slot_dnn = online_slot_dnn(gp, work, seed, card, twin)
+        lap("33 online slot_dnn")
+        emit({"online_bigdata": online_bigdata(gp, work, seed, card), "card": card})
+        lap("34 online 10^8")
+        emit({"online_din": online_din(gp, work, seed, card), "card": card})
+        lap("35 online din")
+        slot_dnn["cpu_twin"] = twin[0].finish(slot_dnn)
+        for key in ("records_full", "pass_keys"):
+            slot_dnn.pop(key)
+        emit({"online_slot_dnn": slot_dnn, "card": card})
+        clock.lap("33 the CPU twin's rest (beside 33-35)")
+    finally:
+        for t in twin:
+            t.stop()
+    k1_by, k1b_by = _launches(before)
+    shapes, lookups = online_k1_shapes(k1_by)
+    k1_cases = time_k1_shapes(gp, shapes, seed + 36)
+    k1b_cases = time_k1b_shapes(gp, online_k1b_shapes(), seed + 36)
+    k1, k1b = attribute_online_launches(k1_cases, k1b_cases, k1_by, k1b_by, lookups)
+    clock.lap("36 K1/K1b at the online shapes")
+    return k1_cases, k1b_cases, k1, k1b
+
+
+def attribute_online_launches(k1_cases, k1b_cases, k1_by, k1b_by, lookups) -> tuple:
+    """Set each phase-36 case's ``launches`` from the launches by shape of
+    phases 33-35, and check that every K1 launch is at a case and every K1b
+    launch at a case or an earlier phase's.  Returns the K1 and K1b
+    totals."""
+    for case in k1_cases:
+        group = (case["rows"], case["dim"], case["dtype"], case["pool"])
+        # a delta gather's N follows the data: its case takes every key of its
+        # table that no lookup names (one id a row: the gathers and lookups
+        # of a table share rows, D, dtype and pool)
+        case["launches"] = (sum(v for k, v in k1_by.items()
+                                if (*k[:3], k[4]) == group and k not in lookups)
+                            if case["ids"] == "sorted unique" else
+                            k1_by.get((*group[:3], case["n"], case["pool"]), 0))
+    keys = {(c["rows"], c["dim"], c["dtype"], c["n"]) for c in k1b_cases}
+    for case in k1b_cases:
+        case["launches"] = k1b_by.get((case["rows"], case["dim"], case["dtype"], case["n"]), 0)
+    k1, k1b = sum(k1_by.values()), sum(k1b_by.values())
+    if (sum(c["launches"] for c in k1_cases) != k1
+            or not all(c["launches"] > 0 for c in k1_cases)):
+        raise AssertionError(f"phases 33-35 launched K1 {k1} times, by shape {dict(k1_by)}")
+    if (any(k not in keys and not _earlier_k1b(k) for k in k1b_by)
+            or not all(c["launches"] > 0 for c in k1b_cases)):
+        raise AssertionError(f"phases 33-35 launched K1b {k1b} times, by shape {dict(k1b_by)}")
+    return k1, k1b
+
+
+def online_only(gp, seed: int, card: str) -> None:
+    """``--only 33-36``: phases 33-36, one JSON line a K1 and a K1b shape,
+    and the phases' seconds."""
+    clock = PhaseClock()
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        k1_cases, k1b_cases, k1, k1b = online_phases(gp, work, seed, card, clock)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    floor_ms = time_launch_floor(gp)
+    set_share(k1_cases, floor_ms)
+    set_share(k1b_cases, floor_ms)
+    for row in k1_cases:
+        emit({"k1": row, "card": card})
+    for row in k1b_cases:
+        emit({"k1b": row, "card": card})
+    emit({"online_only": {"k1_launches": k1, "k1b_launches": k1b,
+                          "launch_floor_ms": floor_ms}, "card": card})
+    emit(clock.line(card))
+
+
 def slice_only(gp, seed: int, card: str) -> None:
     """``--only 29-32``: phases 29-32, one JSON line a K1 and a K1b shape,
     and the phases' seconds."""
@@ -4355,10 +5186,14 @@ def k1_shapes(group: str) -> tuple:
 def _k1_ids(shape: K1Shape, g) -> torch.Tensor:
     """(n, pool) int32 ids: ``uniform`` over [0, vocab), ``zeros``,
     ``period P`` (0..P-1 repeated: (B, T) position ids), ``half last`` (as
-    ``_fill_ids``), or ``tenth outside`` (uniform, a tenth moved past the
-    table's end)."""
+    ``_fill_ids``), ``tenth outside`` (uniform, a tenth moved past the
+    table's end), or ``sorted unique`` (n distinct rows, ascending: the
+    touched rows an online delta reads)."""
     if shape.ids in ("zeros", "half last") or shape.ids.startswith("period"):
         return _fill_ids(shape.ids, shape.rows, shape.n, g)
+    if shape.ids == "sorted unique":  # a delta's touched rows
+        picks = torch.randperm(shape.rows, device="cuda", generator=g)[:shape.n]
+        return picks.sort().values.to(torch.int32)[:, None]
     ids = torch.randint(0, shape.vocab or shape.rows, (shape.n, shape.pool), device="cuda",
                         generator=g, dtype=torch.int32)
     if shape.ids == "tenth outside":
@@ -4465,7 +5300,7 @@ def time_k1_shapes(gp, shapes, seed: int, variants=None) -> list:
         out_bytes = shape.n * shape.dim * torch.finfo(out_dtype).bits // 8
         n_sets = (max(4, min(64, math.ceil(50e6 / (shape.n * shape.pool
                                                    * max(shape.dim, 16) * table_es))))
-                  if shape.ids in ("uniform", "tenth outside") else 1)
+                  if shape.ids in ("uniform", "tenth outside", "sorted unique") else 1)
         sets = [_k1_ids(shape, g) for _ in range(n_sets)]
         iters = max(n_sets, min(400, int(4e9 / out_bytes)))
         err, ok, tol = k1_check(gp, table, sets[0], mask, out_dtype, shape.mode)
@@ -4866,10 +5701,10 @@ def profile_forward(model_def, module, batch_size: int, iters: int = 20) -> dict
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("k1", "k1b", "29-32"),
+    parser.add_argument("--only", choices=("k1", "k1b", "29-32", "33-36"),
                         help="k1 (k1b): phases 1-2, K1's (K1b's) checks of phase 3, then "
-                             "that kernel checked and timed at every shape; 29-32: "
-                             "phases 1-2 and 29-32 (default: every phase)")
+                             "that kernel checked and timed at every shape; 29-32 (33-36): "
+                             "phases 1-2 and 29-32 (33-36) (default: every phase)")
     parser.add_argument("--against", action="append", default=[], metavar="SOURCE.cu",
                         help="with --only: another source of that kernel with the same C "
                              "interface, built and timed in turns with the current one")
@@ -4902,8 +5737,10 @@ def main(argv=None) -> int:
     if args.only:
         if args.only in ("k1", "k1b"):
             (k1_only if args.only == "k1" else k1b_only)(gp, args.seed, card, args.against)
-        else:
+        elif args.only == "29-32":
             slice_only(gp, args.seed, card)
+        else:
+            online_only(gp, args.seed, card)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -5100,6 +5937,9 @@ def main(argv=None) -> int:
         # phases 29-32: the tree family, a2c, the movie demo, their shapes
         slice_cases, slice_bwd_cases, slice_k1, slice_k1b = tree_rl_demo(
             gp, work, args.seed, card, clock)
+        # phases 33-36: the online loop, the cube store, their shapes
+        online_cases, online_bwd_cases, online_k1, online_k1b = online_phases(
+            gp, work, args.seed, card, clock)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for case, batch in zip(cases, BATCHES):
@@ -5179,13 +6019,13 @@ def main(argv=None) -> int:
                    + sum(r["k1_launches"] + r["eval"]["k1_launches"] for r in all_runs)
                    + zoo["k1_launches"] + paths["k1_launches"] + seq["k1"] + seq_runs["k1"]
                    + rest["k1"] + rest_runs["k1"] + mt["k1"] + mt_runs["k1"] + match_k1
-                   + graph_k1 + slice_k1)
+                   + graph_k1 + slice_k1 + online_k1)
     k1b_launches = (first["k1b_launches"] + sparse["first"]["k1b_launches"]
                     + sum(r["k1b_launches"] for r in all_runs)
                     + zoo["k1b_launches"] + paths["k1b_launches"] + seq["k1b"]
                     + seq_runs["k1b"] + rest["k1b"] + rest_runs["k1b"] + mt["k1b"]
                     + mt_runs["k1b"] + match["k1b"] + match_runs["k1b"] + graph["k1b"]
-                    + graph_runs["k1b"] + slice_k1b)
+                    + graph_runs["k1b"] + slice_k1b + online_k1b)
     if k1_launches < 1 or k1b_launches < 1:
         raise AssertionError("the main path launched a kernel no time")
     # K1b's launches per timed shape, from the whole run: those of the shape's
@@ -5200,7 +6040,7 @@ def main(argv=None) -> int:
           "card": card})
     bwd_all = (bwd_cases + bf16_bwd_cases + zoo_bwd_cases + compact_cases + seq_bwd_cases
                + rest_bwd_cases + mt_bwd_cases + match_bwd_cases + graph_bwd_cases
-               + slice_bwd_cases)
+               + slice_bwd_cases + online_bwd_cases)
     dense = {(c["rows"], c["dim"], c["dtype"], c["n"]) for c in bwd_all
              if c["ids"] != "compact"}
     for case in bwd_all:
@@ -5231,7 +6071,7 @@ def main(argv=None) -> int:
          "paddlerec_tpu/ops/pallas_embedding.py:37", k1_launches,
          max(main_err, sparse["lookup"]["k1_err"]),
          cases + zoo_cases + big_cases + seq_cases + rest_cases + mt_cases + match_cases
-         + graph_cases + slice_cases,
+         + graph_cases + slice_cases + online_cases,
          cases[-1]),
         # the JAX package has no kernel for the gradient: K1b takes the
         # place of the XLA scatter-add of _packed_lookup_bwd

@@ -53,6 +53,19 @@ def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+def is_embedding_path(name: str) -> bool:
+    """Whether a parameter is an embedding table, by its name: a copy of
+    ``paddlerec_tpu/parallel/sharding.py`` ``is_embedding_path`` on the
+    port's names (the flax path ``/``-joined, or a state_dict key, with
+    ``.`` read as ``/``).  A component ``embedding`` or ``sparse_w`` marks a
+    table; a leaf ``embedding_delta`` (the JAX package's gradient tap of a
+    sparse run, which the port has not) is no table."""
+    names = name.replace(".", "/").split("/")
+    if names and names[-1] == DELTA_NAME:
+        return False
+    return any(n in (TABLE_NAME, "sparse_w") for n in names)
+
+
 def _to_torch(a: Any) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, as JAX hands it out

@@ -17,9 +17,11 @@ classification models.  A model with ``stochastic = True`` takes the
 trainer's per-step ``torch.Generator`` in ``train_forward(module, batch,
 generator=...)``; evaluation and serving pass none, the deterministic path.
 
-Not ported yet: the multi-process dedup (``global_dedup_arrays``),
-``touched_tables`` and the row-sharded sparse rules; nothing the
-single-device trainer reaches.
+``touched_tables`` maps a host batch onto the rows each table touches, for
+the online trainer's deltas and feature lifecycle (``train/touched.py``).
+
+Not ported yet: the multi-process dedup (``global_dedup_arrays``) and the
+row-sharded sparse rules; nothing the single-device trainer reaches.
 """
 
 from __future__ import annotations
@@ -172,6 +174,17 @@ class ModelDef:
 
     def sparse_update_ids(self, batch: Batch):
         return batch["sparse"]
+
+    def touched_tables(self, batch: Dict[str, np.ndarray]):
+        """Host-side map of table name → physical row ids this batch
+        touches, for delta publishing and the feature lifecycle
+        (``OnlineTrainer``).  Names are the flax-form parameter paths
+        (``"item_emb/embedding"``).  ``None`` selects the fused-CTR default
+        (``batch["sparse"]`` mapped through the pack arithmetic onto every
+        table with the fused geometry); models with several independent
+        tables (din, dien) override it so that every table gets exact
+        bookkeeping."""
+        return None
 
     def _default_pack(self) -> int:
         # models whose fused table is wider than sparse_feature_dim (e.g.

@@ -81,3 +81,8 @@ class ModelDef(DINModelDef):
                       self.cat_emb_size, self.position_size, self.num_heads,
                       self.num_blocks, self.ffn_dim, self.fc_sizes,
                       device=device, generator=generator)
+
+    def touched_tables(self, batch):
+        # the JAX package's bst derives from the plain ModelDef, not din's:
+        # its tables take the default mapping (none, without "sparse")
+        return None

@@ -82,3 +82,9 @@ class ModelDef(DINModelDef):
         return DIENNet(self.item_count, self.cat_count, self.item_emb_size,
                        self.cat_emb_size, self.gru_hidden, self.attention_sizes,
                        self.fc_sizes, device=device, generator=generator)
+
+    def touched_tables(self, batch):
+        # DIN's hook minus item_b (DIEN's net has no item-bias table)
+        out = super().touched_tables(batch)
+        out.pop("item_b/embedding", None)
+        return out

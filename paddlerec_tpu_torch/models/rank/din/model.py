@@ -9,8 +9,9 @@ tower, plus a per-item bias.  Sequences are padded to a static
 one ``Embed`` call): three K1 launches a forward, three K1b a step.
 
 ``DINDataset`` is a copy of the JAX package's reader (numpy only); dien and
-bst read the same format.  ``touched_tables`` (delta publishing of online
-training) is not ported.
+bst read the same format.  ``touched_tables`` names the rows of the item,
+category and item-bias tables a batch touches (the online trainer's
+deltas and feature lifecycle).
 """
 
 from __future__ import annotations
@@ -97,6 +98,25 @@ class ModelDef(LogitModelDef):
             "seq_mask": seq_mask,
             "label": (rng.rand(batch_size) < 0.5).astype(np.float32),
             "mask": np.ones(batch_size, np.float32),
+        }
+
+    def touched_tables(self, batch):
+        """Exact per-table rows for delta publishing: the item and category
+        tables have different row counts, so the fused-CTR default cannot
+        cover them.  Padded history positions are left out by seq_mask."""
+        live = np.asarray(batch["seq_mask"]) > 0
+        items = np.concatenate([
+            np.asarray(batch["hist_item"])[live].ravel(),
+            np.asarray(batch["target_item"]).ravel(),
+        ])
+        cats = np.concatenate([
+            np.asarray(batch["hist_cat"])[live].ravel(),
+            np.asarray(batch["target_cat"]).ravel(),
+        ])
+        return {
+            "item_emb/embedding": items % self.item_count,
+            "item_b/embedding": items % self.item_count,
+            "cat_emb/embedding": cats % self.cat_count,
         }
 
     def make_dataset(self, data_dir: str, batch_size: int, shuffle=False):

@@ -16,50 +16,20 @@ library.  Without ``g++`` the build raises ``NativeUnavailable``.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Sequence, Tuple
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parents[2] / "native" / "graph_engine.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-LIBRARY = BUILD_DIR / "libgraph.so"
+from paddlerec_tpu_torch.native import BUILD_DIR, NativeUnavailable, build_native  # noqa: F401
 
 _lib = None
-
-
-class NativeUnavailable(RuntimeError):
-    pass
-
-
-def _build_libgraph() -> str:
-    """Compile ``SOURCE`` into ``LIBRARY`` unless it is newer than the
-    source; returns its path."""
-    if LIBRARY.exists() and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime:
-        return str(LIBRARY)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=".libgraph.so.", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-o", tmp, str(SOURCE)]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, text=True)
-        os.replace(tmp, LIBRARY)
-    except (subprocess.CalledProcessError, FileNotFoundError) as e:
-        raise NativeUnavailable(
-            f"building libgraph.so failed: {getattr(e, 'stderr', None) or e}") from e
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return str(LIBRARY)
 
 
 def graphlib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(_build_libgraph())
+        lib = ctypes.CDLL(build_native("libgraph.so", "graph_engine.cpp",
+                                       ["-shared", "-fPIC", "-pthread"]))
         lib.gr_create.restype = ctypes.c_void_p
         lib.gr_create.argtypes = []
         lib.gr_free.restype = None

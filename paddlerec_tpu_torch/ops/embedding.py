@@ -262,10 +262,13 @@ class Embed(nn.Module):
         return x @ self.embedding.T
 
 
-def take_rows(x: torch.Tensor, ids: torch.Tensor, wrap: bool = False) -> torch.Tensor:
+def take_rows(x: torch.Tensor, ids: torch.Tensor, wrap: bool = False,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Rows of a 2-D tensor (a parameter or an activation) at ``ids`` of any
     shape → ``ids.shape + (x.shape[1],)``: one K1 launch in ``clip`` mode,
-    its gradient into ``x`` one K1b launch.
+    its gradient into ``x`` one K1b launch.  The rows come out in ``x``'s
+    dtype or (``out_dtype``) float32 from a bfloat16 ``x``, exactly: the
+    online trainer reads a table's touched rows off the card so.
 
     ``wrap=False`` is ``jnp.take(x, ids, axis=0, mode="clip")``: every id
     clipped into [0, R), in the forward and in the gradient alike.
@@ -278,5 +281,5 @@ def take_rows(x: torch.Tensor, ids: torch.Tensor, wrap: bool = False) -> torch.T
         flat = torch.where(flat < 0, flat + rows, flat).clamp(-1, rows)
     else:
         flat = flat.clamp(0, rows - 1)
-    out = gather_pool(x, flat.to(torch.int32)[:, None], mode="clip")
+    out = gather_pool(x, flat.to(torch.int32)[:, None], out_dtype=out_dtype, mode="clip")
     return out.reshape(ids.shape + (x.shape[1],))

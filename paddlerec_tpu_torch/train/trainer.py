@@ -29,11 +29,13 @@ have drawn.  The two packages' generators differ, so their noise does too.
 Evaluation and serving pass no generator, the deterministic path.
 ``metrics = "none"`` (deeprec) runs no streaming metric at all.
 
-Not ported yet (their config keys raise ``NotImplementedError`` when the
-trainer is built): meshes with ``mp > 1`` and multi-process runs (and with
-them the row-sharded sparse rules and the global dedup), the geo and fl sync
-modes, the host table, the device-resident feed, ``pipe_command``,
-``dump_fields``, the scalar writer and the profiler hook.
+The online day/pass loop (``train/online.py`` ``OnlineTrainer``) subclasses
+this trainer.  Not ported yet (their config keys raise
+``NotImplementedError`` when the trainer is built): meshes with ``mp > 1``
+and multi-process runs (and with them the row-sharded sparse rules and the
+global dedup), the geo and fl sync modes, the host table, the
+device-resident feed, ``pipe_command``, ``dump_fields``, the scalar writer
+and the profiler hook.
 """
 
 from __future__ import annotations
@@ -77,7 +79,9 @@ if not logger.handlers:
 
 def check_ported(config: Config) -> None:
     """Raise ``NotImplementedError`` naming the first runner or
-    hyper-parameter key that asks for code the port does not have yet:
+    hyper-parameter key that asks for code the port does not have yet (the
+    online day/pass loop, ``train/online.py``, is ported, and its
+    ``OnlineTrainer`` refuses the same keys):
     ``runner.sync_mode: geo|fl``, ``runner.use_host_table``,
     ``runner.feed_device_resident``, ``runner.use_visual``,
     ``runner.profiler_options``, ``runner.dump_fields``,

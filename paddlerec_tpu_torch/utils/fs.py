@@ -1,5 +1,5 @@
-"""Filesystem access for donefiles: the local part of
-``paddlerec_tpu/utils/fs.py``.
+"""Filesystem access for donefiles, data gating and published models: the
+local part of ``paddlerec_tpu/utils/fs.py``.
 
 The JAX package also routes ``gs://`` paths to an object store; the port
 reads and writes the local filesystem (or an NFS mount) only and raises on
@@ -14,6 +14,12 @@ import os
 class LocalFS:
     def exists(self, path: str) -> bool:
         return os.path.exists(path)
+
+    def isdir(self, path: str) -> bool:
+        return os.path.isdir(path)
+
+    def mkdir(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
 
     def append_line(self, path: str, line: str) -> None:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

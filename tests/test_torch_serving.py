@@ -165,7 +165,9 @@ def test_port_imports_nothing_of_jax():
                  "models.graph.layers", "native", "native.graph", "data.graph_dataset",
                  "models.treebased.tree", "models.treebased.tdm.model", "models.treebased.jtm",
                  "tools.jtm", "models.rl.a2c.model", "models.demo.movie_recommand.model",
-                 "serving.vector_index", "serving.movie_recommender"):
+                 "serving.vector_index", "serving.movie_recommender",
+                 "train.online", "train.touched", "native.cube", "tools.online_train",
+                 "tools.export_cube", "tools.cube_server"):
         assert f"paddlerec_tpu_torch.{name}" in walked, name
 
 
