@@ -7,6 +7,7 @@ and the CUDA toolkit:
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --only k1 [--against OTHER_gather_pool.cu ...]
     python3 chip_smoke.py --only k1b [--against OTHER_gather_pool_bwd.cu ...]
+    python3 chip_smoke.py --only 29-32 | 33-36 | 37-41
 
 Phases, in order; any failure is fatal and the script exits non-zero
 without a result line.  ``--only k1`` runs phases 1 and 2, K1's checks of
@@ -20,7 +21,7 @@ against its plain version and timed at every shape of phases 7, 10, 15, 18,
 or ``csrc/gather_pool_bwd.cu``, with the same C interface, a parent commit's
 say) is built beside it and timed in turns with it at every shape.
 ``--only 29-32`` runs phases 1, 2 and 29-32 (a few minutes), ``--only
-33-36`` phases 1, 2 and 33-36.
+33-36`` phases 1, 2 and 33-36, ``--only 37-41`` phases 1, 2 and 37-41.
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build every kernel of ``paddlerec_tpu_torch/csrc`` with ``nvcc``;
@@ -237,7 +238,44 @@ say) is built beside it and timed in turns with it at every shape.
 36. K1 at every shape of phases 33-35 (the lookups and each table's delta
     gather, ``online_k1_shapes``) and K1b at their new shapes, each held
     against its plain version, then timed; every K1 launch of phases 33-35 is
-    at one of them.  One line gives every phase's seconds.
+    at one of them;
+37. the host-tiered table (``host_table_phase``): ``configs/rank/dnn/
+    config_bigdata.yaml`` (vocab 100,000,001, dim 9: 12,500,001 physical host
+    rows; bf16 cache, row-wise adagrad with stochastic rounding, batch 8192)
+    through ``HostTableTrainer`` with ``use_host_table``, a 1,048,576-row
+    cache (256 MB), a file a pass, superbatches and the compact wire, over
+    three seeded passes of 8 batches (~415,000 physical rows a pass, ~555,000
+    in all): the first 2 steps against the port's CPU run of the same pass
+    given the same rounding noise (loss atol 1e-4); a RAM-only leg and a
+    spill leg (``host_table_ram_rows`` 500,000: rows on disk), each one K1
+    and one K1b a step, the loss finite and falling, the peak allocation
+    under cache + row state + dense + 1 GB; the legs' final rows the same ids,
+    values within rtol 2^-6 / atol 1e-5 (K1b's atomics order); ``save``,
+    ``load`` into a fresh trainer (bitwise) and one more pass; per pass the
+    seconds of ``begin_pass``, the upload, the steps, the flush and the wait
+    for the next pass's preparation, the rows cached and the rows in RAM and
+    on disk;
+38. the device-resident feed (``resident_feed``): DeepFM at
+    ``configs/rank/deepfm/config.yaml``'s width, batch 8192, superbatches,
+    three epochs with ``feed_device_resident``: the train and eval corpora
+    copied to the card once and replayed, the bytes held there, and the last
+    epoch's examples/s beside a streaming run's (host clock, information);
+39. the native feed (``native_feed``): the dnn, deepfm and wide_deep
+    ``config_bigdata.yaml`` read slot text through ``NativeSlotDataset``
+    with no fallback, batches bitwise the Python reader's, 8 ``train()``
+    steps each; ``tools.dataset_convert`` to slotbin read back equal;
+    ``pipe_command`` through the built ``criteo_parser``; the native and the
+    Python parse's rows/s;
+40. observability (``observability``): ``profiler_options`` writes a trace
+    holding K1's kernel, ``use_visual`` a scalar line every step, and
+    ``dump_fields`` from the card's ``evaluate()`` agrees with its CPU
+    twin's through ``diff_report`` (max abs diff ≤ 1e-5);
+41. K1 from the host table's cache view (8,388,608 × 16 bf16 into float32)
+    and K1b into its compact buffer at batch 8192, each held against its
+    plain version, then timed; every K1 and K1b launch of phase 37 is at one
+    of them, and every one of phases 38-40 at DeepFM's view or the 10^8
+    table's (phases 7 and 10 time those).  One line gives every phase's
+    seconds.
 
 K1b's ``launches`` in the ``kernels`` line are those of each case's own
 (rows, D, dtable dtype, N) over the main path (a case the main path does
@@ -5108,6 +5146,664 @@ def slice_only(gp, seed: int, card: str) -> None:
     emit(clock.line(card))
 
 
+# -- phases 37-41: the host-tiered table, the resident and native feeds, ------
+# -- observability and K1/K1b at their shapes ---------------------------------
+HOST_CACHE_ROWS = 1 << 20  # host_table_cache_rows: a 256 MB bf16 cache
+HOST_RAM_ROWS = 500_000  # the spill leg's RAM slab: below the rows the run touches
+HOST_PASSES = 3  # files, one a pass
+HOST_BATCHES = 8  # batches of 8192 a pass
+# a pass touches ~415,000 physical rows (~347,000 of the hot ids, ~68,000
+# uniform), the run ~555,000: the spill leg evicts ~55,000 rows to disk
+HOST_HOT = 350_000  # ids every pass draws from
+HOST_UNIFORM = 0.04  # the share of ids drawn uniformly over the whole vocabulary
+HOST_FIRST_STEPS = 2  # steps of the first pass held against the port's CPU run
+RESIDENT_EPOCHS = 3
+OBS_BATCHES = 4  # phase 40's whole batches of 8192; evaluation adds a padded tail
+BIG_BATCH = 8192
+
+
+def write_host_table_data(data_dir: str, vocab: int, seed: int) -> list:
+    """``HOST_PASSES`` slotbin files of ``HOST_BATCHES`` batches of 8192
+    Criteo-shaped rows, a file a pass: each id from ``HOST_HOT`` ids spread
+    over the whole vocabulary (the same for every pass) or, with probability
+    ``HOST_UNIFORM``, uniform over [1, vocab); the label carries the
+    per-id signal of ``write_sparse_train_data`` and a stronger one in the
+    first dense feature, which the tower learns within the run's 24 steps."""
+    from paddlerec_tpu_torch.data.binary import write_slotbin
+
+    os.makedirs(data_dir)
+    rng = np.random.RandomState(seed)
+    hot = rng.randint(1, vocab, HOST_HOT).astype(np.int64)
+    n = HOST_BATCHES * BIG_BATCH
+    paths = []
+    for p in range(HOST_PASSES):
+        sparse = hot[rng.randint(0, HOST_HOT, (n, SLOTS))]
+        uniform = rng.rand(n, SLOTS) < HOST_UNIFORM
+        sparse[uniform] = rng.randint(1, vocab, int(uniform.sum()))
+        dense = rng.rand(n, 13).astype(np.float32)
+        w = ((sparse * 2654435761) % 1000) / 1000.0 - 0.5
+        score = w.mean(axis=1) * 8.0 + (dense[:, 0] - 0.5) * 6.0
+        label = (rng.rand(n) < 1.0 / (1.0 + np.exp(-score))).astype(np.float32)
+        paths.append(os.path.join(data_dir, f"pass-{p}.bin"))
+        write_slotbin(paths[-1], label, sparse.astype(np.int32), dense)
+    return paths
+
+
+def host_config(data: str, seed: int, **extra):
+    """``configs/rank/dnn/config_bigdata.yaml`` through the host-tiered pass
+    loop: a 1,048,576-row cache, a file a pass, superbatches of 4 over the
+    compact wire, slotbin files."""
+    from paddlerec_tpu_torch.core.config import Config, load_config
+
+    flat = dict(load_config(BIGDATA.format("dnn")).to_dict())
+    flat.update({
+        "runner.train_data_dir": data, "runner.model_save_path": None,
+        "runner.reader_type": "", "runner.use_host_table": True,
+        "runner.host_table_cache_rows": HOST_CACHE_ROWS, "runner.files_per_pass": 1,
+        "runner.feed_superbatch": 4, "runner.wire_format": "compact",
+        "runner.print_interval": 1000, "runner.seed": seed,
+    })
+    flat.update(extra)
+    return Config(flat)
+
+
+def _tensor_bytes(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in tree)
+    return 0
+
+
+def _seeded_rounding(cast, seed: int):
+    """A stand-in for ``ops.sparse_update._cast_to_table`` (``cast``) that
+    rounds a bf16 table's rows stochastically with noise from
+    ``RandomState(seed + call)`` on the host, so that the card and the CPU
+    draw the same noise."""
+    from paddlerec_tpu_torch.ops import sparse_update as su
+
+    calls = itertools.count()
+
+    def cast_to_table(t_n, table, rng):
+        if table.dtype != torch.bfloat16 or rng is None:
+            return cast(t_n, table, rng)
+        noise = np.random.RandomState(seed + next(calls)).randint(
+            0, 1 << 16, tuple(t_n.shape)).astype(np.int32)
+        return su.stochastic_round_bf16(t_n, torch.from_numpy(noise).to(t_n.device))
+    return cast_to_table
+
+
+def host_first_steps(cfg, pass_file: str, seed: int) -> dict:
+    """The first ``HOST_FIRST_STEPS`` steps of the first pass on the card
+    against the port's CPU run of the same pass: one host tier (so its fresh
+    rows are drawn once), the same initial parameters, the same host-deduped
+    batches and the same stochastic-rounding noise (loss atol 1e-4)."""
+    from paddlerec_tpu_torch.core.device import to_tensors
+    from paddlerec_tpu_torch.ops import sparse_update as su
+    from paddlerec_tpu_torch.train.host_loop import HostTableTrainer
+    from paddlerec_tpu_torch.train.trainer import _count_uniq
+
+    card = HostTableTrainer(cfg)
+    card.trainer.init_state(seed=seed)
+    host = HostTableTrainer(cfg, device="cpu")
+    host.trainer.init_state(seed=seed)
+    host.trainer.state.module.load_state_dict(
+        {k: v.cpu() for k, v in card.trainer.state.module.state_dict().items()})
+    host.table = card.table
+    batches = list(card._pass_dataset([pass_file], BIG_BATCH))
+    phys = np.unique(np.concatenate([(np.asarray(b["sparse"]).reshape(-1).astype(np.int64)
+                                      % card.vocab) // card.pack for b in batches]))
+    losses, cast = {}, su._cast_to_table
+    try:
+        for name, ht in (("cuda", card), ("cpu", host)):
+            su._cast_to_table = _seeded_rounding(cast, seed)
+            ht._tap = ht._find_tap()
+            ht._swap_in_pass(phys)
+            ms, losses[name] = ht.trainer._init_metric_state(), []
+            for b in batches[:HOST_FIRST_STEPS]:
+                b = _count_uniq(ht.trainer.model_def.augment_batch_host(ht._translate_batch(b)))
+                ms, loss = ht.trainer.train_step(to_tensors(b, ht.device), ms)
+                losses[name].append(float(loss))
+    finally:
+        su._cast_to_table = cast
+    u = len(phys)
+    rows = [ht._tap[1].embedding.detach()[:u].float().cpu() for ht in (card, host)]
+    err = float(np.abs(np.array(losses["cuda"]) - np.array(losses["cpu"])).max())
+    if not np.all(np.isfinite(losses["cuda"])) or err > 1e-4:
+        raise AssertionError(f"the cache's first steps: card and CPU losses differ by {err}: "
+                             f"{losses}")
+    return {"steps": HOST_FIRST_STEPS, "rows_cached": u, "loss_cuda": losses["cuda"],
+            "loss_cpu": losses["cpu"], "max_abs_err_loss_vs_cpu": err,
+            "max_abs_err_cache_vs_cpu": float((rows[0] - rows[1]).abs().max()),
+            "cache_elements_differing": int((rows[0] != rows[1]).sum())}
+
+
+def host_leg(cfg, seed: int) -> tuple:
+    """One epoch of ``HostTableTrainer.train()`` on the card: one K1 and one
+    K1b launch a step, the loss finite and falling over the epoch, and the
+    peak allocation held under cache + row state + dense parameters and
+    moments + 1 GB.  Returns (trainer, result)."""
+    from paddlerec_tpu_torch.train.host_loop import HostTableTrainer
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ht = HostTableTrainer(cfg)
+    ht.trainer.init_state(seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, step = [], ht.trainer.super_step
+
+    def super_step(sb, i, metric_state):
+        metric_state, loss = step(sb, i, metric_state)
+        losses.append(loss)  # read after the epoch: no sync a step
+        return metric_state, loss
+
+    ht.trainer.super_step = super_step
+    before = _counted()
+    t1 = time.perf_counter()
+    try:
+        metrics = ht.train()
+    finally:
+        del ht.trainer.super_step
+    run_s = time.perf_counter() - t1
+    k1, k1b = (sum(c.values()) for c in _launches(before))
+    steps = ht.trainer.state.step
+    losses = [float(x) for x in losses]
+    if (k1, k1b) != (steps, steps) or steps != HOST_PASSES * HOST_BATCHES:
+        raise AssertionError(f"{steps} host-table steps launched K1, K1b {(k1, k1b)}")
+    head, tail = np.mean(losses[:HOST_BATCHES]), np.mean(losses[-HOST_BATCHES:])
+    if not np.all(np.isfinite(losses)) or not tail < head:
+        raise AssertionError(f"the host-table run's loss did not fall: {losses}")
+    key, emb = ht._tap
+    state = ht.trainer.state
+    held = {"cache": _tensor_bytes(emb.embedding), "row_state": _tensor_bytes(state.extra[key]),
+            "dense": _tensor_bytes(state.params) + _tensor_bytes(state.opt_state)}
+    peak = torch.cuda.max_memory_allocated() - base
+    if peak > sum(held.values()) + GB:
+        raise AssertionError(f"peak allocation {peak} above {held} + 1 GB")
+    return ht, {
+        "steps": steps, "k1": k1, "k1b": k1b, "losses": losses,
+        "train_auc": metrics.get("auc"), "examples_per_s": metrics["ips"],
+        "pass_prep_wait_s": metrics["pass_prep_wait_s"], "init_s": init_s, "run_s": run_s,
+        "passes": ht.pass_log, "rows_resident": ht.table.rows_resident,
+        "rows_in_ram": ht.table.rows_in_ram, "rows_on_disk": ht.table.rows_on_disk,
+        "peak_allocated": peak, "held": held,
+    }
+
+
+def host_table_phase(gp, work: str, seed: int, card: str) -> dict:
+    """Phase 37: ``configs/rank/dnn/config_bigdata.yaml`` (vocab 100,000,001,
+    26 slots, dim 9 → 8 ids a 128-lane row: 12,500,001 physical host rows;
+    bf16 cache, row-wise adagrad with stochastic rounding, batch 8192)
+    through ``HostTableTrainer`` with a 1,048,576-row cache (256 MB), a
+    file a pass, superbatches and the compact wire, over
+    ``write_host_table_data``'s three passes.  The first steps against the
+    port's CPU run (``host_first_steps``); a RAM-only leg and a spill leg
+    (``host_table_ram_rows`` 500,000, the mmap file under the work
+    directory: rows on disk), whose final ``snapshot_rows`` are the same ids
+    with values within rtol 2^-6 / atol 1e-5 (K1b's atomics add in another
+    order, so a row's bf16 rounding can differ by an ulp or two; the CPU
+    tests hold the tiers bitwise) and accumulators within rtol 1e-3; then
+    ``save``, ``load`` into a fresh trainer (the host tier and the dense
+    state bitwise) and one more pass.  Each leg's per-pass seconds (the
+    host table's ``begin_pass``, the upload, the steps, the flush, the wait
+    for the next pass's preparation), rows cached and rows in RAM and on
+    disk are printed."""
+    from paddlerec_tpu_torch.train.host_loop import HostTableTrainer
+
+    t0 = time.perf_counter()
+    data = os.path.join(work, "host_table")
+    vocab = 100000001
+    files = write_host_table_data(data, vocab, seed + 37)
+    data_s = time.perf_counter() - t0
+    out = {"config": "configs/rank/dnn/config_bigdata.yaml", "vocab": vocab,
+           "cache_rows": HOST_CACHE_ROWS, "files": len(files),
+           "rows_a_pass": HOST_BATCHES * BIG_BATCH, "data_s": data_s,
+           "disk_free_bytes": shutil.disk_usage(work).free}
+    t1 = time.perf_counter()
+    out["first_steps"] = host_first_steps(host_config(data, seed), files[0], seed)
+    out["first_steps"]["seconds"] = time.perf_counter() - t1
+    gc.collect()
+    ram, out["ram"] = host_leg(host_config(data, seed), seed)
+    spill_dir = os.path.join(work, "host_spill")
+    spill, out["spill"] = host_leg(host_config(data, seed, **{
+        "runner.host_table_ram_rows": HOST_RAM_ROWS,
+        "runner.host_table_spill_dir": spill_dir}), seed)
+    if not (spill.table.rows_on_disk > 0 and spill.table.rows_in_ram <= HOST_RAM_ROWS
+            < spill.table.rows_resident):
+        raise AssertionError(f"the spill leg: {out['spill']['rows_in_ram']} rows in RAM, "
+                             f"{out['spill']['rows_on_disk']} on disk")
+    ids_r, vals_r = ram.table.snapshot_rows()
+    ids_s, vals_s = spill.table.snapshot_rows()
+    differ = vals_r != vals_s
+    out["spill_vs_ram"] = {
+        "rows": int(len(ids_r)), "ids_equal": bool(np.array_equal(ids_r, ids_s)),
+        "max_abs_err": float(np.abs(vals_r - vals_s).max()) if len(ids_r) == len(ids_s) else None,
+        "elements_differing": int(differ.sum()) if len(ids_r) == len(ids_s) else None,
+        "acc_max_rel_err": float((np.abs(ram.host_acc - spill.host_acc)
+                                  / np.maximum(np.abs(ram.host_acc), 1e-30)).max()),
+        "tolerance": {"rtol": 2 ** -6, "atol": 1e-5, "acc_rtol": 1e-3},
+        "spill_file_bytes_on_disk": int(os.stat(os.path.join(
+            spill_dir, "table_spill.npy")).st_blocks * 512),
+    }
+    if not (out["spill_vs_ram"]["ids_equal"]
+            and np.allclose(vals_s, vals_r, rtol=2 ** -6, atol=1e-5)
+            and np.allclose(spill.host_acc, ram.host_acc, rtol=1e-3, atol=0)):
+        raise AssertionError(f"the spill leg disagrees with the RAM leg: {out['spill_vs_ram']}")
+    del spill, ids_s, vals_s, differ
+    gc.collect()
+    shutil.rmtree(spill_dir)  # the spill file takes its full 6.4 GB on some disks
+
+    ckpt = os.path.join(work, "host_ckpt")
+    t2 = time.perf_counter()
+    ram.save(ckpt, 0)
+    save_s = time.perf_counter() - t2
+    one = os.path.join(work, "host_one_pass")
+    os.makedirs(one)
+    shutil.copy(files[1], one)
+    fresh = HostTableTrainer(host_config(one, seed))
+    t3 = time.perf_counter()
+    fresh.load(ckpt, 0)
+    load_s = time.perf_counter() - t3
+    ids_f, vals_f = fresh.table.snapshot_rows()
+    if not (np.array_equal(ids_f, ids_r) and vals_f.tobytes() == vals_r.tobytes()
+            and fresh.host_acc.tobytes() == ram.host_acc.tobytes()
+            and all(torch.equal(v, fresh.trainer.state.module.state_dict()[k])
+                    for k, v in ram.trainer.state.module.state_dict().items())):
+        raise AssertionError("the loaded host-table checkpoint differs from the saved state")
+    del ram, ids_f, vals_f, ids_r, vals_r
+    gc.collect()
+    before = _counted()
+    t4 = time.perf_counter()
+    metrics = fresh.train()
+    more_s = time.perf_counter() - t4
+    k1, k1b = (sum(c.values()) for c in _launches(before))
+    if (k1, k1b) != (HOST_BATCHES, HOST_BATCHES) or not np.isfinite(metrics["auc"]):
+        raise AssertionError(f"the pass after load: K1, K1b {(k1, k1b)}, {metrics}")
+    out["after_load"] = {"save_s": save_s, "load_s": load_s, "checkpoint_bytes": sum(
+        os.path.getsize(f) for f in glob.glob(os.path.join(ckpt, "0", "**"), recursive=True)
+        if os.path.isfile(f)), "pass": fresh.pass_log[0], "train_auc": metrics["auc"],
+        "run_s": more_s, "k1": k1, "k1b": k1b}
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    for d in (ckpt, one, data):
+        shutil.rmtree(d)
+    return out
+
+
+def _staging_count(trainer) -> list:
+    """Wraps ``trainer._staged_superbatches`` to count the superbatches it
+    copies to the card (the only host → device copies of a superbatch
+    feed); returns the one-element counter."""
+    staged, inner = [0], trainer._staged_superbatches
+
+    def counted(dataset, k, *args, **kwargs):
+        for sb, i in inner(dataset, k, *args, **kwargs):
+            if i == 0:
+                staged[0] += 1
+            yield sb, i
+    trainer._staged_superbatches = counted
+    return staged
+
+
+def resident_feed(gp, work: str, seed: int, card: str) -> dict:
+    """Phase 38: DeepFM at ``configs/rank/deepfm/config.yaml``'s width (vocab
+    1,000,001) at batch 8192 through superbatches of 4 and the compact wire,
+    ``RESIDENT_EPOCHS`` epochs with ``feed_device_resident``
+    (``run_training``: one K1 and one K1b a step, then ``evaluate()``): the
+    train and eval corpora each copied to the card once, every later epoch
+    replayed from it, and the bytes held there; then the same run streaming,
+    whose last epoch's examples/s (host clock) stands beside the resident
+    run's, for information."""
+    from paddlerec_tpu_torch.core.config import load_config
+    from paddlerec_tpu_torch.train.trainer import Trainer
+
+    cfg0 = load_config(CONFIG)
+    vocab = int(cfg0.hyper("sparse_feature_number"))
+    data = os.path.join(work, "resident")
+    write_train_data(data, TRAIN_STEPS[BIG_BATCH] * BIG_BATCH, vocab, seed + 38)
+    extra = {"runner.train_data_dir": data, "runner.test_data_dir": data,
+             "runner.model_save_path": None, "runner.infer_load_path": None,
+             "runner.epochs": RESIDENT_EPOCHS}
+    cfg = train_config(cfg0, work, BIG_BATCH, **extra, **{"runner.feed_device_resident": True})
+    trainer = Trainer(cfg)
+    trainer.init_state(seed=seed)
+    staged = _staging_count(trainer)
+    run = run_training(gp, cfg, seed, trainer=trainer)
+    entries = {k.split(":")[0]: v for k, v in trainer._resident.items()}
+    sbs = TRAIN_STEPS[BIG_BATCH] // 4
+    if (set(entries) != {"train", "eval"} or any(len(e["sbs"]) != sbs for e in entries.values())
+            or entries["train"]["replays"] != RESIDENT_EPOCHS - 1
+            or staged[0] != 2 * sbs):
+        raise AssertionError(f"the resident feed staged {staged[0]} superbatches: "
+                             f"{ {k: (len(e['sbs'] or []), e['replays']) for k, e in entries.items()} }")
+    held = {k: e["bytes"] for k, e in entries.items()}
+    del trainer, entries
+    gc.collect()
+    torch.cuda.empty_cache()
+    streaming = Trainer(train_config(cfg0, work, BIG_BATCH, **extra))
+    streaming.init_state(seed=seed)
+    streamed = _staging_count(streaming)
+    before = _counted()
+    metrics = streaming.train()
+    k1, k1b = (sum(c.values()) for c in _launches(before))
+    steps = streaming.state.step
+    if (k1, k1b) != (steps, steps) or streamed[0] != RESIDENT_EPOCHS * sbs:
+        raise AssertionError(f"the streaming run: K1, K1b {(k1, k1b)} for {steps} steps, "
+                             f"{streamed[0]} superbatches staged")
+    del streaming
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"config": "configs/rank/deepfm/config.yaml", "batch_size": BIG_BATCH,
+            "epochs": RESIDENT_EPOCHS, "superbatches_staged": staged[0],
+            "superbatches_an_epoch": sbs, "host_to_device_copies_after_epoch_0": 0,
+            "bytes_on_card": held, "resident": run,
+            "examples_per_s_last_epoch": {"resident": run["last_epoch_examples_per_s"],
+                                          "streaming": metrics["ips"]},
+            "streaming_superbatches_staged": streamed[0], "streaming_k1": k1,
+            "streaming_k1b": k1b}
+
+
+def write_raw_criteo(path: str, rows: int, seed: int) -> None:
+    """Raw Criteo TSV (label, 13 integer columns, 26 hex categories, some
+    empty), the input of ``native/criteo_parser.cpp``."""
+    rng = np.random.RandomState(seed)
+    ints = rng.randint(0, 100, (rows, 13)).astype(str)
+    ints[rng.rand(rows, 13) < 0.1] = ""
+    cats = np.char.mod("%08x", rng.randint(0, 1 << 31, (rows, 26)))
+    cats[rng.rand(rows, 26) < 0.05] = ""
+    labels = rng.randint(0, 2, rows).astype(str)[:, None]
+    with open(path, "w") as f:
+        f.write("\n".join("\t".join(r) for r in np.hstack([labels, ints, cats])) + "\n")
+
+
+class _Fallbacks(logging.Handler):
+    """Collects the trainer's reader-fallback warnings."""
+
+    def __init__(self):
+        super().__init__(level=logging.WARNING)
+        self.lines = []
+
+    def emit(self, record):
+        if "falling back" in record.getMessage():
+            self.lines.append(record.getMessage())
+
+
+def native_feed(gp, work: str, seed: int, card: str) -> dict:
+    """Phase 39: the three ``config_bigdata.yaml`` configs (dnn, deepfm,
+    wide_deep; vocab 100,000,001, ``reader_type: native``) read one file of
+    ``HOST_BATCHES`` batches of 8192 slot-text rows through
+    ``NativeSlotDataset``: no fallback to the Python reader (the run fails on
+    one), each config's batches bitwise the Python reader's, and
+    ``run_training`` (8 steps, one K1 and one K1b a step, then
+    ``evaluate()`` through the same reader).  ``tools.dataset_convert`` turns
+    the text into slotbin that ``BinarySlotDataset`` reads back equal;
+    ``pipe_command`` runs raw Criteo TSV through the built ``criteo_parser``
+    into the same batches as the parser's output read directly.  Prints the
+    rows/s of the native parse against the Python reader's."""
+    from paddlerec_tpu_torch.core.config import Config, load_config
+    from paddlerec_tpu_torch.data.binary import BinarySlotDataset
+    from paddlerec_tpu_torch.data.schema import schema_from_config
+    from paddlerec_tpu_torch.data.slot_reader import SlotDataset, list_data_files
+    from paddlerec_tpu_torch.data.synthetic import write_criteo_sample
+    from paddlerec_tpu_torch.native import build_criteo_parser
+    from paddlerec_tpu_torch.native.reader import NativeSlotDataset, parse_file
+    from paddlerec_tpu_torch.tools import dataset_convert
+    from paddlerec_tpu_torch.train.trainer import Trainer, logger
+
+    text = os.path.join(work, "native_text")
+    rows = HOST_BATCHES * BIG_BATCH
+    write_criteo_sample(text, num_lines=rows, num_files=1, vocab=100000001, seed=seed + 39)
+    files = list_data_files(text)
+
+    def same(a, b) -> bool:
+        return len(a) == len(b) and all(
+            sorted(x) == sorted(y) and all(x[k].dtype == y[k].dtype and x[k].shape == y[k].shape
+                                           and x[k].tobytes() == y[k].tobytes() for k in x)
+            for x, y in zip(a, b))
+
+    out, python_batches, fallbacks = {"rows": rows, "runs": {}}, {}, _Fallbacks()
+    logger.addHandler(fallbacks)
+    try:
+        for model in ("dnn", "deepfm", "wide_deep"):
+            cfg = Config({**load_config(BIGDATA.format(model)).to_dict(),
+                          "runner.train_data_dir": text, "runner.test_data_dir": text,
+                          "runner.model_save_path": None, "runner.infer_load_path": None,
+                          "runner.print_interval": 2, "runner.reader_threads": 8,
+                          "runner.seed": seed})
+            schema = schema_from_config(cfg)
+            key = (tuple(schema.sparse_slots), schema.dense_dim)
+            if key not in python_batches:
+                t0 = time.perf_counter()
+                python_batches[key] = list(SlotDataset(files, schema, BIG_BATCH, drop_last=True))
+                out["python_reader_rows_per_s"] = rows / (time.perf_counter() - t0)
+            trainer = Trainer(cfg)
+            trainer.init_state(seed=seed)
+            dataset = trainer.make_dataset(text, BIG_BATCH)
+            if not isinstance(dataset, NativeSlotDataset):
+                raise AssertionError(f"{model}: reader_type native gave {type(dataset)}")
+            if not same(list(dataset), python_batches[key]):
+                raise AssertionError(f"{model}: the native batches differ from the Python reader's")
+            run = run_training(gp, cfg, seed, trainer=trainer, check_fall=False,
+                               min_steps=HOST_BATCHES)
+            if run["steps"] != HOST_BATCHES:
+                raise AssertionError(f"{model}: {run['steps']} steps")
+            out["runs"][model] = run
+            del trainer, dataset
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        logger.removeHandler(fallbacks)
+    if fallbacks.lines:
+        raise AssertionError(f"the native reader fell back: {fallbacks.lines}")
+    t0 = time.perf_counter()
+    parse_file(files[0], SLOTS, 13, num_threads=8)
+    out["native_parse_rows_per_s"] = rows / (time.perf_counter() - t0)
+    out["native_parse_threads"] = 8
+
+    t0 = time.perf_counter()
+    if dataset_convert.main(["-m", BIGDATA.format("dnn"), "--data_dir", text,
+                             "--workers", "1", "--threads", "8"]) != 0:
+        raise AssertionError("dataset_convert failed")
+    out["dataset_convert_s"] = time.perf_counter() - t0
+    bins = sorted(glob.glob(os.path.join(text + "_bin", "*.bin")))
+    back = list(BinarySlotDataset(bins, BIG_BATCH, drop_last=True))
+    (want,) = python_batches.values()
+    if len(back) != len(want) or not all(
+            np.array_equal(np.asarray(x["sparse"]), y["sparse"])
+            and np.asarray(x["label"]).tobytes() == y["label"].tobytes()
+            and np.asarray(x["dense"]).tobytes() == y["dense"].tobytes()
+            for x, y in zip(back, want)):
+        raise AssertionError("the converted slotbin reads back otherwise than the text")
+
+    raw = os.path.join(work, "criteo_raw", "day_0")
+    os.makedirs(os.path.dirname(raw))
+    write_raw_criteo(raw, BIG_BATCH, seed + 39)
+    binary = build_criteo_parser()
+    parsed = os.path.join(work, "criteo_parsed")
+    with open(raw, "rb") as src, open(parsed, "wb") as dst:
+        subprocess.run([binary], stdin=src, stdout=dst, check=True, timeout=120)
+    schema = schema_from_config(load_config(BIGDATA.format("dnn")))
+    t0 = time.perf_counter()
+    piped = list(SlotDataset([raw], schema, 1024, pipe_command=binary))
+    pipe_s = time.perf_counter() - t0
+    direct = list(SlotDataset([parsed], schema, 1024))
+    if not same(piped, direct) or len(piped) != BIG_BATCH // 1024:
+        raise AssertionError("pipe_command through criteo_parser differs from its output read "
+                             "directly")
+    out["pipe_command"] = {"binary": os.path.relpath(binary, ROOT), "rows": BIG_BATCH,
+                           "rows_per_s": BIG_BATCH / pipe_s}
+    return out
+
+
+def observability(gp, work: str, seed: int, card: str) -> dict:
+    """Phase 40: DeepFM at ``configs/rank/deepfm/config.yaml``'s width, batch
+    8192, ``OBS_BATCHES`` steps of ``train()`` with ``profiler_options``
+    (batch range [1, 3)) and ``use_visual`` (a scalar line every step), then
+    ``evaluate()`` with ``dump_fields`` on the card and on its CPU twin (the
+    card's parameters copied): the trace holds K1's kernel, the scalars
+    every step, and the two dumps agree through ``diff_report`` (max abs
+    diff ≤ 1e-5 on every shared instance, masked rows of the padded tail
+    skipped)."""
+    from paddlerec_tpu_torch.core.config import load_config
+    from paddlerec_tpu_torch.train.trainer import Trainer
+    from paddlerec_tpu_torch.utils import profiler
+    from paddlerec_tpu_torch.utils.onoff_diff import diff_report
+
+    cfg0 = load_config(CONFIG)
+    vocab = int(cfg0.hyper("sparse_feature_number"))
+    data = os.path.join(work, "observe")
+    rows = OBS_BATCHES * BIG_BATCH + 1000
+    write_train_data(data, rows, vocab, seed + 40)
+    prof_dir, visual = os.path.join(work, "profile"), os.path.join(work, "visual")
+    dumps = {d: os.path.join(work, f"dump_{d}.jsonl") for d in ("cuda", "cpu")}
+    cfg = train_config(cfg0, work, BIG_BATCH, **{
+        "runner.train_data_dir": data, "runner.test_data_dir": data,
+        "runner.model_save_path": None, "runner.infer_load_path": None,
+        "runner.print_interval": 1, "runner.use_visual": True,
+        "runner.train_visual_path": visual,
+        "runner.profiler_options": f"batch_range=[1,3];profile_path={prof_dir};"
+                                   "exit_on_finished=false",
+        "runner.dump_fields": ["predictions"], "runner.dump_fields_path": dumps["cuda"]})
+    profiler.reset()
+    trainer = Trainer(cfg)
+    trainer.init_state(seed=seed)
+    before = _counted()
+    metrics = trainer.train()
+    profiler.reset()
+    steps = trainer.state.step
+    scalars = [json.loads(line) for line in open(os.path.join(visual, "scalars.jsonl"))]
+    if steps != OBS_BATCHES or [(r["tag"], r["step"]) for r in scalars] != [
+            (tag, s) for s in range(1, steps + 1) for tag in ("train/loss", "train/ips")]:
+        raise AssertionError(f"use_visual: {steps} steps, scalars {scalars}")
+    with open(os.path.join(prof_dir, "trace_1_3.json")) as f:
+        names = {str(e.get("name", "")) for e in json.load(f)["traceEvents"]}
+    k1_names = sorted(n for n in names if "gather_one_kernel" in n or "gather_pool_kernel" in n)
+    if not k1_names:
+        raise AssertionError("the profiler's trace holds no K1 kernel")
+    t0 = time.perf_counter()
+    trainer.evaluate()
+    eval_s = time.perf_counter() - t0
+    k1, k1b = (sum(c.values()) for c in _launches(before))
+    if (k1, k1b) != (steps + OBS_BATCHES + 1, steps):
+        raise AssertionError(f"phase 40 launched K1, K1b {(k1, k1b)}")
+    twin_cfg = cfg.copy()
+    twin_cfg["runner.dump_fields_path"] = dumps["cpu"]
+    twin = Trainer(twin_cfg, device="cpu")
+    twin.init_state(seed=seed)
+    twin.state.module.load_state_dict(
+        {k: v.cpu() for k, v in trainer.state.module.state_dict().items()})
+    twin.evaluate()
+    report = diff_report(dumps["cuda"], dumps["cpu"], 1e-5)
+    worst = max(v["max_diff"] for v in report["per_var"].values())
+    if not report["consistent"] or report["num_shared"] != rows or worst > 1e-5:
+        raise AssertionError(f"dump_fields, card against CPU: {report}")
+    del trainer, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train_auc": metrics.get("auc"), "steps": steps, "scalar_records": len(scalars),
+            "trace": os.path.basename(prof_dir) + "/trace_1_3.json", "trace_events": len(names),
+            "k1_kernels_in_trace": k1_names,
+            "dump": {"instances": report["num_shared"], "max_abs_diff_vs_cpu": worst,
+                     "evaluate_s": eval_s},
+            "k1": k1, "k1b": k1b}
+
+
+def host_k1_shapes(rows_cached: int) -> tuple:
+    """Phase 41's rows: K1 from the host table's cache view (bf16 into
+    float32) at batch 8192, its ids over the rows the first pass cached, and
+    K1b into the compact (U·8, 16) buffer of the cache's lane ids."""
+    return (
+        (K1Shape("host-table cache view (8,388,608 × 16) bf16 into float32, B=8192",
+                 HOST_CACHE_ROWS * 8, 16, BIG_BATCH * SLOTS, vocab=8 * rows_cached,
+                 dtype="bfloat16"),),
+        (K1bShape("host-table cache, compact (U·8, 16), cache vocab 8,388,608, B=8192", 0, 16,
+                  BIG_BATCH * SLOTS, ids="compact", vocab=HOST_CACHE_ROWS * 8),),
+    )
+
+
+# the keys at which phases 38-40 launch K1 (rows, D, dtype, N, L) and K1b
+# (rows, D, dtype, N): DeepFM's view at 8192, the 10^8 table's bf16 view,
+# and K1b's dense DeepFM gradient and the 10^8 compact buffer (rows: 8·U)
+DEEPFM_K1 = (125001 * 8, 16, "float32", BIG_BATCH * SLOTS, 1)
+BIGDATA_K1 = (12500001 * 8, 16, "bfloat16", BIG_BATCH * SLOTS, 1)
+DEEPFM_K1B = (125001 * 8, 16, "float32", BIG_BATCH * SLOTS)
+
+
+def host_phases(gp, work: str, seed: int, card: str, clock: PhaseClock) -> tuple:
+    """Phases 37-41: the host-tiered table, the resident feed, the native
+    feed, observability, then phase 41, K1 and K1b at the host table's
+    cache shapes, each checked against its plain version and timed.  Every
+    K1 and K1b launch of phase 37 is at those shapes; those of phases 38-40
+    at DeepFM's view and the 10^8 table's (the cases of phases 7 and 10).
+    Returns (K1 cases, K1b cases, K1 launches, K1b launches, the launches of
+    phases 38-40 by earlier case: ``deepfm_k1``, ``bigdata_k1``)."""
+    def lap(phase: str) -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock.lap(phase)
+
+    before = _counted()
+    host = host_table_phase(gp, work, seed, card)
+    emit({"host_table": host, "card": card})
+    k1_host, k1b_host = _launches(before)
+    lap("37 host table")
+    before = _counted()
+    emit({"resident_feed": resident_feed(gp, work, seed, card), "card": card})
+    lap("38 resident feed")
+    emit({"native_feed": native_feed(gp, work, seed, card), "card": card})
+    lap("39 native feed")
+    emit({"observability": observability(gp, work, seed, card), "card": card})
+    lap("40 observability")
+    k1_rest, k1b_rest = _launches(before)
+    (k1_shape,), (k1b_shape,) = host_k1_shapes(host["ram"]["passes"][0]["rows_cached"])
+    cache_key = (k1_shape.rows, k1_shape.dim, k1_shape.dtype, k1_shape.n, k1_shape.pool)
+    if set(k1_host) != {cache_key} or any(k[1:] != (16, "float32", k1b_shape.n)
+                                          for k in k1b_host):
+        raise AssertionError(f"phase 37 launched K1 {dict(k1_host)}, K1b {dict(k1b_host)}")
+    if (set(k1_rest) - {DEEPFM_K1, BIGDATA_K1}
+            or any(k != DEEPFM_K1B and k[1:] != (16, "float32", BIG_BATCH * SLOTS)
+                   for k in k1b_rest)):
+        raise AssertionError(f"phases 38-40 launched K1 {dict(k1_rest)}, K1b {dict(k1b_rest)}")
+    k1_cases = time_k1_shapes(gp, (k1_shape,), seed + 41)
+    k1b_cases = time_k1b_shapes(gp, (k1b_shape,), seed + 41)
+    k1_cases[0]["launches"] = k1_host[cache_key]
+    k1b_cases[0]["launches"] = sum(k1b_host.values())
+    clock.lap("41 K1/K1b at the host table's shapes")
+    k1 = sum(k1_host.values()) + sum(k1_rest.values())
+    k1b = sum(k1b_host.values()) + sum(k1b_rest.values())
+    return k1_cases, k1b_cases, k1, k1b, {"deepfm_k1": k1_rest.get(DEEPFM_K1, 0),
+                                          "bigdata_k1": k1_rest.get(BIGDATA_K1, 0)}
+
+
+def host_only(gp, seed: int, card: str) -> None:
+    """``--only 37-41``: phases 37-41, one JSON line a K1 and a K1b shape,
+    and the phases' seconds."""
+    clock = PhaseClock()
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        k1_cases, k1b_cases, k1, k1b, rest = host_phases(gp, work, seed, card, clock)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    floor_ms = time_launch_floor(gp)
+    set_share(k1_cases, floor_ms)
+    set_share(k1b_cases, floor_ms)
+    for row in k1_cases:
+        emit({"k1": row, "card": card})
+    for row in k1b_cases:
+        emit({"k1b": row, "card": card})
+    emit({"host_only": {"k1_launches": k1, "k1b_launches": k1b, **rest,
+                        "launch_floor_ms": floor_ms}, "card": card})
+    emit(clock.line(card))
+
+
 # -- K1 at every timed shape (phases 7, 15, 18, 22, 25, 28; ``--only k1``) --
 class K1Shape(NamedTuple):
     """One timed lookup of K1: a (rows, dim) table in ``dtype`` read at n
@@ -5701,10 +6397,11 @@ def profile_forward(model_def, module, batch_size: int, iters: int = 20) -> dict
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("k1", "k1b", "29-32", "33-36"),
+    parser.add_argument("--only", choices=("k1", "k1b", "29-32", "33-36", "37-41"),
                         help="k1 (k1b): phases 1-2, K1's (K1b's) checks of phase 3, then "
-                             "that kernel checked and timed at every shape; 29-32 (33-36): "
-                             "phases 1-2 and 29-32 (33-36) (default: every phase)")
+                             "that kernel checked and timed at every shape; 29-32 (33-36, "
+                             "37-41): phases 1-2 and 29-32 (33-36, 37-41) (default: every "
+                             "phase)")
     parser.add_argument("--against", action="append", default=[], metavar="SOURCE.cu",
                         help="with --only: another source of that kernel with the same C "
                              "interface, built and timed in turns with the current one")
@@ -5739,8 +6436,10 @@ def main(argv=None) -> int:
             (k1_only if args.only == "k1" else k1b_only)(gp, args.seed, card, args.against)
         elif args.only == "29-32":
             slice_only(gp, args.seed, card)
-        else:
+        elif args.only == "33-36":
             online_only(gp, args.seed, card)
+        else:
+            host_only(gp, args.seed, card)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -5940,10 +6639,15 @@ def main(argv=None) -> int:
         # phases 33-36: the online loop, the cube store, their shapes
         online_cases, online_bwd_cases, online_k1, online_k1b = online_phases(
             gp, work, args.seed, card, clock)
+        # phases 37-41: the host-tiered table, the resident and native feeds,
+        # observability, their shapes
+        host_cases, host_bwd_cases, host_k1, host_k1b, host_rest = host_phases(
+            gp, work, args.seed, card, clock)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for case, batch in zip(cases, BATCHES):
         case["launches"] = launches[batch]
+    cases[-1]["launches"] += host_rest["deepfm_k1"]  # phases 38 and 40
     # K1b's rows also carry their count by run (DeepFM's runs, the sparse
     # deepfm run) or by row width (the rest), each of which must be above 0
     for case, batch in zip(bwd_cases, BATCHES):
@@ -5952,7 +6656,7 @@ def main(argv=None) -> int:
     compact_cases[-1]["launches_at_width"] = sparse["runs"]["deepfm"]["k1b_launches"]
     # the bf16 view's lookups: the config_bigdata.yaml runs' steps and evaluations
     big_cases[0]["launches"] = sum(r["k1_launches"] + r["eval"]["k1_launches"]
-                                   for r in sparse["runs"].values())
+                                   for r in sparse["runs"].values()) + host_rest["bigdata_k1"]
     if big_cases[0]["launches"] < 1:
         raise AssertionError("the config_bigdata.yaml runs launched no K1")
     # ffm's train() and evaluate(), counted by row width where the kernels launch
@@ -6019,13 +6723,13 @@ def main(argv=None) -> int:
                    + sum(r["k1_launches"] + r["eval"]["k1_launches"] for r in all_runs)
                    + zoo["k1_launches"] + paths["k1_launches"] + seq["k1"] + seq_runs["k1"]
                    + rest["k1"] + rest_runs["k1"] + mt["k1"] + mt_runs["k1"] + match_k1
-                   + graph_k1 + slice_k1 + online_k1)
+                   + graph_k1 + slice_k1 + online_k1 + host_k1)
     k1b_launches = (first["k1b_launches"] + sparse["first"]["k1b_launches"]
                     + sum(r["k1b_launches"] for r in all_runs)
                     + zoo["k1b_launches"] + paths["k1b_launches"] + seq["k1b"]
                     + seq_runs["k1b"] + rest["k1b"] + rest_runs["k1b"] + mt["k1b"]
                     + mt_runs["k1b"] + match["k1b"] + match_runs["k1b"] + graph["k1b"]
-                    + graph_runs["k1b"] + slice_k1b + online_k1b)
+                    + graph_runs["k1b"] + slice_k1b + online_k1b + host_k1b)
     if k1_launches < 1 or k1b_launches < 1:
         raise AssertionError("the main path launched a kernel no time")
     # K1b's launches per timed shape, from the whole run: those of the shape's
@@ -6040,14 +6744,20 @@ def main(argv=None) -> int:
           "card": card})
     bwd_all = (bwd_cases + bf16_bwd_cases + zoo_bwd_cases + compact_cases + seq_bwd_cases
                + rest_bwd_cases + mt_bwd_cases + match_bwd_cases + graph_bwd_cases
-               + slice_bwd_cases + online_bwd_cases)
+               + slice_bwd_cases + online_bwd_cases + host_bwd_cases)
     dense = {(c["rows"], c["dim"], c["dtype"], c["n"]) for c in bwd_all
              if c["ids"] != "compact"}
+    # the host table's compact buffer shares (D, dtype, N) with the 10^8
+    # table's: phase 41 counted its launches, which the latter gives up
+    host_compact = host_bwd_cases[0]["launches"]
     for case in bwd_all:
         key = (case["rows"], case["dim"], case["dtype"], case["n"])
         case["launches"] = (by_shape.get(key, 0) if case["ids"] != "compact" else
                             sum(v for k, v in by_shape.items()
                                 if k[1:] == key[1:] and k not in dense))
+    host_bwd_cases[0]["launches"] = host_compact
+    compact_cases[-1]["launches"] -= host_compact
+    for case in bwd_all:
         # card time lost to the floor a run: launches × (ms − max(bound, floor))
         case["lost_ms"] = case["launches"] * max(
             0.0, case["ms"] - max(case["bound_ms"], floor_ms))
@@ -6071,7 +6781,7 @@ def main(argv=None) -> int:
          "paddlerec_tpu/ops/pallas_embedding.py:37", k1_launches,
          max(main_err, sparse["lookup"]["k1_err"]),
          cases + zoo_cases + big_cases + seq_cases + rest_cases + mt_cases + match_cases
-         + graph_cases + slice_cases + online_cases,
+         + graph_cases + slice_cases + online_cases + host_cases,
          cases[-1]),
         # the JAX package has no kernel for the gradient: K1b takes the
         # place of the XLA scatter-add of _packed_lookup_bwd

@@ -1,7 +1,8 @@
 """slotbin: the binary converted-dataset format (InMemoryDataset analog).
 
-A copy of the reader and writer of ``paddlerec_tpu/data/binary.py`` (numpy
-only; the text converter, which drives the native parser, is not ported).
+A copy of ``paddlerec_tpu/data/binary.py``: the reader, the writer and the
+text converter (``convert_text_files``, over the port's build of the native
+parser, ``native/reader.py``; the Python parser where it cannot be built).
 Slot text is converted ONCE to a columnar binary file that is then mmapped:
 batch assembly is a row-range view of three contiguous arrays, with no
 parse work on the host hot path.
@@ -20,8 +21,9 @@ File layout (little-endian):
     iK      sparse [N, S, L]   (K = sparse_itemsize)
     f32     dense  [N, D]
 
-Files written by either package's ``write_slotbin`` (or by
-``python -m paddlerec_tpu.tools.dataset_convert``) read the same; the
+Files written by either package's ``write_slotbin`` or converter
+(``python -m paddlerec_tpu_torch.tools.dataset_convert``) are the same
+bytes and read the same; the
 trainer auto-detects ``.bin`` files (or ``runner.reader_type: binary``).
 """
 
@@ -29,7 +31,7 @@ from __future__ import annotations
 
 import os
 import struct
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -221,3 +223,86 @@ class BinarySlotDataset:
                 )
         if rem is not None and len(rem[0]) and not self.drop_last:
             yield self._emit(*rem)
+
+
+def convert_text_files(
+    files: Sequence[str],
+    out_dir: str,
+    num_sparse: int,
+    dense_dim: int,
+    num_threads: int = 8,
+    sparse_dtype=np.int64,
+    shuffle_seed: Optional[int] = None,
+    workers: int = 1,
+) -> List[str]:
+    """Convert slot-text files to slotbin (one .bin per input file).
+
+    Uses the native C++ parser when available.  shuffle_seed row-shuffles
+    each file during conversion (the global-shuffle analog).
+    """
+    os.makedirs(out_dir, exist_ok=True)
+    jobs = [
+        (path, os.path.join(out_dir, os.path.basename(path) + ".bin"),
+         num_sparse, dense_dim, num_threads, np.dtype(sparse_dtype).str,
+         shuffle_seed)
+        for path in files
+    ]
+    if workers > 1 and len(jobs) > 1:
+        from multiprocessing import Pool
+
+        with Pool(workers) as pool:
+            return pool.map(_convert_one, jobs)
+    return [_convert_one(j) for j in jobs]
+
+
+def _convert_one(job) -> str:
+    path, out, num_sparse, dense_dim, num_threads, sdt, shuffle_seed = job
+    labels, sparse, dense = _parse_text(path, num_sparse, dense_dim,
+                                        num_threads)
+    if shuffle_seed is not None:
+        import zlib
+
+        # stable per-file seed: Python's hash() is salted per process,
+        # which would make --shuffle conversions irreproducible
+        file_key = zlib.crc32(os.path.basename(path).encode())
+        perm = np.random.RandomState(
+            (shuffle_seed + file_key) % (2**31)
+        ).permutation(len(labels))
+        labels, sparse = labels[perm], sparse[perm]
+        if dense is not None:
+            dense = dense[perm]
+    write_slotbin(out, labels, sparse, dense, sparse_dtype=np.dtype(sdt))
+    return out
+
+
+def _parse_text(path: str, num_sparse: int, dense_dim: int, num_threads: int):
+    try:
+        from paddlerec_tpu_torch.native.reader import parse_file
+
+        labels, sparse, dense = parse_file(
+            path, num_sparse, dense_dim, num_threads
+        )
+        return (
+            labels.astype(np.float32),
+            sparse,
+            dense if dense_dim else None,
+        )
+    except Exception:
+        # python fallback: standard slot schema (click/dense_feature/1..S)
+        from paddlerec_tpu_torch.data.schema import SlotSchema
+        from paddlerec_tpu_torch.data.slot_reader import parse_slot_lines
+
+        schema = SlotSchema(
+            label_slot="click",
+            sparse_slots=[str(i) for i in range(1, num_sparse + 1)],
+            dense_slots=["dense_feature"] if dense_dim else [],
+            dense_dims=[dense_dim] if dense_dim else [],
+        )
+        with open(path) as f:
+            lines = [ln.strip() for ln in f if ln.strip()]
+        arrays = parse_slot_lines(lines, schema)
+        return (
+            arrays["label"],
+            arrays["sparse"][:, :, 0],
+            arrays.get("dense"),
+        )

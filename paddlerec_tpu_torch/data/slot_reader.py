@@ -1,8 +1,8 @@
 """Host-side reader for slot:feasign text data.
 
 A copy of the framework-free part of ``paddlerec_tpu/data/slot_reader.py``
-(``list_data_files``, ``parse_slot_lines``, ``SlotDataset``,
-``PrefetchIterator``): fixed-shape
+(``list_data_files``, ``parse_slot_lines``, ``SlotDataset`` with its
+``pipe_command`` stage, ``PrefetchIterator``): fixed-shape
 numpy batches, the tail batch padded and marked by a ``mask``, and
 ``(B, S, 1)`` ids squeezed to ``(B, S)``.  The caller moves batches to its
 device (``core.device.to_tensors``).
@@ -106,6 +106,8 @@ class SlotDataset:
         it is padded to ``batch_size`` and a "mask" key marks padded rows.
       shuffle_files / seed: epoch-level file order shuffling.
       squeeze_ids: emit sparse as (B, S) instead of (B, S, 1) when L == 1.
+      pipe_command: a shell command each file is piped through before the
+        parser (``cat file | pipe_command``); a non-zero exit raises.
     """
 
     def __init__(
@@ -118,6 +120,7 @@ class SlotDataset:
         seed: int = 0,
         squeeze_ids: bool = True,
         parse_chunk: int = 4096,
+        pipe_command: Optional[str] = None,
     ):
         self.files = list(files)
         self.schema = schema
@@ -127,6 +130,9 @@ class SlotDataset:
         self.seed = seed
         self.squeeze_ids = squeeze_ids and schema.ids_per_slot == 1
         self.parse_chunk = parse_chunk
+        # arbitrary user preprocess subprocess per file (the reference's
+        # QueueDataset pipe_command stage)
+        self.pipe_command = pipe_command
         self._epoch = 0
 
     def _file_order(self) -> List[str]:
@@ -138,11 +144,44 @@ class SlotDataset:
 
     def _iter_lines(self) -> Iterator[str]:
         for path in self._file_order():
+            if self.pipe_command:
+                yield from self._piped_lines(path)
+                continue
             with open(path, "r") as f:
                 for line in f:
                     line = line.strip()
                     if line:
                         yield line
+
+    def _piped_lines(self, path: str) -> Iterator[str]:
+        import subprocess
+
+        with open(path, "rb") as src:
+            proc = subprocess.Popen(
+                self.pipe_command, shell=True, stdin=src,
+                stdout=subprocess.PIPE, text=True,
+            )
+        assert proc.stdout is not None
+        # the consumer may abandon this generator mid-file (drop_last break,
+        # eval early-exit): always reap the child and close its pipe, or
+        # every abandoned epoch leaks a subprocess
+        finished = False
+        try:
+            for line in proc.stdout:
+                line = line.strip()
+                if line:
+                    yield line
+            finished = True
+        finally:
+            if not finished and proc.poll() is None:
+                proc.kill()
+            proc.stdout.close()
+            rc = proc.wait()
+            if finished and rc != 0:
+                raise RuntimeError(
+                    f"pipe_command {self.pipe_command!r} failed "
+                    f"with exit code {rc} on {path}"
+                )
 
     def __iter__(self) -> Iterator[Batch]:
         self._epoch += 1

@@ -6,6 +6,8 @@ Usage (same flags, plus ``--device``):
         -o runner.epochs=1 runner.train_batch_size=512 [--device cpu]
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card it raises.
+``runner.use_host_table: true`` trains through the host-tiered pass loop
+(``train/host_loop.py`` ``HostTableTrainer``), as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -30,7 +32,13 @@ def main(argv=None):
     args = parse_args(argv)
     config = load_config(args.config_yaml, parse_overrides(args.opt))
     logger.info("config:\n" + config.pretty())
-    trainer = Trainer(config, device=args.device)
+    if bool(config.runner("use_host_table", False)):
+        # GPUBox-analog pass loop: host-resident table + per-pass device cache
+        from paddlerec_tpu_torch.train.host_loop import HostTableTrainer
+
+        trainer = HostTableTrainer(config, device=args.device)
+    else:
+        trainer = Trainer(config, device=args.device)
     metrics = trainer.train()
     logger.info(f"training finished: {metrics}")
     return metrics

@@ -23,10 +23,11 @@ are used.  A delta reads its touched physical rows off the device with one
 K1 launch (``ops/embedding.py`` ``take_rows``, float32 out, from a bfloat16
 table as well) and unpacks them with numpy.
 
-Not ported yet: the multi-host halves of the JAX loop (the sparse
-allgathers of stats and touched rows, the sharded row gather, stats merged
-across hosts) and object-store roots (``utils/fs.py`` raises on a scheme).
-At one process the union of touched rows is this process's own.
+Roots reach their filesystem through ``utils/fs.py`` ``get_fs`` (local
+paths, ``gs://`` with google-cloud-storage installed).  Not ported yet: the
+multi-host halves of the JAX loop (the sparse allgathers of stats and
+touched rows, the sharded row gather, stats merged across hosts).  At one
+process the union of touched rows is this process's own.
 """
 
 from __future__ import annotations
@@ -44,7 +45,6 @@ import torch
 from paddlerec_tpu_torch.convert import is_embedding_path
 from paddlerec_tpu_torch.core import metrics as metrics_lib
 from paddlerec_tpu_torch.core.config import Config, resolve_path
-from paddlerec_tpu_torch.core.device import HOST_KEYS
 from paddlerec_tpu_torch.native.cube import export_table
 from paddlerec_tpu_torch.ops.embedding import take_rows
 from paddlerec_tpu_torch.ops.packed_embedding import sub_width
@@ -220,6 +220,13 @@ class OnlineTrainer(Trainer):
     ``device`` as ``Trainer``'s: ``cuda`` unless the CPU is asked for."""
 
     def __init__(self, config: Config, model_def=None, device=None):
+        if config.runner("use_host_table"):
+            # the JAX online loop ignores the key and trains its device
+            # table; composing the day/pass loop with the host tier is not
+            # part of either package, so the port refuses it by name
+            raise NotImplementedError(
+                "runner.use_host_table is not ported to the online loop of "
+                "paddlerec_tpu_torch (use tools/train.py's HostTableTrainer)")
         super().__init__(config, model_def=model_def, device=device)
         raw_days = config.runner("days", "")
         if isinstance(raw_days, (list, tuple)):
@@ -641,11 +648,6 @@ class OnlineTrainer(Trainer):
 
     def _phase(self, name: str, seconds: float) -> None:
         self.phase_times[name] = self.phase_times.get(name, 0.0) + seconds
-
-    @staticmethod
-    def _device_bytes(batch) -> int:
-        return sum(int(v.numel()) * v.element_size() for k, v in batch.items()
-                   if k not in HOST_KEYS and isinstance(v, torch.Tensor))
 
     def train_pass(self, pass_dir, day: str, pass_id: int,
                    dataset=None) -> Dict[str, float]:

@@ -29,21 +29,30 @@ have drawn.  The two packages' generators differ, so their noise does too.
 Evaluation and serving pass no generator, the deterministic path.
 ``metrics = "none"`` (deeprec) runs no streaming metric at all.
 
+The feed reads slotbin files (``BinarySlotDataset``), slot text through the
+native parser (``reader_type: native``, ``native/reader.py``) or the Python
+one, with an optional ``pipe_command`` stage.  ``feed_device_resident``
+keeps the staged superbatches on the device after the first epoch and
+replays them; ``dump_fields`` writes per-instance JSONL from ``evaluate()``
+(``utils/onoff_diff.py`` diffs two of them); ``profiler_options`` traces a
+batch range with ``torch.profiler`` and ``use_visual`` appends scalars
+(``utils/visual.py``).
+
 The online day/pass loop (``train/online.py`` ``OnlineTrainer``) subclasses
-this trainer.  Not ported yet (their config keys raise
+this trainer; the host-tiered pass loop (``train/host_loop.py``
+``HostTableTrainer``) drives one.  Not ported yet (their config keys raise
 ``NotImplementedError`` when the trainer is built): meshes with ``mp > 1``
-and multi-process runs (and with them the row-sharded sparse rules and the
-global dedup), the geo and fl sync modes, the host table, the
-device-resident feed, ``pipe_command``, ``dump_fields``, the scalar writer
-and the profiler hook.
+or ``dp > 1`` and multi-process runs (and with them the row-sharded sparse
+rules and the global dedup), and the geo and fl sync modes.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import time
-from typing import Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -79,16 +88,13 @@ if not logger.handlers:
 
 def check_ported(config: Config) -> None:
     """Raise ``NotImplementedError`` naming the first runner or
-    hyper-parameter key that asks for code the port does not have yet (the
-    online day/pass loop, ``train/online.py``, is ported, and its
-    ``OnlineTrainer`` refuses the same keys):
-    ``runner.sync_mode: geo|fl``, ``runner.use_host_table``,
-    ``runner.feed_device_resident``, ``runner.use_visual``,
-    ``runner.profiler_options``, ``runner.dump_fields``,
-    ``runner.pipe_command``, ``runner.mesh_mp`` / ``runner.mesh_dp`` > 1 and
-    ``hyper_parameters.distributed_embedding`` (which also keeps the
-    row-sharded sparse rules and the global dedup out of reach).  Every
-    optimizer key of ``create_optimizer`` is ported."""
+    hyper-parameter key that asks for code the port does not have yet:
+    ``runner.sync_mode: geo|fl``, ``runner.mesh_mp`` / ``runner.mesh_dp`` > 1
+    and ``hyper_parameters.distributed_embedding`` (which also keeps the
+    row-sharded sparse rules and the global dedup out of reach).  The online
+    day/pass loop's ``OnlineTrainer`` refuses the same keys, and
+    ``runner.use_host_table`` besides.  Every optimizer key of
+    ``create_optimizer`` is ported."""
     def refuse(key: str, what: str = "") -> None:
         raise NotImplementedError(
             f"{key}{what} is not ported to paddlerec_tpu_torch yet"
@@ -97,10 +103,6 @@ def check_ported(config: Config) -> None:
     mode = str(config.runner("sync_mode", "") or "").lower()
     if mode in ("geo", "fl"):
         refuse("runner.sync_mode", f": {mode}")
-    for name in ("use_host_table", "feed_device_resident", "use_visual",
-                 "profiler_options", "dump_fields", "pipe_command"):
-        if config.runner(name):
-            refuse(f"runner.{name}")
     mp = config.runner("mesh_mp")
     if mp not in (None, 1, -1) or config.hyper("distributed_embedding", 0):
         refuse("runner.mesh_mp / hyper_parameters.distributed_embedding",
@@ -135,6 +137,9 @@ class Trainer:
         self.use_auc = bool(config.runner("use_auc", True)) and (
             model_def.metrics in ("auc", "acc")
         )
+        # runner.feed_device_resident: staged superbatches kept on the device
+        # by corpus key ({"sbs", "replays", "bytes"})
+        self._resident: Dict[str, Dict[str, Any]] = {}
 
     # -- setup ----------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> TrainState:
@@ -284,11 +289,26 @@ class Trainer:
                 seed=int(self.config.runner("seed", 2023)),
             )
         if reader_type == "native":
-            # the C++ thread-pool parser is not part of the port: do what
-            # the reference does when its toolchain is absent
-            logger.warning("native reader unavailable (not part of "
-                           "paddlerec_tpu_torch); "
-                           "falling back to the Python reader")
+            # C++ thread-pool parser (the QueueDataset analog); falls back
+            # to the Python reader when no toolchain is available
+            from paddlerec_tpu_torch.native import NativeUnavailable, fastreader
+            from paddlerec_tpu_torch.native.reader import NativeSlotDataset
+
+            try:
+                fastreader()  # built here, so that a missing toolchain falls back
+                return NativeSlotDataset(
+                    files,
+                    num_sparse=len(schema.sparse_slots),
+                    dense_dim=schema.dense_dim,
+                    batch_size=batch_size,
+                    drop_last=drop_last,
+                    num_threads=int(self.config.runner("reader_threads", 8)),
+                    shuffle_files=bool(shuffle),
+                    seed=int(self.config.runner("seed", 2023)),
+                )
+            except NativeUnavailable as e:
+                logger.warning(f"native reader unavailable ({e}); "
+                               "falling back to the Python reader")
         return SlotDataset(
             files,
             schema,
@@ -296,6 +316,7 @@ class Trainer:
             drop_last=drop_last,
             shuffle_files=shuffle,
             seed=int(self.config.runner("seed", 2023)),
+            pipe_command=self.config.runner("pipe_command") or None,
         )
 
     def _wire_encode(self, dataset):
@@ -310,11 +331,13 @@ class Trainer:
         return (enc(b) for b in dataset)
 
     def _device_batches(self, dataset, allow_super: bool = False,
-                        augment: bool = False) -> Iterable:
+                        augment: bool = False,
+                        resident_key: Optional[str] = None) -> Iterable:
         # allow_super: ONLY the train and evaluate loops understand the
         # (superbatch, index) tuples; every other consumer gets plain
         # batches.  augment: the train loop's batches get the host dedup of
-        # a sparse run (evaluation has no use for it)
+        # a sparse run (evaluation has no use for it).  resident_key: the
+        # corpus key of runner.feed_device_resident
         if augment and self.sparse:
             dataset = (_count_uniq(self.model_def.augment_batch_host(b))
                        for b in dataset)
@@ -324,10 +347,93 @@ class Trainer:
             # superbatch staging: K host batches ride ONE host→device
             # transfer; the step indexes batch i on device.  Yields
             # (superbatch, i) pairs consumed by the superbatch step.
+            if (resident_key is not None
+                    and bool(self.config.runner("feed_device_resident", False))):
+                yield from self._resident_superbatches(dataset, k, resident_key)
+                return
             yield from self._staged_superbatches(dataset, k)
             return
         for batch in PrefetchIterator(iter(dataset), depth=4):
             yield to_tensors(batch, self.device)
+
+    def _resident_key(self, kind: str, data_dir: str, batch_size: int) -> str:
+        """Resident-store key including a corpus content signature (file
+        names, sizes and mtimes), so refreshed on-disk data is restaged
+        instead of replaying the old corpus from the device; entries of a
+        superseded signature are dropped (freeing their device memory)."""
+        import hashlib
+
+        prefix = f"{kind}:{data_dir}:{batch_size}"
+        try:
+            stats = [
+                (f, os.stat(f).st_size, os.stat(f).st_mtime_ns)
+                for f in list_data_files(data_dir)
+            ]
+            sig = hashlib.md5(repr(stats).encode()).hexdigest()[:12]
+        except OSError:
+            sig = "nosig"  # unlistable dir: no staleness detection
+        key = f"{prefix}:{sig}"
+        stale = [c for c in self._resident
+                 if c.startswith(prefix + ":") and c != key]
+        for c in stale:
+            del self._resident[c]
+            logger.info(
+                "feed_device_resident: dropped stale resident corpus %r "
+                "(data under %r changed)", c, data_dir,
+            )
+        return key
+
+    def _resident_superbatches(self, dataset, k: int, key: str):
+        """Device-RESIDENT feed (``runner.feed_device_resident``): the staged
+        superbatches stay on the device after the first pass and replay in a
+        reshuffled order on every later epoch, so from epoch 1 on nothing
+        crosses the host→device link.  Corpora larger than
+        ``runner.resident_max_gb`` (default 8) stream instead (one warning;
+        behaviour identical to plain superbatch staging).  Replay order is
+        reshuffled across superbatches per epoch
+        (``RandomState(replays).permutation``); rows within a staged
+        superbatch keep their composition."""
+        ent = self._resident.get(key)
+        if ent is None:
+            cap = float(self.config.runner("resident_max_gb", 8.0)) * (1 << 30)
+            sbs, total, spilled = [], 0, False
+            for sb, i in self._staged_superbatches(dataset, k):
+                if not spilled and i == 0:
+                    nbytes = self._device_bytes(sb)
+                    if total + nbytes > cap:
+                        spilled = True
+                        sbs = None
+                        logger.warning(
+                            "feed_device_resident: corpus exceeds "
+                            "resident_max_gb=%.1f — falling back to "
+                            "streaming staging", cap / (1 << 30),
+                        )
+                    else:
+                        total += nbytes
+                        sbs.append(sb)
+                yield sb, i
+            self._resident[key] = {"sbs": sbs, "replays": 0, "bytes": total}
+            if sbs is not None:
+                logger.info(
+                    "feed_device_resident: %d superbatches (%.2f GB) "
+                    "resident on the device for %r",
+                    len(sbs), total / (1 << 30), key,
+                )
+            return
+        if ent["sbs"] is None:  # spilled on first pass: keep streaming
+            yield from self._staged_superbatches(dataset, k)
+            return
+        ent["replays"] += 1
+        order = np.random.RandomState(ent["replays"]).permutation(len(ent["sbs"]))
+        for j in order:
+            sb = ent["sbs"][int(j)]
+            for i in range(int(next(iter(sb.values())).shape[0])):
+                yield sb, i
+
+    @staticmethod
+    def _device_bytes(batch) -> int:
+        return sum(int(v.numel()) * v.element_size() for k, v in batch.items()
+                   if k not in HOST_KEYS and isinstance(v, torch.Tensor))
 
     def _staged_superbatches(self, dataset, k: int, depth: int = 3):
         stacks = stack_superbatches(dataset, k)
@@ -417,6 +523,16 @@ class Trainer:
                 )
                 start_epoch = int(cfg.runner("last_epoch", -1)) + 1
 
+        # VisualDL-analog scalar telemetry
+        visual = None
+        if bool(cfg.runner("use_visual", False)):
+            from paddlerec_tpu_torch.utils.visual import ScalarWriter
+
+            visual = ScalarWriter(
+                resolve_path(cfg, "runner.train_visual_path") or "visual_log")
+        global_step = 0
+        profiler_options = cfg.runner("profiler_options")
+
         last_metrics: Dict[str, float] = {}
         # ONE dataset object for all epochs: re-iterating bumps its
         # internal epoch counter, so shuffle_files gets a fresh
@@ -435,8 +551,14 @@ class Trainer:
             total_samples = 0
             loss = None
             for batch_id, batch in enumerate(
-                    self._device_batches(dataset, allow_super=True,
-                                         augment=True)):
+                    self._device_batches(
+                        dataset, allow_super=True, augment=True,
+                        resident_key=self._resident_key(
+                            "train", data_dir, batch_size))):
+                if profiler_options:
+                    from paddlerec_tpu_torch.utils.profiler import add_profiler_step
+
+                    add_profiler_step(profiler_options)
                 reader_cost += time.time() - reader_start
                 step_start = time.time()
                 if isinstance(batch, tuple):  # (superbatch, index)
@@ -448,9 +570,19 @@ class Trainer:
                     n = self._batch_rows(batch)
                 interval_samples += n
                 total_samples += n
+                global_step += 1
                 if (batch_id + 1) % print_interval == 0:
                     self._sync()
                     train_cost += time.time() - step_start
+                    if visual is not None:
+                        visual.add_scalars(
+                            {
+                                "train/loss": float(loss),
+                                "train/ips": interval_samples
+                                / max(reader_cost + train_cost, 1e-9),
+                            },
+                            global_step,
+                        )
                     auc_str = self._auc_str(metric_state) if self.use_auc else ""
                     logger.info(
                         f"epoch: {epoch}, batch_id: {batch_id}, {auc_str}"
@@ -494,6 +626,8 @@ class Trainer:
                 logger.info(f"saved checkpoint to {path}")
             last_metrics["epoch_time"] = epoch_time
             last_metrics["ips"] = total_samples / max(epoch_time, 1e-9)
+        if visual is not None:
+            visual.close()
         return last_metrics
 
     def evaluate(self, epoch_tag=None) -> Dict[str, float]:
@@ -509,7 +643,25 @@ class Trainer:
             self.load_checkpoint(load_path, epoch_tag)
 
         dataset = self.make_dataset(data_dir, batch_size, drop_last=False)
-        eval_batches = self._device_batches(dataset, allow_super=True)
+        # dump_fields: per-instance variable dumps for the on/off-line
+        # consistency diff (JSONL read by utils/onoff_diff.py).  It needs
+        # each batch's aux on the host, so it keeps the single-batch path;
+        # everything else evaluates through superbatch staging
+        dump_fields = cfg.runner("dump_fields") or []
+        if isinstance(dump_fields, str):
+            # CLI overrides arrive as "[predictions,labels]" strings
+            dump_fields = [f.strip() for f in dump_fields.strip("[]").split(",")
+                           if f.strip()]
+        dump_path = resolve_path(cfg, "runner.dump_fields_path")
+        dumping = bool(dump_fields) and bool(dump_path)
+        eval_batches = self._device_batches(
+            dataset, allow_super=not dumping,
+            resident_key=None if dumping
+            else self._resident_key("eval", data_dir, batch_size))
+        dump_file = None
+        if dumping:
+            os.makedirs(os.path.dirname(dump_path) or ".", exist_ok=True)
+            dump_file = open(dump_path, "w")
         metric_state = self._init_metric_state()
         begin = time.time()
         total = 0
@@ -519,12 +671,17 @@ class Trainer:
                 metric_state, _ = self.infer_super(sb, idx, metric_state)
                 total += int(next(iter(sb.values())).shape[1])
             else:
-                metric_state, _ = self.infer_step(batch, metric_state)
+                metric_state, aux = self.infer_step(batch, metric_state)
+                if dump_file is not None:
+                    _dump_batch(dump_file, batch_id, batch, aux, dump_fields)
                 total += self._batch_rows(batch)
             if (batch_id + 1) % print_interval == 0 and self.use_auc:
                 logger.info(
                     f"infer batch_id: {batch_id}, {self._auc_str(metric_state)}"
                 )
+        if dump_file is not None:
+            dump_file.close()
+            logger.info(f"dumped fields {dump_fields} to {dump_path}")
         self._sync()  # the steps are only queued: wait, so the time is theirs
         elapsed = time.time() - begin
         metrics = self._compute_metrics(metric_state) if self.use_auc else {}
@@ -550,6 +707,21 @@ def step_seed(seed: int, step: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
     return (z ^ (z >> 31)) % (1 << 63)
+
+
+def _dump_batch(out, batch_id: int, batch, aux, fields) -> None:
+    """One JSONL record per unmasked row of a batch: ``ins_id`` is
+    ``"<batch_id>_<row>"`` and ``vars`` holds each dumped aux field's values
+    of the row."""
+    host = {k: aux[k].detach().double().cpu().numpy() for k in fields if k in aux}
+    mask = batch["mask"].cpu().numpy() if "mask" in batch else None
+    for r in range(Trainer._batch_rows(batch)):
+        if mask is not None and mask[r] == 0:
+            continue
+        rec = {"ins_id": f"{batch_id}_{r}",
+               "vars": {k: [float(x) for x in v[r].reshape(-1)]
+                        for k, v in host.items()}}
+        out.write(json.dumps(rec) + "\n")
 
 
 def _count_uniq(batch):

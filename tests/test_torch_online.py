@@ -529,6 +529,9 @@ def test_entry_points_need_a_card_or_the_cpu(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_online.OnlineTrainer(Config(dict(flat)))
+    # Trainer's check_ported refuses geo and fl; the online loop refuses the
+    # host table itself (the JAX online loop ignores the key, and composing
+    # the day/pass loop with the host tier is part of neither package)
     for key, value in (("runner.sync_mode", "geo"), ("runner.sync_mode", "fl"),
                        ("runner.use_host_table", True)):
         with pytest.raises(NotImplementedError, match=key.split(".")[1]):

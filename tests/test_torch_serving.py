@@ -167,7 +167,10 @@ def test_port_imports_nothing_of_jax():
                  "tools.jtm", "models.rl.a2c.model", "models.demo.movie_recommand.model",
                  "serving.vector_index", "serving.movie_recommender",
                  "train.online", "train.touched", "native.cube", "tools.online_train",
-                 "tools.export_cube", "tools.cube_server"):
+                 "tools.export_cube", "tools.cube_server",
+                 "parallel.host_table", "train.host_loop", "native.reader",
+                 "tools.dataset_convert", "data.external", "utils.onoff_diff",
+                 "utils.profiler", "utils.visual"):
         assert f"paddlerec_tpu_torch.{name}" in walked, name
 
 

@@ -299,10 +299,7 @@ def test_trainer_feeds_slotbin_superbatches_and_resumes(tmp_path):
 
 @pytest.mark.parametrize("key,value", [
     ("runner.sync_mode", "geo"), ("runner.sync_mode", "fl"),
-    ("runner.use_host_table", True), ("runner.feed_device_resident", True),
-    ("runner.mesh_mp", 2), ("runner.mesh_dp", 2), ("runner.use_visual", True),
-    ("runner.profiler_options", "batch_range=[2,4]"),
-    ("runner.dump_fields", ["predictions"]), ("runner.pipe_command", "cat"),
+    ("runner.mesh_mp", 2), ("runner.mesh_dp", 2),
     ("hyper_parameters.distributed_embedding", 1),
 ])
 def test_keys_that_are_not_ported_raise_by_name(tmp_path, key, value):
@@ -352,7 +349,12 @@ def test_set_hyperparams_retunes_the_injected_values(tmp_path):
     assert other.state.opt_state["count"] == 2
 
 
-def test_native_reader_falls_back_with_a_warning(tmp_path):
+def test_native_reader_falls_back_with_a_warning(tmp_path, monkeypatch):
+    """``reader_type: native`` reads through the native parser; only when it
+    cannot be built (no toolchain) does the trainer fall back to the Python
+    reader, with the JAX package's warning."""
+    from paddlerec_tpu_torch import native
+
     data = str(tmp_path / "train")
     write_criteo_sample(data, num_lines=64, num_files=1, vocab=VOCAB)
     cfg = Config({**small_config(tmp_path, **SMALL).to_dict(),
@@ -360,8 +362,22 @@ def test_native_reader_falls_back_with_a_warning(tmp_path):
     trainer = port_trainer_mod.Trainer(cfg, device="cpu")
     dataset, lines = _captured(port_trainer_mod.logger,
                                lambda: trainer.make_dataset(data, 16))
+    assert type(dataset).__name__ == "NativeSlotDataset"
+    assert not any("falling back" in line for line in lines)
+    native_batches = list(dataset)
+
+    def unavailable():
+        raise native.NativeUnavailable("building libfastreader.so failed: no g++")
+
+    monkeypatch.setattr(native, "fastreader", unavailable)
+    dataset, lines = _captured(port_trainer_mod.logger,
+                               lambda: trainer.make_dataset(data, 16))
     assert any("falling back to the Python reader" in line for line in lines)
-    assert len(list(dataset)) == 4
+    batches = list(dataset)
+    assert len(batches) == len(native_batches) == 4
+    for x, y in zip(batches, native_batches):
+        for k in x:
+            assert x[k].tobytes() == y[k].tobytes(), k
 
 
 def test_train_entry_points_raise_without_cuda(tmp_path):
