@@ -7,7 +7,7 @@ and the CUDA toolkit:
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --only k1 [--against OTHER_gather_pool.cu ...]
     python3 chip_smoke.py --only k1b [--against OTHER_gather_pool_bwd.cu ...]
-    python3 chip_smoke.py --only 29-32 | 33-36 | 37-41
+    python3 chip_smoke.py --only 29-32 | 33-36 | 37-41 | 42-45
 
 Phases, in order; any failure is fatal and the script exits non-zero
 without a result line.  ``--only k1`` runs phases 1 and 2, K1's checks of
@@ -21,7 +21,8 @@ against its plain version and timed at every shape of phases 7, 10, 15, 18,
 or ``csrc/gather_pool_bwd.cu``, with the same C interface, a parent commit's
 say) is built beside it and timed in turns with it at every shape.
 ``--only 29-32`` runs phases 1, 2 and 29-32 (a few minutes), ``--only
-33-36`` phases 1, 2 and 33-36, ``--only 37-41`` phases 1, 2 and 37-41.
+33-36`` phases 1, 2 and 33-36, ``--only 37-41`` phases 1, 2 and 37-41,
+``--only 42-45`` phases 1, 2 and 42-45.
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build every kernel of ``paddlerec_tpu_torch/csrc`` with ``nvcc``;
@@ -176,7 +177,7 @@ say) is built beside it and timed in turns with it at every shape.
     through ``set_graph`` on a seeded graph; the serving calls (deepwalk's
     ``node_embeddings``, mind's ``user_capsules``, tisas's ``score_items``,
     ensfm's scores, mhcn's ``user_item_embeddings``) card against CPU at
-    batch 32, then timed at batch 32 and 1024 (p50, p99 of 100 calls); the
+    batch 32, then timed at batch 32 and 1024 (p50, p99 of 300 calls); the
     walk feeds (deepwalk's, graph.gnn's, graph.deepwalk_million's) read and
     stepped for 200 batches on a graph of BlogCatalog's size (333,983 edges
     at the configs' node counts); deepwalk,
@@ -274,7 +275,36 @@ say) is built beside it and timed in turns with it at every shape.
     and K1b into its compact buffer at batch 8192, each held against its
     plain version, then timed; every K1 and K1b launch of phase 37 is at one
     of them, and every one of phases 38-40 at DeepFM's view or the 10^8
-    table's (phases 7 and 10 time those).  One line gives every phase's
+    table's (phases 7 and 10 time those);
+42. ``RankModel`` (``uapi``) on ``configs/rank/deepfm/config.yaml`` at full
+    width (``rank_model_phase``): ``train`` for 8 steps of batch 512 on
+    seeded Criteo rows, ``evaluate`` from the checkpoint, ``export``,
+    ``predict`` (its ``predictions.txt`` against the same artifact's CPU run,
+    2e-6: one step of ``%.6f``), ``compression`` (the artifact's bytes before
+    and after; every int8 element within half a step of its row's scale)
+    and ``infer`` from the compressed artifact, within 0.02 of the
+    uncompressed predictions; ``load_exported`` dequantizes the table;
+43. ``tools.feature_importance`` on that checkpoint over three slot groups
+    of 1,024 eval rows, the baseline AUC and the deltas against the same
+    tool on the CPU (atol 1e-4: a prediction 1e-7 away may change bucket);
+44. TIPC (``tools.tipc``) from a temporary directory: the port's criteo
+    fixture, ``run_mode`` of ``lite_train_lite_infer`` on
+    ``test_tipc/configs/dnn/train_infer_python.txt`` (three "Run
+    successfully" lines), then ``run_benchmark`` at batch 512 with device
+    counts 1 and 2 (2 recorded as skipped: the world is one card), the
+    record's backend the card;
+45. the all_to_all engine through the launcher (``engine_phase``):
+    ``tools.launch --nproc 1 --backend nccl`` runs this script's
+    ``engine_rank``, which builds ``ShardedEmbedding`` at mp = 1 over
+    DeepFM's packed table (125,001 × 128 float32) and steps it 3 times at
+    8192 × 26 ids, every exchange an NCCL collective; the first step's
+    forward bitwise and its gradient (rtol 1e-5) against the plain packed
+    lookup, the overflow count 0, and K1 (the shard's gather) and K1b (its
+    scatter) timed at the exchange's own ids beside ``index_select`` /
+    ``embedding_dense_backward`` and ``index_add_`` of the valid ids, and
+    the byte bound of what those ids need; then K1 and K1b
+    at phase 44's shapes (dnn's table at batch 16 and 512), each held
+    against its plain version and timed.  One line gives every phase's
     seconds.
 
 K1b's ``launches`` in the ``kernels`` line are those of each case's own
@@ -1267,10 +1297,11 @@ def profile_train(cfg, batch_size: int, seed: int, iters: int = 20) -> dict:
             module, trainer.state.extra, aux["delta_grads"], batch,
             rng=trainer._step_rng))
     parts["metrics"], _ = looped(lambda: model_def.update_metric_state(ms, aux))
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()  # parsing the events costs seconds: once
+    kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+    host = sorted((e for e in averages if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:12]
     return {
         "model": cfg.runner("model"),
@@ -1816,10 +1847,11 @@ def seq_paths(gp, work: str, seed: int, card: str) -> dict:
                               "seconds_export_and_predict": time.perf_counter() - t0},
                   "card": card})
         shutil.rmtree(export_dir)
-        # dien's step launches ~7,000 kernels: the profiler's own bookkeeping
-        # of 20 such steps takes minutes, so it profiles fewer
+        # dien's step launches thousands of kernels: the profiler's own
+        # bookkeeping (parsing its events on the host) grows with them, so it
+        # profiles fewer
         emit({"profile_train": profile_train(run_cfg, SEQ_BATCH, seed,
-                                             iters=20 if model == "din" else 5),
+                                             iters=20 if model == "din" else 2),
               "card": card})
 
     # dmr through the train CLI, on rows in its own format
@@ -1849,7 +1881,8 @@ REST = ("deeprec", "iprec", "naml", "fastformer", "sign", "bert4rec")  # the res
 # K1 launches per forward and K1b per step: one per Embed table
 REST_TABLES = {"deeprec": 0, "iprec": 3, "naml": 3, "fastformer": 5, "sign": 2, "bert4rec": 3}
 REST_SERVED = ("iprec", "naml", "fastformer")
-REST_SERVE_ROWS = 11 * 1024 + 64  # ten timed batches of 1024 after the warm-up
+REST_SERVE_TIMED = 10  # the timed batches of 1024 served after the warm-up
+REST_SERVE_ROWS = (REST_SERVE_TIMED + 1) * 1024 + 64
 REST_TWIN_ROWS = 256  # the served rows the CPU twin predicts too (rows are independent)
 REST_TRAIN_ROWS = 60 * SEQ_BATCH  # naml's and bert4rec's rows: 60 steps an epoch
 CHAIN_ITEMS = 200  # bert4rec's Markov chain
@@ -2091,8 +2124,9 @@ def rank_rest_paths(gp, work: str, seed: int, card: str) -> dict:
         shutil.rmtree(export_dir)
         gc.collect()
         torch.cuda.empty_cache()
+    # hundreds of kernels a step: 5 steps keep the profiler's events few
     for model in ("iprec", "fastformer"):
-        emit({"profile_train": profile_train(zoo_config(model), SEQ_BATCH, seed),
+        emit({"profile_train": profile_train(zoo_config(model), SEQ_BATCH, seed, iters=5),
               "card": card})
     return out
 
@@ -2151,7 +2185,7 @@ ALI_CCP_MODELS = ("esmm", "aitm", "escm2")
 MT_TRAIN_STEPS = 80  # steps an epoch at the configs' batch 32
 MT_EPISODES = 20  # maml's episodes an epoch (each a batch of 32 tasks)
 MT_SERVE_ROWS = REST_SERVE_ROWS  # ten timed batches of 1024 after the warm-up
-MT_SERVE_BATCHES = 11  # metaheac's served batches: a warm-up and ten timed
+MT_SERVE_BATCHES = REST_SERVE_TIMED + 1  # metaheac's served batches: a warm-up, then timed
 
 
 def mt_config(model: str, **extra):
@@ -2549,7 +2583,7 @@ def multitask_paths(gp, work: str, seed: int, card: str) -> dict:
                 raise AssertionError(f"{model}: K1, K1b {launched[:2]} at batch {batch}")
             if (preds.shape != cpu_preds.shape or not np.ptp(preds) > 0
                     or not np.all(np.isfinite(preds)) or err > ZOO_ATOL
-                    or report["batches"] < 10):
+                    or report["batches"] < REST_SERVE_TIMED):
                 raise AssertionError(f"{model}: served predictions, card vs CPU max err {err}, "
                                      f"{report}")
             _add_launched(out, launched)
@@ -2559,9 +2593,9 @@ def multitask_paths(gp, work: str, seed: int, card: str) -> dict:
                               "seconds_export_and_predict": time.perf_counter() - t0},
                   "card": card})
         shutil.rmtree(export_dir)
-    # metaheac's and maml's steps run thousands of kernels: the profiler's own
-    # bookkeeping grows with them, so those two profile fewer steps
-    for model, iters in (("esmm", 20), ("metaheac", 2), ("maml", 2)):
+    # metaheac's and maml's steps run many thousands of kernels: the
+    # profiler's own bookkeeping grows with them, so those two profile one step
+    for model, iters in (("esmm", 20), ("metaheac", 1), ("maml", 1)):
         emit({"profile_train": profile_train(mt_config(model), SEQ_BATCH, seed, iters=iters),
               "card": card})
     return out
@@ -2989,7 +3023,8 @@ def match_paths(gp, work: str, seed: int, card: str) -> dict:
             _reset(gp)
             served, report = run_predict(export_dir, data, batch)
             launched = _counts(gp)
-            if launched[:2] != (tables * math.ceil(rows / batch), 0) or report["batches"] < 10:
+            if (launched[:2] != (tables * math.ceil(rows / batch), 0)
+                    or report["batches"] < REST_SERVE_TIMED):
                 raise AssertionError(f"{model}: K1, K1b {launched[:2]} at batch {batch}, "
                                      f"{report}")
             _add_launched(out, launched)
@@ -6366,7 +6401,8 @@ def profile_calls(call, iters: int, unit: str) -> dict:
         for _ in range(iters):
             call()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()  # parsing the events costs seconds: once
+    kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return {
@@ -6394,14 +6430,417 @@ def profile_forward(model_def, module, batch_size: int, iters: int = 20) -> dict
     return {"batch_size": batch_size, "forwards": iters, **prof}
 
 
+# -- phases 42-45: the single-device API and tools, and the all_to_all engine --
+API_ROWS = 4096  # phase 42's rows: 8 steps of batch 512
+API_EVAL_ROWS = 1024  # phase 43's eval rows: 2 batches of 512
+API_BATCH = 512
+FI_GROUPS = [[0], [1, 2], [12, 13, 14]]  # phase 43's slot groups
+# phase 43: card against CPU AUC; a prediction ~1e-7 apart may fall into the
+# next of the AUC's buckets, and one such move changes an AUC of 1,024 rows
+# by ~4e-6
+FI_ATOL = 1e-4
+COMPRESSED_ATOL = 0.02  # phase 42: predictions of the int8 artifact
+TIPC_DNN = os.path.join(ROOT, "test_tipc", "configs", "dnn", "train_infer_python.txt")
+ENGINE_STEPS = 3  # phase 45: lookups and backwards of the engine
+ENGINE_LR = 0.1
+DEEPFM_512_K1 = (125001 * 8, 16, "float32", API_BATCH * SLOTS, 1)
+# phase 44's lookups: dnn's TIPC table (vocab 10,000, dim 8: the 8-lane view
+# of 625 packed rows) at the parameter file's batch 16 and the benchmark's 512
+TIPC_K1_SHAPES = tuple(
+    K1Shape(f"dnn TIPC 8-lane view (10,000 × 8), B={b}", 10000, 8, b * SLOTS,
+            library="embedding_bag") for b in (16, API_BATCH))
+TIPC_K1B_SHAPES = tuple(
+    K1bShape(f"dnn TIPC 8-lane view (10,000 × 8), B={b}", 10000, 8, b * SLOTS)
+    for b in (16, API_BATCH))
+
+
+def _dir_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(root) for f in fs)
+
+
+def rank_model_phase(work: str, seed: int, card: str) -> dict:
+    """Phase 42: ``RankModel`` on ``configs/rank/deepfm/config.yaml`` at full
+    width (vocab 1,000,001, dim 9, towers [512, 256, 128, 32]): train 8
+    steps at batch 512 on seeded Criteo rows, evaluate, export, predict,
+    compression, then predict from the compressed artifact."""
+    from paddlerec_tpu_torch.data.synthetic import write_criteo_sample
+    from paddlerec_tpu_torch.tools.export import load_exported
+    from paddlerec_tpu_torch.tools.predict import run_predict
+    from paddlerec_tpu_torch.uapi import RankModel
+
+    data = os.path.join(work, "api_data")
+    write_criteo_sample(data, num_lines=API_ROWS, num_files=1, vocab=1000001, seed=seed + 42)
+    ckpt = os.path.join(work, "api_ckpt")
+    model = RankModel(CONFIG, config={
+        "runner.train_batch_size": API_BATCH, "runner.infer_batch_size": API_BATCH,
+        "runner.epochs": 1, "runner.print_interval": 4, "runner.seed": seed,
+        "runner.model_save_path": ckpt, "runner.infer_load_path": ckpt})
+    t0 = time.perf_counter()
+    train = model.train(dataset=data)
+    ev = model.evaluate(weight_path=os.path.join(ckpt, "0"), dataset=data)
+    for name, m in (("train", train), ("evaluate", ev)):
+        if not (0.0 <= m["auc"] <= 1.0 and math.isfinite(m["auc"])):
+            raise AssertionError(f"RankModel {name}: auc {m['auc']}")
+    export_dir = os.path.join(work, "api_export")
+    model.export(os.path.join(ckpt, "0"), export_dir)
+    preds_path = model.predict(os.path.join(ckpt, "0"), data,
+                               os.path.join(work, "api_predict"), batch_size=API_BATCH)
+    preds = np.loadtxt(preds_path)
+    comp = model.compression(os.path.join(ckpt, "0"), os.path.join(work, "api_comp"))
+    comp_preds = np.loadtxt(model.infer(comp, data, os.path.join(work, "api_infer_comp"),
+                                        batch_size=API_BATCH))
+    seconds = time.perf_counter() - t0
+    if preds.shape != (API_ROWS,) or not np.all((preds > 0) & (preds < 1)):
+        raise AssertionError(f"RankModel.predict gave {preds.shape} predictions")
+    # the same artifact on the CPU: the port's twin of the card's predictions
+    cpu_preds = np.concatenate(run_predict(export_dir, data, API_BATCH, device="cpu")[0])
+    predict_err = float(np.abs(preds - np.round(cpu_preds, 6)).max())
+    if predict_err > 2e-6:  # %.6f in the file: one rounding step
+        raise AssertionError(f"RankModel.predict against the CPU: {predict_err}")
+    # the bound of the int8 table: each element within half a step of its
+    # row (scale_r / 2); the predictions within COMPRESSED_ATOL
+    quant = np.load(os.path.join(comp, "quantized.npz"))
+    with np.load(os.path.join(export_dir, "params.npz")) as z:
+        table = z["embedding/embedding"]
+    deq = quant["embedding/embedding/q"].astype(np.float32) * \
+        quant["embedding/embedding/scale"][:, None]
+    step_err = float((np.abs(deq - table) / quant["embedding/embedding/scale"][:, None]).max())
+    if step_err > 0.5 + 1e-3:
+        raise AssertionError(f"int8 table off by {step_err} steps of its row")
+    comp_err = float(np.abs(comp_preds - preds).max())
+    if comp_preds.shape != preds.shape or comp_err > COMPRESSED_ATOL:
+        raise AssertionError(f"compressed predictions off by {comp_err}")
+    _, module = load_exported(comp)  # the dequantized table on the card
+    if not torch.equal(module.state_dict()["embedding.embedding"].cpu(),
+                       torch.from_numpy(deq)):
+        raise AssertionError("load_exported did not dequantize the compressed table")
+    del module
+    return {"train": train, "evaluate": ev, "rows": API_ROWS, "batch": API_BATCH,
+            "artifact_bytes": _dir_bytes(export_dir), "compressed_bytes": _dir_bytes(comp),
+            "predict_max_abs_err_vs_cpu": predict_err,
+            "int8_table_max_err_in_steps": step_err,
+            "compressed_max_abs_err": comp_err, "compressed_bound": COMPRESSED_ATOL,
+            "seconds": seconds}
+
+
+def feature_importance_phase(work: str, seed: int, card: str) -> dict:
+    """Phase 43: ``tools.feature_importance`` on phase 42's checkpoint over
+    three slot groups of a small eval set, on the card and on the CPU."""
+    from paddlerec_tpu_torch.core.config import load_config
+    from paddlerec_tpu_torch.data.synthetic import write_criteo_sample
+    from paddlerec_tpu_torch.tools import feature_importance as fi
+
+    data = os.path.join(work, "fi_data")
+    write_criteo_sample(data, num_lines=API_EVAL_ROWS, num_files=1, vocab=1000001,
+                        seed=seed + 43)
+    cfg = load_config(CONFIG, {"runner.test_data_dir": data,
+                               "runner.infer_batch_size": API_BATCH,
+                               "runner.model_init_path": os.path.join(work, "api_ckpt", "0")})
+    t0 = time.perf_counter()
+    card_run = fi.run(cfg, FI_GROUPS)
+    seconds = time.perf_counter() - t0
+    cpu_run = fi.run(cfg, FI_GROUPS, device="cpu")
+    err = max(abs(card_run[k] - cpu_run[k]) for k in cpu_run)
+    if sorted(card_run) != sorted(cpu_run) or not err <= FI_ATOL:
+        raise AssertionError(f"feature importance card {card_run} vs CPU {cpu_run}")
+    return {"card": card_run, "cpu": cpu_run, "max_abs_diff": err, "atol": FI_ATOL,
+            "groups": FI_GROUPS, "rows": API_EVAL_ROWS, "card_seconds": seconds}
+
+
+def tipc_phase(work: str, seed: int, card: str) -> dict:
+    """Phase 44: TIPC's ``lite_train_lite_infer`` on the dnn parameter file
+    over the port's fixture, then ``benchmark_train`` at batch 512 with
+    device counts 1 and 2 (2 is above the world: recorded as skipped); the
+    records go to a temporary directory."""
+    from paddlerec_tpu_torch.tools import tipc
+
+    root = os.path.join(work, "tipc")
+    os.makedirs(root)
+    cwd = os.getcwd()
+    os.chdir(root)  # the parameter file's paths are relative: test_tipc/data/...
+    try:
+        tipc.write_criteo_fixture()
+        t0 = time.perf_counter()
+        ok = tipc.run_mode(TIPC_DNN, "lite_train_lite_infer", output_dir="out")
+        mode_s = time.perf_counter() - t0
+        log = open(os.path.join("out", "results_python_lite_train_lite_infer.log")).read()
+        if not ok or log.count("Run successfully") != 3:
+            raise AssertionError(f"TIPC lite_train_lite_infer failed:\n{log}")
+        bench_ok = tipc.run_benchmark(TIPC_DNN, "out", record_dir="records",
+                                      matrix_override={"batch_sizes": str(API_BATCH),
+                                                       "device_nums": "1|2"})
+        record = json.load(open(os.path.join("records", "benchmark_train_dnn.json")))
+    finally:
+        os.chdir(cwd)
+    want_backend = f"cuda:{torch.cuda.get_device_name(0)}"
+    if (not bench_ok or record["backend"] != want_backend
+            or [(r["batch"], r["devices"]) for r in record["results"]] != [(API_BATCH, 1)]
+            or record["skipped"] != [{"devices": 2, "reason": "only 1 devices"}]):
+        raise AssertionError(f"TIPC benchmark_train: {record}")
+    return {"lite_train_lite_infer_seconds": mode_s, "status_log": log.splitlines(),
+            "benchmark": record}
+
+
+def engine_phase(work: str, seed: int, card: str) -> dict:
+    """Phase 45: ``tools.launch --nproc 1 --backend nccl`` runs this script's
+    ``engine_rank`` (the all_to_all engine over DeepFM's packed table); its
+    result comes back as a file.  The child's failure fails the phase."""
+    out = os.path.join(work, "engine")
+    os.makedirs(out)
+    log_path = os.path.join(out, "rank.log")
+    cmd = [sys.executable, "-m", "paddlerec_tpu_torch.tools.launch", "--nproc", "1",
+           "--backend", "nccl", "--", sys.executable, os.path.abspath(__file__),
+           "--engine-rank", out, "--seed", str(seed)]
+    with open(log_path, "w") as log:
+        rc = subprocess.run(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                            timeout=600).returncode
+    if rc != 0:
+        raise AssertionError(f"the engine's rank exited {rc}:\n{open(log_path).read()[-6000:]}")
+    with open(os.path.join(out, "engine.json")) as f:
+        return json.load(f)
+
+
+def engine_rank(out_dir: str, seed: int) -> int:
+    """The launched rank of phase 45: joins the NCCL group (world size 1),
+    builds ``ShardedEmbedding`` at mp = 1 over DeepFM's packed table
+    (125,001 × 128 float32), and steps it ENGINE_STEPS times at 8192 × 26
+    ids (lookup, squared error, backward, SGD), every exchange an NCCL
+    ``all_to_all_single``.  The first step's forward is held against the
+    plain packed lookup (bitwise) and its gradient against the plain
+    version's (rtol 1e-5, atol 1e-6 × the most adds a row takes); the
+    overflow count must be 0.  Then K1 and K1b timed on the exchange's own
+    ids beside the plain versions, library calls of the same function and
+    the byte bound (``time_engine_kernels``).  Writes ``engine.json``."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from paddlerec_tpu_torch.ops import gather_pool as gp
+    from paddlerec_tpu_torch.ops.packed_embedding import logical_view
+    from paddlerec_tpu_torch.parallel import embedding as emb
+    from paddlerec_tpu_torch.parallel.mesh import create_mesh
+    from paddlerec_tpu_torch.tools.launch import init_from_env
+
+    device = init_from_env()
+    backend = dist.get_backend()
+    mesh = create_mesh(1, 1)
+    if mesh.mp_group is None or dist.get_world_size() != 1 or backend != "nccl":
+        raise AssertionError(f"no NCCL group: {backend}, {mesh}")
+    g = torch.Generator(device=device).manual_seed(seed + 45)
+    eng = emb.ShardedEmbedding(mesh, 1000001, 9, device=device)
+    table = eng.init(g).requires_grad_()
+    batches = [torch.randint(0, 1000001, (BIG_BATCH, SLOTS), device=device, generator=g)
+               for _ in range(ENGINE_STEPS)]
+    targets = [torch.randn(BIG_BATCH, SLOTS, 9, device=device, generator=g)
+               for _ in range(ENGINE_STEPS)]
+    start = table.detach().clone()
+    gp.gather_pool.launches = gp.gather_pool_bwd.launches = 0
+    gp.gather_pool.launches_by_shape.clear()
+    gp.gather_pool_bwd.launches_by_shape.clear()
+    overflow, first = [], None
+    for ids, tgt in zip(batches, targets):  # the main path: the counted steps
+        vecs, ovf = eng.lookup_with_overflow(table, ids)
+        ((vecs - tgt) ** 2).sum().backward()
+        if first is None:
+            first = (vecs.detach().clone(), table.grad.clone())
+        with torch.no_grad():
+            table -= ENGINE_LR * table.grad
+        table.grad = None
+        overflow.append(int(ovf))
+    torch.cuda.synchronize()
+    k1_by = dict(gp.gather_pool.launches_by_shape)
+    k1b_by = dict(gp.gather_pool_bwd.launches_by_shape)
+    launches = (gp.gather_pool.launches, gp.gather_pool_bwd.launches)
+    if any(overflow):
+        raise AssertionError(f"the engine dropped ids: {overflow}")
+    # the plain packed lookup and its gradient, from the same start
+    ref_table = start.clone().requires_grad_()
+    flat = (batches[0] % 1000001).reshape(-1, 1).to(torch.int32)
+    ref = gp.gather_pool_plain(logical_view(ref_table, 9), flat)[:, :9].reshape(vecs.shape)
+    ((ref - targets[0]) ** 2).sum().backward()
+    fwd_err = float((first[0] - ref.detach()).abs().max())
+    adds = int(torch.bincount(flat.reshape(-1).long() // 8).max())
+    tol = {"rtol": 1e-5, "atol": 1e-6 * adds}
+    grad_err = float((first[1] - ref_table.grad).abs().max())
+    if not torch.equal(first[0], ref.detach()) or not torch.allclose(
+            first[1], ref_table.grad, rtol=tol["rtol"], atol=tol["atol"]):
+        raise AssertionError(f"the engine against the plain lookup: forward {fwd_err}, "
+                             f"gradient {grad_err}")
+    cases = time_engine_kernels(gp, eng, table.detach(), batches)
+    cases[0]["launches"], cases[1]["launches"] = launches
+    result = {"world_size": dist.get_world_size(), "backend": backend,
+              "mesh": {"dp": mesh.dp, "mp": mesh.mp},
+              "table": list(table.shape), "ids": [BIG_BATCH, SLOTS],
+              "capacity": eng.capacity(BIG_BATCH * SLOTS), "steps": ENGINE_STEPS,
+              "overflow": overflow, "forward_max_abs_err": fwd_err,
+              "grad_max_abs_err": grad_err, "grad_tolerance": tol,
+              "k1_launches": launches[0], "k1b_launches": launches[1],
+              "k1_by_shape": [[*k, v] for k, v in k1_by.items()],
+              "k1b_by_shape": [[*k, v] for k, v in k1b_by.items()],
+              "k1": cases[0], "k1b": cases[1]}
+    with open(os.path.join(out_dir, "engine.json"), "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def time_engine_kernels(gp, eng, table, batches) -> list:
+    """K1 (the shard's gather) and K1b (its scatter) at the exchange's own
+    ids: each batch's ``(C, 1)`` bucket ids at mp = 1 (sorted unique rows,
+    then ``-1`` holes), mode drop.  Each held against its plain version,
+    then timed (CUDA events, the host queued ahead) beside the plain version,
+    a library call of the same function and the byte bound of what this
+    run's ids need.  K1's library call is ``index_select`` over the table
+    with a zero row appended, where the holes read.  K1b's is
+    ``embedding_dense_backward`` over that padded table with the zero row
+    as its ``padding_idx`` (the holes skipped, as the other K1b rows call
+    it), beside ``index_add_`` of the valid prefix of ids: never a scatter
+    of every hole onto one row, which would time the pile-up, not the
+    function."""
+    from paddlerec_tpu_torch.parallel import embedding as emb
+
+    rows = table.shape[0]
+    cap = eng.capacity(BIG_BATCH * SLOTS)
+    sets, touched = [], []
+    for ids in batches:
+        phys = (ids.reshape(-1).long() % eng.vocab_size) // eng.pack
+        uniq, _, _ = emb._dedup_ids(phys, eng.rows)
+        send, _, _ = emb._route_ids(uniq, 1, eng.rows_local, cap)
+        sets.append(send.reshape(-1, 1))
+        touched.append(int((send >= 0).sum()))
+    mapped = {id(s): torch.where(s < 0, rows, s).reshape(-1).long() for s in sets}
+    valid = {id(s): mapped[id(s)][:t] for s, t in zip(sets, touched)}  # holes come last
+    padded = torch.cat([table, table.new_zeros(1, table.shape[1])])
+    n, dim = cap, table.shape[1]
+    iters = 100
+    out = []
+    err, ok, tol = k1_check(gp, table, sets[0], None, torch.float32, "drop")
+    if not ok:
+        raise AssertionError(f"K1 at the engine's ids: {err}")
+    device, call = _timed({
+        "ms": lambda s: gp.gather_pool(table, s, mode="drop"),
+        "plain_ms": lambda s: gp.gather_pool_plain(table, s, mode="drop"),
+        "library_ms": lambda s: padded.index_select(0, mapped[id(s)]),
+    }, sets, iters)
+    uniq = sum(touched) / len(touched)
+    nbytes = uniq * dim * 4 + n * 4 + n * dim * 4  # rows, ids, the (C, 128) output
+    out.append({"name": "engine shard gather (125,001 × 128), C=319,488 at mp=1, drop",
+                "rows": rows, "dim": dim, "dtype": "float32", "n": n, "pool": 1,
+                "mode": "drop", "ids": "engine buckets", "touched_rows": uniq,
+                "max_abs_err": err, "ok": ok, "tolerance": tol, "iters": iters, **device,
+                "library": "index_select", "bound_ms": max(
+                    nbytes / HBM_BYTES_PER_S, n * dim / F32_FLOPS) * 1e3,
+                "bound_by": "bytes", "bytes": nbytes, "call_ms": call, "launches": None})
+    grad = torch.randn(n, dim, device=table.device,
+                       generator=torch.Generator(device=table.device).manual_seed(7))
+    err, ok, tol, adds = k1b_check(gp, grad, sets[0], None, rows, torch.float32, "drop")
+    if not ok:
+        raise AssertionError(f"K1b at the engine's ids: {err}")
+    device, call = _timed({
+        "ms": lambda s: gp.gather_pool_bwd(grad, s, None, rows, mode="drop"),
+        "plain_ms": lambda s: gp.gather_pool_bwd_plain(grad, s, None, rows, mode="drop"),
+        "library_ms": lambda s: torch.ops.aten.embedding_dense_backward(
+            grad, mapped[id(s)], rows + 1, rows, False)[:rows],
+        "index_add_ms": lambda s: torch.zeros(rows, dim, device=grad.device).index_add_(
+            0, valid[id(s)], grad[:valid[id(s)].numel()]),
+    }, sets, iters)
+    # the shard's gradient written once (its zeros), the g rows of valid ids
+    # and the ids read once: a hole's g row is never needed
+    nbytes = rows * dim * 4 + uniq * dim * 4 + n * 4
+    out.append({"name": "engine shard scatter (125,001 × 128), C=319,488 at mp=1, drop",
+                "rows": rows, "dim": dim, "dtype": "float32", "n": n, "pool": 1,
+                "mode": "drop", "ids": "engine buckets", "touched_rows": uniq,
+                "max_abs_err": err, "ok": ok, "tolerance": tol, "most_adds_per_row": adds,
+                "iters": iters, **device, "library": "embedding_dense_backward",
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S, uniq * dim / F32_FLOPS) * 1e3,
+                "bound_by": "bytes", "bytes": nbytes, "zero_fill_bytes": rows * dim * 4,
+                "call_ms": call, "launches": None})
+    return out
+
+
+def api_parallel_phases(gp, work: str, seed: int, card: str, clock: PhaseClock) -> tuple:
+    """Phases 42-45: RankModel on DeepFM, feature importance, TIPC and the
+    engine through the launcher, then K1 and K1b at TIPC's new shapes.
+    Every K1 launch of phases 42-43 is at DeepFM's view at batch 512 (phase
+    7's case); every K1 and K1b launch of phase 44 at a ``TIPC_*_SHAPES``
+    case.  Returns (K1 cases, K1b cases, K1 launches, K1b launches, the
+    engine's result, phase 42-43's K1 launches at DeepFM's case)."""
+    def lap(phase: str) -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock.lap(phase)
+
+    before = _counted()
+    emit({"rank_model": rank_model_phase(work, seed, card), "card": card})
+    lap("42 RankModel")
+    emit({"feature_importance": feature_importance_phase(work, seed, card), "card": card})
+    lap("43 feature importance")
+    k1_api, k1b_api = _launches(before)
+    before = _counted()
+    emit({"tipc": tipc_phase(work, seed, card), "card": card})
+    lap("44 TIPC")
+    k1_tipc, k1b_tipc = _launches(before)
+    engine = engine_phase(work, seed, card)
+    emit({"engine": {k: v for k, v in engine.items() if k not in ("k1", "k1b")},
+          "card": card})
+    lap("45 engine through the launcher")
+    if set(k1_api) != {DEEPFM_512_K1} or set(k1b_api) != {DEEPFM_512_K1[:4]}:
+        raise AssertionError(f"phases 42-43 launched K1 {dict(k1_api)}, K1b {dict(k1b_api)}")
+    k1_cases = time_k1_shapes(gp, TIPC_K1_SHAPES, seed + 44)
+    k1b_cases = time_k1b_shapes(gp, TIPC_K1B_SHAPES, seed + 44)
+    for case in k1_cases:
+        case["launches"] = k1_tipc.get(
+            (case["rows"], case["dim"], case["dtype"], case["n"], case["pool"]), 0)
+    for case in k1b_cases:
+        case["launches"] = k1b_tipc.get((case["rows"], case["dim"], case["dtype"], case["n"]), 0)
+    if (sum(c["launches"] for c in k1_cases) != sum(k1_tipc.values())
+            or sum(c["launches"] for c in k1b_cases) != sum(k1b_tipc.values())
+            or not all(c["launches"] > 0 for c in k1_cases + k1b_cases)):
+        raise AssertionError(f"phase 44 launched K1 {dict(k1_tipc)}, K1b {dict(k1b_tipc)}")
+    if engine["k1_launches"] < 1 or engine["k1b_launches"] < 1:
+        raise AssertionError(f"the engine launched K1 {engine['k1_launches']}, K1b "
+                             f"{engine['k1b_launches']} times")
+    clock.lap("45 K1/K1b at TIPC's shapes")
+    k1 = sum(k1_api.values()) + sum(k1_tipc.values())
+    k1b = sum(k1b_api.values()) + sum(k1b_tipc.values())
+    return (k1_cases, k1b_cases, k1, k1b, engine, k1_api[DEEPFM_512_K1])
+
+
+def api_only(gp, seed: int, card: str) -> None:
+    """``--only 42-45``: phases 42-45, one JSON line a K1 and a K1b shape
+    (the engine's among them), and the phases' seconds."""
+    clock = PhaseClock()
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        k1_cases, k1b_cases, k1, k1b, engine, deepfm_k1 = api_parallel_phases(
+            gp, work, seed, card, clock)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    floor_ms = time_launch_floor(gp)
+    k1_cases.append(engine["k1"])
+    k1b_cases.append(engine["k1b"])
+    set_share(k1_cases, floor_ms)
+    set_share(k1b_cases, floor_ms)
+    for row in k1_cases:
+        emit({"k1": row, "card": card})
+    for row in k1b_cases:
+        emit({"k1b": row, "card": card})
+    emit({"api_only": {"k1_launches": k1 + engine["k1_launches"],
+                       "k1b_launches": k1b + engine["k1b_launches"],
+                       "deepfm_b512_k1": deepfm_k1, "launch_floor_ms": floor_ms},
+          "card": card})
+    emit(clock.line(card))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("k1", "k1b", "29-32", "33-36", "37-41"),
+    parser.add_argument("--only", choices=("k1", "k1b", "29-32", "33-36", "37-41", "42-45"),
                         help="k1 (k1b): phases 1-2, K1's (K1b's) checks of phase 3, then "
                              "that kernel checked and timed at every shape; 29-32 (33-36, "
-                             "37-41): phases 1-2 and 29-32 (33-36, 37-41) (default: every "
-                             "phase)")
+                             "37-41, 42-45): phases 1-2 and 29-32 (33-36, 37-41, 42-45) "
+                             "(default: every phase)")
+    # phase 45's launched rank (tools.launch sets its group up): not for users
+    parser.add_argument("--engine-rank", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--against", action="append", default=[], metavar="SOURCE.cu",
                         help="with --only: another source of that kernel with the same C "
                              "interface, built and timed in turns with the current one")
@@ -6411,6 +6850,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.engine_rank:
+        return engine_rank(args.engine_rank, args.seed)
     sys.path.insert(0, ROOT)
     from paddlerec_tpu_torch.core.config import load_config
     from paddlerec_tpu_torch.data.schema import schema_from_config
@@ -6438,8 +6879,10 @@ def main(argv=None) -> int:
             slice_only(gp, args.seed, card)
         elif args.only == "33-36":
             online_only(gp, args.seed, card)
-        else:
+        elif args.only == "37-41":
             host_only(gp, args.seed, card)
+        else:
+            api_only(gp, args.seed, card)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -6643,11 +7086,15 @@ def main(argv=None) -> int:
         # observability, their shapes
         host_cases, host_bwd_cases, host_k1, host_k1b, host_rest = host_phases(
             gp, work, args.seed, card, clock)
+        # phases 42-45: RankModel, feature importance, TIPC, the engine
+        api_cases, api_bwd_cases, api_k1, api_k1b, engine, api_deepfm_k1 = (
+            api_parallel_phases(gp, work, args.seed, card, clock))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for case, batch in zip(cases, BATCHES):
         case["launches"] = launches[batch]
     cases[-1]["launches"] += host_rest["deepfm_k1"]  # phases 38 and 40
+    cases[0]["launches"] += api_deepfm_k1  # phases 42 and 43
     # K1b's rows also carry their count by run (DeepFM's runs, the sparse
     # deepfm run) or by row width (the rest), each of which must be above 0
     for case, batch in zip(bwd_cases, BATCHES):
@@ -6723,13 +7170,13 @@ def main(argv=None) -> int:
                    + sum(r["k1_launches"] + r["eval"]["k1_launches"] for r in all_runs)
                    + zoo["k1_launches"] + paths["k1_launches"] + seq["k1"] + seq_runs["k1"]
                    + rest["k1"] + rest_runs["k1"] + mt["k1"] + mt_runs["k1"] + match_k1
-                   + graph_k1 + slice_k1 + online_k1 + host_k1)
+                   + graph_k1 + slice_k1 + online_k1 + host_k1 + api_k1)
     k1b_launches = (first["k1b_launches"] + sparse["first"]["k1b_launches"]
                     + sum(r["k1b_launches"] for r in all_runs)
                     + zoo["k1b_launches"] + paths["k1b_launches"] + seq["k1b"]
                     + seq_runs["k1b"] + rest["k1b"] + rest_runs["k1b"] + mt["k1b"]
                     + mt_runs["k1b"] + match["k1b"] + match_runs["k1b"] + graph["k1b"]
-                    + graph_runs["k1b"] + slice_k1b + online_k1b + host_k1b)
+                    + graph_runs["k1b"] + slice_k1b + online_k1b + host_k1b + api_k1b)
     if k1_launches < 1 or k1b_launches < 1:
         raise AssertionError("the main path launched a kernel no time")
     # K1b's launches per timed shape, from the whole run: those of the shape's
@@ -6744,7 +7191,7 @@ def main(argv=None) -> int:
           "card": card})
     bwd_all = (bwd_cases + bf16_bwd_cases + zoo_bwd_cases + compact_cases + seq_bwd_cases
                + rest_bwd_cases + mt_bwd_cases + match_bwd_cases + graph_bwd_cases
-               + slice_bwd_cases + online_bwd_cases + host_bwd_cases)
+               + slice_bwd_cases + online_bwd_cases + host_bwd_cases + api_bwd_cases)
     dense = {(c["rows"], c["dim"], c["dtype"], c["n"]) for c in bwd_all
              if c["ids"] != "compact"}
     # the host table's compact buffer shares (D, dtype, N) with the 10^8
@@ -6757,6 +7204,11 @@ def main(argv=None) -> int:
                                 if k[1:] == key[1:] and k not in dense))
     host_bwd_cases[0]["launches"] = host_compact
     compact_cases[-1]["launches"] -= host_compact
+    # the engine's rank ran in a process of its own (phase 45), which counted
+    # its launches: its rows join after the attribution by this process's keys
+    bwd_all.append(engine["k1b"])
+    k1_launches += engine["k1_launches"]
+    k1b_launches += engine["k1b_launches"]
     for case in bwd_all:
         # card time lost to the floor a run: launches × (ms − max(bound, floor))
         case["lost_ms"] = case["launches"] * max(
@@ -6781,7 +7233,8 @@ def main(argv=None) -> int:
          "paddlerec_tpu/ops/pallas_embedding.py:37", k1_launches,
          max(main_err, sparse["lookup"]["k1_err"]),
          cases + zoo_cases + big_cases + seq_cases + rest_cases + mt_cases + match_cases
-         + graph_cases + slice_cases + online_cases + host_cases,
+         + graph_cases + slice_cases + online_cases + host_cases + api_cases
+         + [engine["k1"]],
          cases[-1]),
         # the JAX package has no kernel for the gradient: K1b takes the
         # place of the XLA scatter-add of _packed_lookup_bwd

@@ -55,6 +55,19 @@ def get_model_class(name: str):
     return _REGISTRY[name]
 
 
+def list_models():
+    """Every registered name, the aliases included (imports the whole zoo
+    first: importing the package alone registers nothing)."""
+    import pkgutil
+
+    from paddlerec_tpu_torch import models
+
+    for info in pkgutil.walk_packages(models.__path__, models.__name__ + "."):
+        if info.name.endswith(".model"):
+            importlib.import_module(info.name)
+    return sorted(set(_REGISTRY) | set(_ALIASES))
+
+
 def _load_module_from_path(path: str, module_name: str):
     spec = importlib.util.spec_from_file_location(module_name, path)
     if spec is None or spec.loader is None:

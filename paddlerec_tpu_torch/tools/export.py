@@ -10,6 +10,8 @@ which cannot be read without JAX.  The port's artifact is
                       leaves widened to float32, which is exact
 
 so parameters from either package load into the other through ``convert``.
+``tools/compress.py`` turns an artifact into a compressed one (int8 tables
+in ``quantized.npz``), which ``load_exported`` reads as well.
 The artifact of a sparse run (``hyper_parameters.sparse_update``) is flipped
 to the plain lookup, as the JAX package's is: its config says ``sparse_update:
 false``, so a bfloat16 table serves bfloat16 vectors where the training
@@ -37,6 +39,7 @@ from paddlerec_tpu_torch.convert import flatten_tree, from_jax_params, to_jax_pa
 from paddlerec_tpu_torch.core.config import Config, load_config, parse_overrides, resolve_path
 from paddlerec_tpu_torch.core.device import full_float32_matmul, resolve_device
 from paddlerec_tpu_torch.core.registry import load_model_def
+from paddlerec_tpu_torch.tools.compress import QUANT_FILE, dequantize_into
 from paddlerec_tpu_torch.train import checkpoint as ckpt_lib
 
 logger = logging.getLogger("paddlerec_tpu_torch")
@@ -114,7 +117,9 @@ def _jsonable(v) -> bool:
 
 def load_exported(export_dir: str, device=None) -> Tuple[Any, nn.Module]:
     """Returns (model_def, module): the module holds the artifact's
-    parameters on ``device`` (default ``cuda``) in eval mode."""
+    parameters on ``device`` (default ``cuda``) in eval mode.  A compressed
+    artifact (``quantized.npz`` beside ``params.npz``) loads the same way,
+    its int8 tables dequantized at load, as the JAX package's loader does."""
     device = resolve_device(device)
     full_float32_matmul()
     with open(os.path.join(export_dir, "config.json")) as f:
@@ -124,7 +129,14 @@ def load_exported(export_dir: str, device=None) -> Tuple[Any, nn.Module]:
     # a table that is overwritten next
     module = model_def.make_module(device="meta")
     with np.load(os.path.join(export_dir, "params.npz")) as z:
-        state = from_jax_params({k: z[k] for k in z.files})
+        params = {k: z[k] for k in z.files}
+    quant_path = os.path.join(export_dir, QUANT_FILE)
+    if os.path.exists(quant_path):
+        # a compressed artifact (tools/compress.py): the quantized tables
+        # fill their placeholders, dequantized once here
+        with np.load(quant_path) as quant:
+            params = dequantize_into(params, quant)
+    state = from_jax_params(params)
     _check_against_module(model_def, state)
     # cast back to each parameter's dtype: bfloat16 tables were widened
     # exactly on export

@@ -41,9 +41,11 @@ batch range with ``torch.profiler`` and ``use_visual`` appends scalars
 The online day/pass loop (``train/online.py`` ``OnlineTrainer``) subclasses
 this trainer; the host-tiered pass loop (``train/host_loop.py``
 ``HostTableTrainer``) drives one.  Not ported yet (their config keys raise
-``NotImplementedError`` when the trainer is built): meshes with ``mp > 1``
-or ``dp > 1`` and multi-process runs (and with them the row-sharded sparse
-rules and the global dedup), and the geo and fl sync modes.
+``NotImplementedError`` when the trainer is built, ``check_ported``): meshes
+with ``mp > 1`` or ``dp > 1`` and multi-process runs (and with them the
+row-sharded sparse rules and the global dedup), and the geo and fl sync
+modes across processes.  At one process geo trains as plain sync and a
+1×1 ``distributed_embedding`` mesh is accepted, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -69,6 +71,7 @@ from paddlerec_tpu_torch.data.slot_reader import (
 from paddlerec_tpu_torch.data.superbatch import stack_superbatches
 from paddlerec_tpu_torch.data.wire import WireEncoder, decode_batch
 from paddlerec_tpu_torch.ops.sparse_update import SENTINEL
+from paddlerec_tpu_torch.parallel.mesh import Mesh, mesh_from_config, world_size
 from paddlerec_tpu_torch.train import checkpoint as ckpt_lib
 from paddlerec_tpu_torch.train.state import TrainState
 
@@ -86,37 +89,55 @@ if not logger.handlers:
     logger.propagate = False
 
 
-def check_ported(config: Config) -> None:
-    """Raise ``NotImplementedError`` naming the first runner or
-    hyper-parameter key that asks for code the port does not have yet:
-    ``runner.sync_mode: geo|fl``, ``runner.mesh_mp`` / ``runner.mesh_dp`` > 1
-    and ``hyper_parameters.distributed_embedding`` (which also keeps the
-    row-sharded sparse rules and the global dedup out of reach).  The online
-    day/pass loop's ``OnlineTrainer`` refuses the same keys, and
-    ``runner.use_host_table`` besides.  Every optimizer key of
-    ``create_optimizer`` is ported."""
+def check_ported(config: Config, world: Optional[int] = None) -> Mesh:
+    """Check the multi-device keys against what the port runs, and return
+    the mesh they give at this world size (default: the process group's,
+    1 without one), as ``paddlerec_tpu/train/trainer.py`` builds it.
+
+    At one process the reference's rules hold: ``runner.sync_mode: geo``
+    trains as plain sync (it averages only across processes; one log line
+    says so), ``sync_mode: fl`` raises its ``ValueError`` (a federated run
+    needs a client a process), and ``distributed_embedding``, ``mesh_dp``
+    and ``mesh_mp`` that resolve to the 1×1 mesh are accepted (the table
+    takes its local path).  Still ``NotImplementedError``, naming the key:
+    ``mesh_dp`` or ``mesh_mp`` above 1, any mesh with dp or mp above 1, and
+    geo or fl across processes.  The online loop's ``OnlineTrainer`` is
+    held to the same rules.  Every optimizer key of ``create_optimizer`` is
+    ported."""
     def refuse(key: str, what: str = "") -> None:
         raise NotImplementedError(
             f"{key}{what} is not ported to paddlerec_tpu_torch yet"
         )
 
+    world = world_size() if world is None else int(world)
     mode = str(config.runner("sync_mode", "") or "").lower()
-    if mode in ("geo", "fl"):
-        refuse("runner.sync_mode", f": {mode}")
-    mp = config.runner("mesh_mp")
-    if mp not in (None, 1, -1) or config.hyper("distributed_embedding", 0):
-        refuse("runner.mesh_mp / hyper_parameters.distributed_embedding",
-               " (a mesh with mp > 1)")
-    dp = config.runner("mesh_dp")
-    if dp not in (None, 1, -1):
-        refuse("runner.mesh_dp", " > 1")
+    if mode == "fl" and world <= 1:
+        raise ValueError(
+            "sync_mode: fl needs >1 process (each process is one federated "
+            "client with a private data shard); launch with tools/launch "
+            "and torch.distributed"
+        )
+    if mode in ("geo", "fl") and world > 1:
+        refuse("runner.sync_mode", f": {mode} across processes")
+    for key in ("mesh_mp", "mesh_dp"):
+        if config.runner(key) not in (None, 1, -1):
+            refuse(f"runner.{key}", " > 1")
+    mesh = mesh_from_config(config, world)
+    if mesh.dp > 1 or mesh.mp > 1:
+        refuse("runner.mesh_dp / runner.mesh_mp / "
+               "hyper_parameters.distributed_embedding",
+               f" (a {mesh.dp}x{mesh.mp} mesh)")
+    if mode == "geo":
+        logger.info("sync_mode: geo at one process trains as plain sync "
+                    "(parameters are averaged only across processes)")
+    return mesh
 
 
 class Trainer:
     def __init__(self, config: Config, model_def=None, device=None):
         self.config = config
         self.device = resolve_device(device)
-        check_ported(config)
+        self.mesh = check_ported(config)
         # full float32 products on the card: the parity tolerances against
         # the JAX package assume it
         full_float32_matmul()

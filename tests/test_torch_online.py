@@ -529,13 +529,18 @@ def test_entry_points_need_a_card_or_the_cpu(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_online.OnlineTrainer(Config(dict(flat)))
-    # Trainer's check_ported refuses geo and fl; the online loop refuses the
-    # host table itself (the JAX online loop ignores the key, and composing
-    # the day/pass loop with the host tier is part of neither package)
-    for key, value in (("runner.sync_mode", "geo"), ("runner.sync_mode", "fl"),
-                       ("runner.use_host_table", True)):
-        with pytest.raises(NotImplementedError, match=key.split(".")[1]):
-            port_online.OnlineTrainer(Config(dict(flat, **{key: value})), device="cpu")
+    # Trainer's check_ported at one process: geo trains as plain sync, fl
+    # raises the reference's ValueError; the online loop refuses the host
+    # table itself (the JAX online loop ignores the key, and composing the
+    # day/pass loop with the host tier is part of neither package)
+    port_online.OnlineTrainer(Config(dict(flat, **{"runner.sync_mode": "geo"})),
+                              device="cpu")
+    with pytest.raises(ValueError, match="sync_mode: fl needs >1 process"):
+        port_online.OnlineTrainer(Config(dict(flat, **{"runner.sync_mode": "fl"})),
+                                  device="cpu")
+    with pytest.raises(NotImplementedError, match="use_host_table"):
+        port_online.OnlineTrainer(Config(dict(flat, **{"runner.use_host_table": True})),
+                                  device="cpu")
     yaml = tmp_path / "online.yaml"
     yaml.write_text("runner:\n  model: rank.dnn\n")
     over = [f"{k}={json.dumps(v) if isinstance(v, list) else v}" for k, v in flat.items()

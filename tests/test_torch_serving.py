@@ -170,7 +170,11 @@ def test_port_imports_nothing_of_jax():
                  "tools.export_cube", "tools.cube_server",
                  "parallel.host_table", "train.host_loop", "native.reader",
                  "tools.dataset_convert", "data.external", "utils.onoff_diff",
-                 "utils.profiler", "utils.visual"):
+                 "utils.profiler", "utils.visual",
+                 "uapi", "uapi.model", "tools.compress", "tools.feature_importance",
+                 "tools.tipc", "tools.tipc_benchmark_summary", "utils.benchmark",
+                 "parallel.mesh", "parallel.context", "parallel.sharding",
+                 "parallel.embedding", "tools.launch", "utils.k8s"):
         assert f"paddlerec_tpu_torch.{name}" in walked, name
 
 

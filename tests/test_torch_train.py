@@ -303,13 +303,24 @@ def test_trainer_feeds_slotbin_superbatches_and_resumes(tmp_path):
     ("hyper_parameters.distributed_embedding", 1),
 ])
 def test_keys_that_are_not_ported_raise_by_name(tmp_path, key, value):
-    """Every key ``check_ported`` still refuses, sparse runs included."""
+    """``check_ported`` at one process, sparse runs included, as the JAX
+    trainer at one process: geo trains as plain sync and a 1×1
+    ``distributed_embedding`` mesh is accepted (both build), fl raises the
+    reference's ValueError, and a mesh wider than one rank still raises
+    ``NotImplementedError`` naming the key."""
     name = key.split(".")[-1]
     for sparse in (False, True):
         cfg = Config({**small_config(tmp_path, **SMALL).to_dict(), key: value,
                       "hyper_parameters.sparse_update": sparse})
-        with pytest.raises(NotImplementedError, match=name):
-            port_trainer_mod.Trainer(cfg, device="cpu")
+        if value == "fl":
+            with pytest.raises(ValueError, match="sync_mode: fl needs >1 process"):
+                port_trainer_mod.Trainer(cfg, device="cpu")
+        elif value in ("geo", 1):
+            trainer = port_trainer_mod.Trainer(cfg, device="cpu")
+            assert (trainer.mesh.dp, trainer.mesh.mp) == (1, 1)
+        else:
+            with pytest.raises(NotImplementedError, match=name):
+                port_trainer_mod.Trainer(cfg, device="cpu")
 
 
 def test_set_hyperparams_retunes_the_injected_values(tmp_path):
