@@ -7,7 +7,7 @@ and the CUDA toolkit:
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --only k1 [--against OTHER_gather_pool.cu ...]
     python3 chip_smoke.py --only k1b [--against OTHER_gather_pool_bwd.cu ...]
-    python3 chip_smoke.py --only 29-32 | 33-36 | 37-41 | 42-45
+    python3 chip_smoke.py --only 29-32 | 33-36 | 37-41 | 42-45 | 46-48
 
 Phases, in order; any failure is fatal and the script exits non-zero
 without a result line.  ``--only k1`` runs phases 1 and 2, K1's checks of
@@ -22,7 +22,7 @@ or ``csrc/gather_pool_bwd.cu``, with the same C interface, a parent commit's
 say) is built beside it and timed in turns with it at every shape.
 ``--only 29-32`` runs phases 1, 2 and 29-32 (a few minutes), ``--only
 33-36`` phases 1, 2 and 33-36, ``--only 37-41`` phases 1, 2 and 37-41,
-``--only 42-45`` phases 1, 2 and 42-45.
+``--only 42-45`` phases 1, 2 and 42-45, ``--only 46-48`` phases 1, 2 and 46-48.
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build every kernel of ``paddlerec_tpu_torch/csrc`` with ``nvcc``;
@@ -304,7 +304,28 @@ say) is built beside it and timed in turns with it at every shape.
     ``embedding_dense_backward`` and ``index_add_`` of the valid ids, and
     the byte bound of what those ids need; then K1 and K1b
     at phase 44's shapes (dnn's table at batch 16 and 512), each held
-    against its plain version and timed.  One line gives every phase's
+    against its plain version and timed;
+46. the trainer on a 2×2 mesh (``mesh_phase``): ``tools.launch --nproc 4
+    --backend gloo`` runs this script's ``mesh_rank`` four times, every rank
+    on the one card (collectives through the host): DeepFM at
+    ``config.yaml``'s width through ``Trainer.train()`` at batch 512 a dp
+    row, 20 steps over 4 seeded slotbin files, against the 1×1 run of the
+    same global batches from the same start (``MESH_TOL``), the replicas of
+    every shard and dense leaf bitwise, overflow 0, a trainer resumed from
+    the epoch's checkpoint equal and taking the same next step, examples/s
+    and the exchange's share of a step; then 1×4 on skewed ids in the same
+    processes: the overflow count above 0 and ``overflow_raise_after``'s
+    error;
+47. ``config_bigdata.yaml`` (vocab 100,000,001, bf16 6,250,001-row shards,
+    row-wise adagrad, stochastic rounding) on 2×2 at batch 8192 a dp row, 10
+    steps of ``Trainer.train()``, against the 1×1 run (``BIG_MESH_TOL``):
+    sampled touched rows and every touched accumulator, untouched rows
+    bitwise unchanged, replicas equal;
+48. K1 and K1b at the mesh's shapes (``time_mesh_kernels``, on the ids rank 0
+    kept): the shard gathers (62,501 f32 and 6,250,001 bf16 rows), the
+    engine's scatter into DeepFM's shard, the row rules' global per-unique
+    merge, each held against its plain version and timed beside the library
+    call and the bound of the valid ids.  One line gives every phase's
     seconds.
 
 K1b's ``launches`` in the ``kernels`` line are those of each case's own
@@ -6831,16 +6852,603 @@ def api_only(gp, seed: int, card: str) -> None:
     emit(clock.line(card))
 
 
+# -- phases 46-48: the trainer on a 2x2 mesh of gloo ranks sharing the card --
+MESH_DP, MESH_MP = 2, 2
+MESH_VOCAB, BIG_MESH_VOCAB = 1000001, 100000001  # config.yaml's, config_bigdata.yaml's
+MESH_BATCH, MESH_STEPS = 512, 20  # phase 46: batch a dp row, steps of Trainer.train()
+BIG_MESH_BATCH, BIG_MESH_STEPS = 8192, 10  # phase 47
+MESH_LABEL = "4 gloo ranks on one card"
+MESH_KEEP = 4  # the last steps whose exchange ids rank 0 keeps for phase 48
+# phase 46, the 2x2 run against the 1x1 run of the same global batches: float32
+# sums in another order (the dp rows' gradients added by an all_reduce, K1b's
+# atomics in both runs), kept by Adam's m / sqrt(v) as a relative error: the
+# tolerances of the one-device twenty steps against JAX (tests/test_torch_train.py),
+# but for the parameters, where a gradient near zero that differs turns into
+# an Adam step of another size (up to lr = 1e-3 a step): every element within
+# 5e-5 and at most 0.1% of them beyond 1e-5.  Measured: 7.3e-6 (the first run)
+MESH_TOL = {"loss": 1e-5, "param": 5e-5, "param_share_beyond_1e-5": 1e-3, "mu": 1e-6,
+            "nu": 1e-7}
+# phase 47, bf16 with stochastic rounding from the same noise: an element whose
+# float32 value moved by a reordered sum may round to its other neighbour, one
+# bf16 step away, and keeps that gap while later steps move it towards zero:
+# atol one bf16 step of a value near 0.05 (2.44e-4; the table starts
+# normal(0, 0.01)) and rtol one step of the value itself.  Measured: 1.22e-4
+# (one step of a value in [2^-6, 2^-5)) on a row whose value is now below
+# 7.7e-3; loss 4.9e-6; the accumulator (a float32 sum of squares) 5.2e-13
+BIG_MESH_TOL = {"table_rtol": 2.0 ** -7, "table_atol": 2.5e-4, "acc_rtol": 1e-3,
+                "acc_atol": 1e-9, "loss": 1e-3}
+
+
+def mesh_config(path: str, data: str, batch: int, dp: int, mp: int, **extra):
+    from paddlerec_tpu_torch.core.config import Config, load_config
+
+    flat = dict(load_config(path).to_dict())
+    flat.update({"runner.train_data_dir": data, "runner.train_batch_size": batch,
+                 "runner.epochs": 1, "runner.print_interval": 5, "runner.reader_type": "",
+                 "runner.model_save_path": None, "runner.mesh_dp": dp, "runner.mesh_mp": mp})
+    flat.update(extra)
+    return Config(flat)
+
+
+def mesh_phase(work: str, seed: int, card: str) -> dict:
+    """Phases 46-47: write the seeded corpora, run ``MESH_DP·MESH_MP`` ranks of
+    ``mesh_rank`` through ``tools.launch --backend gloo`` (every rank on the
+    one card), then the 1×1 runs of the same global batches in this process
+    and the checks of the ranks' results against them.  Returns the ranks'
+    results and the phases' numbers."""
+    data46, data47 = os.path.join(work, "mesh46"), os.path.join(work, "mesh47")
+    write_train_data(data46, MESH_DP * MESH_STEPS * MESH_BATCH, MESH_VOCAB, seed + 46)
+    write_sparse_train_data(data47, MESH_DP * BIG_MESH_STEPS * BIG_MESH_BATCH, BIG_MESH_VOCAB,
+                            seed + 47)
+    out = os.path.join(work, "mesh")
+    os.makedirs(out)
+    log_path = os.path.join(out, "rank.log")
+    cmd = [sys.executable, "-m", "paddlerec_tpu_torch.tools.launch", "--nproc",
+           str(MESH_DP * MESH_MP), "--backend", "gloo", "--", sys.executable,
+           os.path.abspath(__file__), "--mesh-rank", out, "--seed", str(seed)]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        rc = subprocess.run(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                            timeout=900).returncode
+    launch_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"a mesh rank exited {rc}:\n{open(log_path).read()[-8000:]}")
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(MESH_DP * MESH_MP)]
+    result = {"launch_s": launch_s, "ranks": MESH_DP * MESH_MP, "label": MESH_LABEL,
+              "transport": ranks[0]["transport"], "torch": torch.__version__}
+    result["46"] = check_mesh_deepfm(ranks, data46, seed)
+    emit({"mesh_46": result["46"], "card": card})
+    result["47"] = check_mesh_bigdata(ranks, data47, seed)
+    emit({"mesh_47": result["47"], "card": card})
+    return result
+
+
+def _global_batches(files, batch: int, steps: int):
+    """The global batches a ``MESH_DP``-row mesh reads: dp row i's batch of
+    ``shard_files(files, i, MESH_DP)``, the rows concatenated in dp order."""
+    from paddlerec_tpu_torch.data.binary import BinarySlotDataset
+    from paddlerec_tpu_torch.data.slot_reader import shard_files
+
+    rows = [BinarySlotDataset(shard_files(files, i, MESH_DP), batch)
+            for i in range(MESH_DP)]
+    out = []
+    for parts in zip(*rows):
+        out.append({k: np.concatenate([p[k] for p in parts]) for k in parts[0]})
+    if len(out) != steps:
+        raise AssertionError(f"{len(out)} global batches, not {steps}")
+    return out
+
+
+@_uncounted
+def _one_device(cfg, batches, sparse: bool):
+    """The 1×1 trainer of ``cfg`` (its own seed: the mesh's start) stepped on
+    ``batches`` on the card; returns (trainer, losses).  A reference the mesh
+    runs are held against, not the main path: its launches stay out of the
+    by-shape counts."""
+    from paddlerec_tpu_torch.core.device import to_tensors
+    from paddlerec_tpu_torch.train.trainer import Trainer, _count_uniq
+
+    trainer = Trainer(cfg)
+    trainer.init_state()
+    ms, losses = trainer._init_metric_state(), []
+    for b in batches:
+        if sparse:
+            b = _count_uniq(trainer.model_def.augment_batch_host(b))
+        ms, loss = trainer.train_step(to_tensors(b, trainer.device), ms)
+        losses.append(loss)
+    return trainer, [float(x) for x in losses]
+
+
+def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def check_mesh_deepfm(ranks, data: str, seed: int) -> dict:
+    """Phase 46's checks: every rank's losses, dense leaves, joined table and
+    Adam moments after ``Trainer.train()`` against the 1×1 run of the same
+    global batches from the same start (``MESH_TOL``), the replicas of each
+    shard and of every dense leaf bitwise equal, overflow 0, the resumed
+    trainer's state and next loss equal to the trained one's; and the 1×4
+    skewed run's overflow and error."""
+    from paddlerec_tpu_torch.data.slot_reader import list_data_files
+
+    r46 = [r["46"] for r in ranks]
+    batches = _global_batches(list_data_files(data), MESH_BATCH, MESH_STEPS)
+    cfg = mesh_config(CONFIG, data, MESH_DP * MESH_BATCH, 1, 1, **{"runner.seed": seed})
+    ref, losses = _one_device(cfg, batches, sparse=False)
+    want = {k: v.detach() for k, v in ref.state.module.state_dict().items()}
+    errs = {"loss": max(abs(a - b) for r in r46 for a, b in zip(r["losses"], losses))}
+    sharded = r46[0]["sharded"]
+    if sharded != ["embedding.embedding"]:
+        raise AssertionError(f"the sharded leaves: {sharded}")
+    beyond = total = 0
+    for kind in ("param", "mu", "nu"):
+        err, worst = 0.0, None
+        for k, w in want.items():
+            if kind != "param":
+                w = ref.state.opt_state[kind][k]
+            pick = (lambda r: r["params"][k]) if kind == "param" else (lambda r: r[kind][k])
+            got = pick(r46[0]).to(w.device)
+            if k in sharded:  # the shards joined, the engine's padding rows cut
+                got = torch.cat([pick(r46[j]) for j in range(MESH_MP)]).to(w.device)
+                if got.shape[0] != -(-w.shape[0] // MESH_MP) * MESH_MP:
+                    raise AssertionError(f"{k}: {tuple(got.shape)} joined, {tuple(w.shape)}")
+                got = got[:w.shape[0]]
+            if _max_err(got, w) > err:
+                err, worst = _max_err(got, w), k
+            if kind == "param":
+                beyond += int(((got.float() - w.float()).abs() > 1e-5).sum())
+                total += w.numel()
+        errs[kind], errs[f"{kind}_leaf"] = err, worst
+    errs["param_share_beyond_1e-5"] = beyond / total
+    for r, out in enumerate(r46):
+        for k, v in out["params"].items():
+            peer = r46[r % MESH_MP] if k in sharded else r46[0]
+            if not torch.equal(v, peer["params"][k]):
+                raise AssertionError(f"rank {r}: {k} differs from its replica")
+    if (any(e > tol for k, tol in MESH_TOL.items() for e in [errs[k]])
+            or any(o["overflow"] for o in r46)
+            or not all(o["resumed_equal"] and o["next_loss"] == o["resumed_next_loss"]
+                       for o in r46)):
+        raise AssertionError(f"phase 46 against the 1x1 run: {errs}, overflow "
+                             f"{[o['overflow'] for o in r46]}, resume "
+                             f"{[(o['resumed_equal'], o['next_loss'], o['resumed_next_loss']) for o in r46]}")
+    skew = [r["46_skew"] for r in ranks]
+    if not (skew[0]["total"] > 0 and all(s["total"] == skew[0]["total"] for s in skew)
+            and all(s["error"] and "overflowed on 2 consecutive checks" in s["error"]
+                    for s in skew)):
+        raise AssertionError(f"the 1x4 skewed run: {skew}")
+    return {"steps": MESH_STEPS, "batch_per_dp_row": MESH_BATCH, "errors": errs,
+            "tolerance": MESH_TOL, "examples_per_s": [o["ips"] for o in r46],
+            "exchange_share": [o["exchange_share"] for o in r46],
+            "step_ms": [o["step_ms"] for o in r46], "label": MESH_LABEL,
+            "skew_overflow": skew[0]["total"], "skew_error": skew[0]["error"],
+            "k1_launches": sum(o["k1"] for o in r46),
+            "k1b_launches": sum(o["k1b"] for o in r46)}
+
+
+def check_mesh_bigdata(ranks, data: str, seed: int) -> dict:
+    """Phase 47's checks: ``config_bigdata.yaml`` on 2×2 against the 1×1 run
+    of the same global batches from the same start and rounding noise: the
+    sampled touched rows and every touched row's accumulator within
+    ``BIG_MESH_TOL``; each rank found its untouched rows bitwise unchanged;
+    the replicas' fingerprints and dense leaves equal."""
+    from paddlerec_tpu_torch.data.slot_reader import list_data_files
+
+    r47 = [r["47"] for r in ranks]
+    batches = _global_batches(list_data_files(data), BIG_MESH_BATCH, BIG_MESH_STEPS)
+    cfg = mesh_config(BIGDATA.format("deepfm"), data, MESH_DP * BIG_MESH_BATCH, 1, 1,
+                      **{"runner.seed": seed,
+                         "hyper_parameters.sparse_feature_number": BIG_MESH_VOCAB})
+    ref, losses = _one_device(cfg, batches, sparse=True)
+    table = ref.state.module.embedding.embedding.detach()
+    acc = ref.state.extra["embedding/embedding_delta"].acc
+    errs = {"loss": max(abs(a - b) for r in r47 for a, b in zip(r["losses"], losses)),
+            "table": 0.0, "acc": 0.0}
+    ok = errs["loss"] <= BIG_MESH_TOL["loss"]
+    touched = 0
+    for out in r47[:MESH_MP]:
+        rows = out["sample_rows"].to(table.device)
+        got, want = out["sample_values"].to(table.device), table[rows]
+        errs["table"] = max(errs["table"], _max_err(got, want))
+        ok = ok and torch.allclose(got.float(), want.float(), rtol=BIG_MESH_TOL["table_rtol"],
+                                   atol=BIG_MESH_TOL["table_atol"])
+        rows = out["touched_rows"].to(table.device)
+        got, want = out["touched_acc"].to(acc.device), acc[rows]
+        errs["acc"] = max(errs["acc"], _max_err(got, want))
+        ok = ok and torch.allclose(got, want, rtol=BIG_MESH_TOL["acc_rtol"],
+                                   atol=BIG_MESH_TOL["acc_atol"])
+        touched += int(rows.numel())
+    untouched_ref = int((acc == 0).sum())
+    for r, out in enumerate(r47):
+        peer = r47[r % MESH_MP]
+        ok = ok and out["untouched_unchanged"] and out["fingerprint"] == peer["fingerprint"]
+        for k, v in out["dense"].items():
+            ok = ok and torch.equal(v, r47[0]["dense"][k])
+    if not ok or touched != int((acc > 0).sum()):
+        raise AssertionError(f"phase 47 against the 1x1 run: {errs}, touched {touched} against "
+                             f"{int((acc > 0).sum())}, untouched "
+                             f"{[o['untouched_unchanged'] for o in r47]}, fingerprints "
+                             f"{[o['fingerprint'] for o in r47]}")
+    del ref
+    return {"steps": BIG_MESH_STEPS, "batch_per_dp_row": BIG_MESH_BATCH, "errors": errs,
+            "tolerance": BIG_MESH_TOL, "touched_rows": touched,
+            "untouched_rows": untouched_ref, "examples_per_s": [o["ips"] for o in r47],
+            "label": MESH_LABEL, "rows_local": r47[0]["rows_local"],
+            "k1_launches": sum(o["k1"] for o in r47),
+            "k1b_launches": sum(o["k1b"] for o in r47)}
+
+
+def _fingerprint(t: torch.Tensor) -> int:
+    """An int64 digest of a tensor's bits (their sum weighted by position),
+    taken in blocks of rows."""
+    bits = t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+    bits = bits.reshape(bits.shape[0], -1)
+    lanes = torch.arange(1, bits.shape[1] + 1, device=t.device, dtype=torch.int64)
+    total = 0
+    for a in range(0, bits.shape[0], 1 << 18):
+        block = bits[a:a + (1 << 18)].long() * lanes
+        w = torch.arange(a, a + block.shape[0], device=t.device, dtype=torch.int64) % 1009 + 1
+        total += int((block.sum(dim=1) * w).sum())
+    return total
+
+
+def mesh_rank(out_dir: str, seed: int) -> int:
+    """A launched rank of phases 46-47 (``tools.launch --backend gloo``, every
+    rank on the one card): joins the group, then
+
+    * 46: DeepFM at ``config.yaml``'s width on the 2×2 mesh through
+      ``Trainer.train()`` over the seeded slotbin corpus (batch 512 a dp
+      row, 20 steps), its K1 and K1b launches counted; its losses, state
+      and Adam moments written for the parent's 1×1 comparison; the
+      exchange's share of a step over 5 more steps; a trainer resumed from
+      the epoch's checkpoint, its state and next loss against the trained
+      one's; then 1×4 on skewed ids (every id in shard 0's rows): the
+      overflow count and ``overflow_raise_after``'s error;
+    * 47: ``config_bigdata.yaml`` (vocab 100,000,001, bf16, row-wise adagrad,
+      stochastic rounding) on 2×2 through ``Trainer.train()`` (batch 8192 a
+      dp row, 10 steps; the global dedup in the feed), its launches counted;
+      the shard's untouched rows checked bitwise against its initial values
+      drawn again, a sample of touched rows and every touched row's
+      accumulator written, a fingerprint of the shard for the replicas.
+
+    Rank 0 also keeps the exchange's ids (K1's buckets) and the merge's
+    slots (K1b) of the last steps of each run for phase 48's timing."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from paddlerec_tpu_torch.core.device import to_tensors
+    from paddlerec_tpu_torch.ops import gather_pool as gp
+    from paddlerec_tpu_torch.ops import sparse_update as su
+    from paddlerec_tpu_torch.ops.packed_embedding import fill_normal
+    from paddlerec_tpu_torch.parallel import embedding as emb
+    from paddlerec_tpu_torch.tools.launch import init_from_env
+    from paddlerec_tpu_torch.train.trainer import Trainer
+
+    device = init_from_env()
+    rank = dist.get_rank()
+    result = {"transport": f"{dist.get_backend()} on {device.type} tensors"}
+    kept = {"k1": [], "merge": []}
+    k1, merge = emb.gather_pool, su.gather_pool_bwd
+
+    def keep_k1(table, ids, *args, **kwargs):
+        kept["k1"] = (kept["k1"] + [(tuple(table.shape), ids.detach().clone())])[-MESH_KEEP:]
+        return k1(table, ids, *args, **kwargs)
+
+    def keep_merge(g, ids, mask, rows, *args, **kwargs):
+        kept["merge"] = (kept["merge"] + [(g.detach().clone(), ids.detach().clone(), rows)]
+                         )[-MESH_KEEP:]
+        return merge(g, ids, mask, rows, *args, **kwargs)
+
+    if rank == 0:
+        emb.gather_pool, su.gather_pool_bwd = keep_k1, keep_merge
+
+    def counted(run):
+        gp.gather_pool.launches = gp.gather_pool_bwd.launches = 0
+        gp.gather_pool.launches_by_shape.clear()
+        gp.gather_pool_bwd.launches_by_shape.clear()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {
+            "k1": gp.gather_pool.launches, "k1b": gp.gather_pool_bwd.launches,
+            "k1_by_shape": [[*k, v] for k, v in gp.gather_pool.launches_by_shape.items()],
+            "k1b_by_shape": [[*k, v] for k, v in gp.gather_pool_bwd.launches_by_shape.items()]}
+
+    # -- 46: DeepFM at config.yaml's width, 2x2 ---------------------------------
+    data46 = os.path.join(os.path.dirname(out_dir), "mesh46")
+    ckpt = os.path.join(out_dir, "ckpt46")
+    cfg = mesh_config(CONFIG, data46, MESH_BATCH, MESH_DP, MESH_MP,
+                      **{"runner.seed": seed, "runner.model_save_path": ckpt})
+    trainer = Trainer(cfg, device=device)
+    losses = []
+    step = trainer.train_step
+
+    def recorded(batch, ms):
+        ms, loss = step(batch, ms)
+        losses.append(loss)
+        return ms, loss
+
+    trainer.train_step = recorded
+    metrics, seconds, launches = counted(trainer.train)
+    trainer.train_step = step
+    state = trainer.state
+    r46 = {"losses": [float(x) for x in losses], "sharded": sorted(trainer._sharded),
+           "params": {k: v.detach().to("cpu", copy=True)
+                      for k, v in state.module.state_dict().items()},
+           "mu": {k: v.to("cpu", copy=True) for k, v in state.opt_state["mu"].items()},
+           "nu": {k: v.to("cpu", copy=True) for k, v in state.opt_state["nu"].items()},
+           "overflow": int(metrics.get("embedding_overflow", -1)), "ips": metrics["ips"],
+           "seconds": seconds, **launches}
+    kept46 = kept["k1"]
+    # the exchange's share of a step: 5 more steps with the collectives of
+    # the exchange timed between synchronisations
+    exchange = [0.0]
+    a2a, gather = emb._all_to_all, emb._all_gather
+
+    def synced(fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            exchange[0] += time.perf_counter() - t
+            return out
+        return wrapper
+
+    emb._all_to_all, emb._all_gather = synced(a2a), synced(gather)
+    rng = np.random.RandomState(seed + 460)
+    extra = {"label": rng.randint(0, 2, MESH_DP * MESH_BATCH).astype(np.float32),
+             "sparse": rng.randint(0, MESH_VOCAB, (MESH_DP * MESH_BATCH, SLOTS)),
+             "dense": rng.rand(MESH_DP * MESH_BATCH, 13).astype(np.float32)}
+    mine = {k: v[trainer.mesh.dp_index * MESH_BATCH:(trainer.mesh.dp_index + 1) * MESH_BATCH]
+            for k, v in extra.items()}
+    batch = to_tensors(mine, device)
+    ms = trainer._init_metric_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        ms, _ = trainer.train_step(batch, ms)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 5
+    emb._all_to_all, emb._all_gather = a2a, gather
+    r46.update(step_ms=step_s * 1e3, exchange_share=exchange[0] / 5 / step_s)
+    # resume from the epoch's checkpoint: the state of the end of train()
+    resumed = Trainer(cfg, device=device)
+    resumed.load_checkpoint(ckpt, 0)
+    got = resumed.state.module.state_dict()
+    r46["resumed_equal"] = all(torch.equal(v.cpu(), got[k].cpu())
+                               for k, v in r46["params"].items())
+    trainer.state.module.load_state_dict({k: v.to(device) for k, v in r46["params"].items()})
+    _, loss = trainer.train_step(batch, trainer._init_metric_state())
+    _, resumed_loss = resumed.train_step(batch, resumed._init_metric_state())
+    r46.update(next_loss=float(loss), resumed_next_loss=float(resumed_loss))
+    result["46"] = r46
+    del trainer, resumed, state
+    # -- 46, then: 1x4 on skewed ids ---------------------------------------------
+    skew_cfg = mesh_config(CONFIG, data46, MESH_BATCH, 1, MESH_DP * MESH_MP,
+                           **{"runner.seed": seed, "runner.overflow_raise_after": 2})
+    skew = Trainer(skew_cfg, device=device)
+    skew.init_state()
+    rows_local = skew.state.module.embedding.embedding.shape[0]
+    rng = np.random.RandomState(seed + 461)
+    bad = to_tensors({"label": np.zeros(MESH_BATCH, np.float32),
+                      "sparse": rng.randint(0, rows_local * 8, (MESH_BATCH, SLOTS)),
+                      "dense": np.zeros((MESH_BATCH, 13), np.float32)}, device)
+    ms = skew._init_metric_state()
+    ms, _ = skew.train_step(bad, ms)
+    skew._check_overflow(ms)
+    ms, _ = skew.train_step(bad, ms)
+    error = None
+    try:
+        skew._check_overflow(ms)
+    except RuntimeError as e:
+        error = str(e)
+    result["46_skew"] = {"total": int(skew._global_metrics(ms)["embedding_overflow"]) // 2,
+                         "error": error}
+    del skew
+    torch.cuda.empty_cache()
+    # -- 47: config_bigdata.yaml, 2x2 --------------------------------------------
+    data47 = os.path.join(os.path.dirname(out_dir), "mesh47")
+    big_cfg = mesh_config(BIGDATA.format("deepfm"), data47, BIG_MESH_BATCH, MESH_DP, MESH_MP,
+                          **{"runner.seed": seed,
+                             "hyper_parameters.sparse_feature_number": BIG_MESH_VOCAB})
+    big = Trainer(big_cfg, device=device)
+    losses.clear()
+    step = big.train_step
+    big.train_step = recorded
+    metrics, seconds, launches = counted(big.train)
+    big.train_step = step
+    shard = big.state.module.embedding.embedding.detach()
+    acc = big.state.extra["embedding/embedding_delta"].acc
+    # the initial shard, drawn again as SlotEmbedding drew it (the generator
+    # of runner.seed draws the table first)
+    init = torch.empty_like(shard)
+    eng = big.state.module.embedding.engine
+    fill_normal(init, 1e-2, torch.Generator(device=device).manual_seed(seed),
+                rows=-(-BIG_MESH_VOCAB // eng.pack), first=big.mesh.mp_index * eng.rows_local)
+    touched = acc > 0
+    rows = touched.nonzero()[:, 0]
+    lo = big.mesh.mp_index * eng.rows_local
+    sample = rows[rows % 64 == 0]
+    r47 = {"losses": [float(x) for x in losses], "ips": metrics["ips"], "seconds": seconds,
+           "rows_local": int(shard.shape[0]),
+           "untouched_unchanged": not bool(((shard != init).any(dim=1) & ~touched).any()),
+           "touched_rows": (rows + lo).cpu(), "touched_acc": acc[rows].cpu(),
+           "sample_rows": (sample + lo).cpu(), "sample_values": shard[sample].cpu(),
+           "fingerprint": _fingerprint(shard) + _fingerprint(acc),
+           "dense": {k: v.detach().to("cpu", copy=True)
+                     for k, v in big.state.module.state_dict().items()
+                     if k != "embedding.embedding"}, **launches}
+    result["47"] = r47
+    if rank == 0:
+        torch.save({"k1_46": kept46, "k1_47": kept["k1"], "merge_47": kept["merge"]},
+                   os.path.join(out_dir, "kept.pt"))
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+@_uncounted
+def time_mesh_kernels(gp, out_dir: str, seed: int) -> tuple:
+    """Phase 48: K1 and K1b at the mesh's new shapes, on the ids rank 0 kept
+    (the last steps' exchange buckets and merge slots): the shard gather at
+    DeepFM's 62,501 float32 rows (phase 46) and the 10^8 table's 6,250,001
+    bf16 rows (47), the engine's scatter into DeepFM's shard (46), and the
+    row rules' global per-unique merge (47).  Each held against its plain
+    version, then timed with CUDA events (the host queued ahead) beside the
+    plain version, a library call of the same function and the byte bound
+    of what these ids need: valid ids only (the ``-1`` holes of the buckets
+    read and add nothing).  Returns (K1 cases, K1b cases)."""
+    kept = torch.load(os.path.join(out_dir, "kept.pt"), weights_only=False)
+    g = torch.Generator(device="cuda").manual_seed(seed + 48)
+    iters = 50
+    k1_cases, k1b_cases = [], []
+    for key, dtype, run in (("k1_46", torch.float32, "46"), ("k1_47", torch.bfloat16, "47")):
+        (rows, dim), _ = kept[key][0]
+        sets = [ids.cuda() for _, ids in kept[key]]
+        table = (torch.randn(rows, dim, device="cuda", generator=g) * 0.01).to(dtype)
+        es = table.element_size()
+        padded = torch.cat([table, table.new_zeros(1, dim)])
+        mapped = {id(s): torch.where(s < 0, rows, s).reshape(-1).long() for s in sets}
+        valid = sum(int((s >= 0).sum()) for s in sets) / len(sets)
+        n = sets[0].shape[0]
+        err, ok, tol = k1_check(gp, table, sets[0], None, None, "drop")
+        if not ok:
+            raise AssertionError(f"K1 at the mesh shard ({rows} rows): {err}")
+        device, call = _timed({
+            "ms": lambda s: gp.gather_pool(table, s, mode="drop"),
+            "plain_ms": lambda s: gp.gather_pool_plain(table, s, mode="drop"),
+            "library_ms": lambda s: padded.index_select(0, mapped[id(s)]),
+        }, sets, iters)
+        nbytes = valid * dim * es + n * 4 + n * dim * es
+        k1_cases.append({
+            "name": f"mesh shard gather ({rows:,} × {dim} {str(dtype)[6:]}), N=mp·C={n:,}, "
+                    f"drop (phase {run})", "rows": rows, "dim": dim, "dtype": str(dtype)[6:],
+            "n": n, "pool": 1, "mode": "drop", "ids": "mesh buckets", "valid_ids": valid,
+            "max_abs_err": err, "ok": ok, "tolerance": tol, "iters": iters, **device,
+            "library": "index_select", "bytes": nbytes, "bound_by": "bytes",
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, n * dim / F32_FLOPS) * 1e3,
+            "call_ms": call, "phase": run})
+        if run == "46":  # the engine's backward: K1b into the shard
+            grad = torch.randn(n, dim, device="cuda", generator=g)
+            valid_ids = {id(s): mapped[id(s)][mapped[id(s)] < rows] for s in sets}
+            valid_g = {id(s): grad[s.reshape(-1) >= 0] for s in sets}
+            err, ok, tol, adds = k1b_check(gp, grad, sets[0], None, rows, torch.float32, "drop")
+            if not ok:
+                raise AssertionError(f"K1b into the mesh shard: {err}")
+            device, call = _timed({
+                "ms": lambda s: gp.gather_pool_bwd(grad, s, None, rows, mode="drop"),
+                "plain_ms": lambda s: gp.gather_pool_bwd_plain(grad, s, None, rows, mode="drop"),
+                "library_ms": lambda s: torch.zeros(rows, dim, device="cuda").index_add_(
+                    0, valid_ids[id(s)], valid_g[id(s)]),
+            }, sets, iters)
+            nbytes = rows * dim * 4 + valid * dim * 4 + n * 4
+            k1b_cases.append({
+                "name": f"mesh shard scatter ({rows:,} × {dim} float32), N=mp·C={n:,}, drop "
+                        "(phase 46)", "rows": rows, "dim": dim, "dtype": "float32", "n": n,
+                "ids": "mesh buckets", "valid_ids": valid, "max_abs_err": err, "ok": ok,
+                "tolerance": tol, "most_adds_per_row": adds, "iters": iters, **device,
+                "library": "index_add_", "bytes": nbytes, "bound_by": "bytes",
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S, valid * dim / F32_FLOPS) * 1e3,
+                "call_ms": call, "phase": "46"})
+        del table, padded
+    # the global per-unique merge of the row rules (phase 47): this rank's
+    # positions' 128-lane gradients summed into the global unique rows
+    sets = [(gm.cuda(), ids.cuda(), int(u), ids.reshape(-1).long().cuda())
+            for gm, ids, u in kept["merge_47"]]
+    gm, ids, u, _ = sets[0]
+    n, dim = gm.shape
+    err, ok, tol, adds = k1b_check(gp, gm, ids, None, u, torch.float32, "clip")
+    if not ok:
+        raise AssertionError(f"K1b's global merge: {err}")
+    device, call = _timed({
+        "ms": lambda s: gp.gather_pool_bwd(s[0], s[1], None, s[2]),
+        "plain_ms": lambda s: gp.gather_pool_bwd_plain(s[0], s[1], None, s[2]),
+        "library_ms": lambda s: torch.zeros(s[2], dim, device="cuda").index_add_(
+            0, s[3], s[0]),
+    }, sets, iters)
+    rows = sum(s[2] for s in sets) / len(sets)
+    nbytes = rows * dim * 4 + n * dim * 4 + n * 4
+    k1b_cases.append({
+        "name": f"global per-unique merge (U≈{rows:,.0f} × {dim} float32), N={n:,} "
+                "(phase 47)", "rows": int(rows), "dim": dim, "dtype": "float32", "n": n,
+        "ids": "global slots", "max_abs_err": err, "ok": ok, "tolerance": tol,
+        "most_adds_per_row": adds, "iters": iters, **device, "library": "index_add_",
+        "bytes": nbytes, "bound_by": "bytes",
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, n * dim / F32_FLOPS) * 1e3,
+        "call_ms": call, "phase": "47"})
+    return k1_cases, k1b_cases
+
+
+def mesh_phases(gp, work: str, seed: int, card: str, clock: PhaseClock) -> tuple:
+    """Phases 46-48: the mesh trainer's runs and their checks, then K1 and
+    K1b at the mesh's shapes.  Each case's ``launches`` are the ranks' main
+    path's at its shape (K1: the shard's (rows, D, dtype) at N = mp·C; K1b:
+    the shard's scatter, or the merges at their N).  Returns (K1 cases, K1b
+    cases, K1 launches, K1b launches)."""
+    result = mesh_phase(work, seed, card)
+    clock.lap("46-47 mesh trainer through the launcher")
+    ranks = [torch.load(os.path.join(work, "mesh", f"rank{r}.pt"), weights_only=False)
+             for r in range(MESH_DP * MESH_MP)]
+    k1_cases, k1b_cases = time_mesh_kernels(gp, os.path.join(work, "mesh"), seed)
+    for case in k1_cases:
+        case["launches"] = sum(v for r in ranks for k in ("46", "47")
+                               for *key, v in r[k]["k1_by_shape"]
+                               if (key[0], key[1], key[2], key[4]) == (
+                                   case["rows"], case["dim"], case["dtype"], 1))
+    k1b_cases[0]["launches"] = sum(v for r in ranks for *key, v in r["46"]["k1b_by_shape"]
+                                   if key[0] == k1b_cases[0]["rows"])
+    k1b_cases[1]["launches"] = sum(v for r in ranks for *key, v in r["47"]["k1b_by_shape"]
+                                   if key[1] == 128 and key[3] == k1b_cases[1]["n"])
+    k1 = sum(r[k]["k1"] for r in ranks for k in ("46", "47"))
+    k1b = sum(r[k]["k1b"] for r in ranks for k in ("46", "47"))
+    if (not all(c["launches"] > 0 for c in k1_cases + k1b_cases)
+            or sum(c["launches"] for c in k1_cases) != k1
+            or sum(c["launches"] for c in k1b_cases) != k1b):
+        raise AssertionError(f"the mesh runs launched K1 {k1}, K1b {k1b} times: "
+                             f"{[(c['name'], c['launches']) for c in k1_cases + k1b_cases]}")
+    emit({"mesh": {k: v for k, v in result.items() if k not in ("46", "47")}, "card": card})
+    clock.lap("48 K1/K1b at the mesh's shapes")
+    return k1_cases, k1b_cases, k1, k1b
+
+
+def mesh_only(gp, seed: int, card: str) -> None:
+    """``--only 46-48``: phases 46-48, one JSON line a K1 and a K1b shape,
+    and the phases' seconds."""
+    clock = PhaseClock()
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        k1_cases, k1b_cases, k1, k1b = mesh_phases(gp, work, seed, card, clock)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    floor_ms = time_launch_floor(gp)
+    set_share(k1_cases, floor_ms)
+    set_share(k1b_cases, floor_ms)
+    for row in k1_cases:
+        emit({"k1": row, "card": card})
+    for row in k1b_cases:
+        emit({"k1b": row, "card": card})
+    emit({"mesh_only": {"k1_launches": k1, "k1b_launches": k1b, "launch_floor_ms": floor_ms},
+          "card": card})
+    emit(clock.line(card))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("k1", "k1b", "29-32", "33-36", "37-41", "42-45"),
+    parser.add_argument("--only", choices=("k1", "k1b", "29-32", "33-36", "37-41", "42-45",
+                                           "46-48"),
                         help="k1 (k1b): phases 1-2, K1's (K1b's) checks of phase 3, then "
                              "that kernel checked and timed at every shape; 29-32 (33-36, "
-                             "37-41, 42-45): phases 1-2 and 29-32 (33-36, 37-41, 42-45) "
-                             "(default: every phase)")
-    # phase 45's launched rank (tools.launch sets its group up): not for users
+                             "37-41, 42-45, 46-48): phases 1-2 and 29-32 (33-36, 37-41, "
+                             "42-45, 46-48) (default: every phase)")
+    # phase 45's and phases 46-47's launched ranks (tools.launch sets their
+    # group up): not for users
     parser.add_argument("--engine-rank", metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-rank", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--against", action="append", default=[], metavar="SOURCE.cu",
                         help="with --only: another source of that kernel with the same C "
                              "interface, built and timed in turns with the current one")
@@ -6852,6 +7460,8 @@ def main(argv=None) -> int:
         return 1
     if args.engine_rank:
         return engine_rank(args.engine_rank, args.seed)
+    if args.mesh_rank:
+        return mesh_rank(args.mesh_rank, args.seed)
     sys.path.insert(0, ROOT)
     from paddlerec_tpu_torch.core.config import load_config
     from paddlerec_tpu_torch.data.schema import schema_from_config
@@ -6881,8 +7491,10 @@ def main(argv=None) -> int:
             online_only(gp, args.seed, card)
         elif args.only == "37-41":
             host_only(gp, args.seed, card)
-        else:
+        elif args.only == "42-45":
             api_only(gp, args.seed, card)
+        else:
+            mesh_only(gp, args.seed, card)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -7089,6 +7701,9 @@ def main(argv=None) -> int:
         # phases 42-45: RankModel, feature importance, TIPC, the engine
         api_cases, api_bwd_cases, api_k1, api_k1b, engine, api_deepfm_k1 = (
             api_parallel_phases(gp, work, args.seed, card, clock))
+        # phases 46-48: the trainer on a 2x2 mesh of ranks, their shapes
+        mesh_cases, mesh_bwd_cases, mesh_k1, mesh_k1b = mesh_phases(
+            gp, work, args.seed, card, clock)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for case, batch in zip(cases, BATCHES):
@@ -7204,11 +7819,13 @@ def main(argv=None) -> int:
                                 if k[1:] == key[1:] and k not in dense))
     host_bwd_cases[0]["launches"] = host_compact
     compact_cases[-1]["launches"] -= host_compact
-    # the engine's rank ran in a process of its own (phase 45), which counted
-    # its launches: its rows join after the attribution by this process's keys
+    # the engine's rank ran in a process of its own (phase 45), and the mesh's
+    # ranks in theirs (phases 46-47), which counted their launches: their rows
+    # join after the attribution by this process's keys
     bwd_all.append(engine["k1b"])
-    k1_launches += engine["k1_launches"]
-    k1b_launches += engine["k1b_launches"]
+    bwd_all.extend(mesh_bwd_cases)
+    k1_launches += engine["k1_launches"] + mesh_k1
+    k1b_launches += engine["k1b_launches"] + mesh_k1b
     for case in bwd_all:
         # card time lost to the floor a run: launches × (ms − max(bound, floor))
         case["lost_ms"] = case["launches"] * max(
@@ -7234,7 +7851,7 @@ def main(argv=None) -> int:
          max(main_err, sparse["lookup"]["k1_err"]),
          cases + zoo_cases + big_cases + seq_cases + rest_cases + mt_cases + match_cases
          + graph_cases + slice_cases + online_cases + host_cases + api_cases
-         + [engine["k1"]],
+         + [engine["k1"]] + mesh_cases,
          cases[-1]),
         # the JAX package has no kernel for the gradient: K1b takes the
         # place of the XLA scatter-add of _packed_lookup_bwd

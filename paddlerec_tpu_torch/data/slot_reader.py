@@ -1,8 +1,8 @@
 """Host-side reader for slot:feasign text data.
 
 A copy of the framework-free part of ``paddlerec_tpu/data/slot_reader.py``
-(``list_data_files``, ``parse_slot_lines``, ``SlotDataset`` with its
-``pipe_command`` stage, ``PrefetchIterator``): fixed-shape
+(``list_data_files``, ``shard_files``, ``parse_slot_lines``, ``SlotDataset``
+with its ``pipe_command`` stage, ``PrefetchIterator``): fixed-shape
 numpy batches, the tail batch padded and marked by a ``mask``, and
 ``(B, S, 1)`` ids squeezed to ``(B, S)``.  The caller moves batches to its
 device (``core.device.to_tensors``).
@@ -38,6 +38,22 @@ def list_data_files(data_dir: str, pattern: str = "*") -> List[str]:
     if not files:
         raise FileNotFoundError(f"no data files found under {data_dir!r}")
     return files
+
+
+def shard_files(files: Sequence[str], worker_id: int, num_workers: int) -> List[str]:
+    """Deterministic per-worker file shard (round-robin).
+
+    Same coverage contract as the reference's block sharding
+    (criteo_reader.py:30-43): every file belongs to exactly one worker.
+    """
+    if num_workers <= 1:
+        return list(files)
+    if len(files) < num_workers:
+        raise ValueError(
+            f"number of data files ({len(files)}) is less than the number "
+            f"of workers ({num_workers})"
+        )
+    return list(files[worker_id::num_workers])
 
 
 def parse_slot_lines(

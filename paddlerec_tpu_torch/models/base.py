@@ -20,8 +20,12 @@ generator=...)``; evaluation and serving pass none, the deterministic path.
 ``touched_tables`` maps a host batch onto the rows each table touches, for
 the online trainer's deltas and feature lifecycle (``train/touched.py``).
 
-Not ported yet: the multi-process dedup (``global_dedup_arrays``) and the
-row-sharded sparse rules; nothing the single-device trainer reaches.
+On a ``(dp, mp)`` mesh (``train/trainer.py``): ``global_dedup_arrays`` dedups
+the rows of the global batch (every dp row's) on every rank alike, the
+row-wise step routes the tables row-sharded over mp (``mp_tables``) to the
+sharded rules of ``ops/sparse_update.py``, ``clip_grads`` adds the
+per-position gradients' squares over the dp group, and the CTR models' aux
+carries the step's dropped-id count of the engine (``embedding_overflow``).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
@@ -38,10 +43,30 @@ from paddlerec_tpu_torch.core.config import Config
 from paddlerec_tpu_torch.ops import sparse_update as su
 from paddlerec_tpu_torch.ops.embedding import SlotEmbedding
 from paddlerec_tpu_torch.ops.packed_embedding import sub_width
+from paddlerec_tpu_torch.parallel import context
 from paddlerec_tpu_torch.train.optimizers import Optimizer
 
 Batch = Dict[str, torch.Tensor]
 Aux = Dict[str, torch.Tensor]
+
+
+def all_gather_rows(a: np.ndarray, group, device: torch.device) -> np.ndarray:
+    """A host array's rows from every rank of ``group``, concatenated in the
+    group's rank order (the array itself without a group).  The lengths may
+    differ; the tensors cross on ``device`` (NCCL wants the card)."""
+    if group is None:
+        return a
+    n = dist.get_world_size(group)
+    size = torch.tensor([a.shape[0]], dtype=torch.int64, device=device)
+    sizes = [torch.empty_like(size) for _ in range(n)]
+    dist.all_gather(sizes, size, group=group)
+    sizes = [int(x) for x in sizes]
+    t = torch.zeros((max(sizes),) + a.shape[1:], dtype=torch.from_numpy(a[:0]).dtype,
+                    device=device)
+    t[:a.shape[0]] = torch.from_numpy(a).to(device)
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t, group=group)
+    return np.concatenate([p[:k].cpu().numpy() for p, k in zip(parts, sizes)])
 
 
 def binary_logloss(logits: torch.Tensor, labels: torch.Tensor,
@@ -206,33 +231,72 @@ class ModelDef:
             self.sparse_update_ids(batch), vocab, self._default_pack())
         return dict(batch, sparse_uniq=uniq, sparse_slot=slot)
 
+    def global_dedup_arrays(self, batch: Dict[str, np.ndarray], mesh,
+                            device: torch.device):
+        """The dp analog of ``augment_batch_host``: dedup the GLOBAL batch's
+        physical rows, so that the row update stays exact when each dp row
+        holds only its part.  The int32 physical row ids (one per lookup
+        position; vectors never move) are gathered over ``mesh``'s dp group
+        (the mp ranks of a row hold the same positions: a gather over the
+        world would count each of them mp times) and every rank runs the
+        same ``np.unique``, so (uniq, slot) are bitwise equal on all of them.
+        ``slot`` indexes the positions in dp-major order.  A collective:
+        every rank calls it, in step (the trainer's main thread, after the
+        unanimous has-next)."""
+        if not self.sparse_update_enabled():
+            return None
+        vocab = int(self.config.hyper("sparse_feature_number", 1000001))
+        phys = ((np.asarray(self.sparse_update_ids(batch)).reshape(-1) % vocab)
+                // self._default_pack()).astype(np.int32)
+        phys_global = all_gather_rows(phys, mesh.dp_group, device)
+        uniq_vals, slot = np.unique(phys_global, return_inverse=True)
+        uniq = np.full(phys_global.size, su.SENTINEL, np.int32)
+        uniq[: len(uniq_vals)] = uniq_vals
+        return uniq, slot.reshape(-1).astype(np.int32)
+
     @torch.no_grad()
     def clip_grads(self, params: Dict[str, torch.Tensor],
-                   delta_grads: Dict[str, torch.Tensor]) -> None:
+                   delta_grads: Dict[str, torch.Tensor], mesh=None) -> None:
         """One global-norm clip over the dense leaves' ``.grad`` AND the
         per-position gradients of the tapped tables (not their per-row
         sums), in place — used by the trainer for sparse runs, where the
-        optimizer's own clip would only see the dense leaves."""
+        optimizer's own clip would only see the dense leaves.  On a mesh the
+        dense gradients are the dp sums already, and each dp row's
+        per-position squares are added over the dp group."""
         clip = self.config.hyper("clip_by_norm")
         if not clip:
             return
         grads = [p.grad for p in params.values() if p.grad is not None]
-        grads += list(delta_grads.values())
-        gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+        deltas = list(delta_grads.values())
+        sq = sum(torch.sum(g.float() ** 2) for g in grads)
+        if deltas:
+            dsq = sum(torch.sum(g.float() ** 2) for g in deltas)
+            if mesh is not None and mesh.dp_group is not None:
+                dist.all_reduce(dsq, group=mesh.dp_group)
+            sq = sq + dsq
+        gnorm = torch.sqrt(sq)
         scale = torch.clamp(float(clip) / torch.clamp(gnorm, min=1e-12), max=1.0)
-        torch._foreach_mul_(grads, scale)
+        torch._foreach_mul_(grads + deltas, scale)
 
     def apply_sparse_updates(self, module: nn.Module, extra: Dict[str, Any],
                              delta_grads: Dict[str, torch.Tensor],
                              batch: Batch,
-                             rng: Optional[torch.Generator] = None) -> None:
+                             rng: Optional[torch.Generator] = None,
+                             mp_tables: frozenset = frozenset()) -> None:
         """Consume the captured per-position gradients → row-wise step on
         the tapped tables, in place.  Runs after the dense optimizer, which
         never sees those tables.  With ``sparse_uniq`` in the batch and the
         default pack the compact rules run; otherwise the sort-free rules
         with their dense scratch.  ``sparse_num_uniq``, where the feed put
         it into the batch (a host value), spares the compact rules their
-        read of the count from the device."""
+        read of the count from the device.
+
+        ``mp_tables``: the "/"-joined paths of the tables row-sharded over
+        the context mesh's mp axis (the trainer reads them off the live
+        modules); those, and every table under a dp-sharded batch, take
+        the sharded rules over the global batch's unique rows
+        (``global_dedup_arrays`` at dp > 1; without ``sparse_uniq`` the rows
+        are gathered and deduped on the device)."""
         adagrad = self._sparse_update_rule() == "adagrad"
         if not bool(self.config.hyper("sparse_update_stochastic_round", False)):
             rng = None  # round-to-nearest (deterministic) by default
@@ -245,17 +309,49 @@ class ModelDef:
             if dgrad is None:
                 continue  # the table was not looked up in this step
             table = emb.embedding
-            pack = su.infer_pack(vocab, table.shape[0])
             hashed = (ids % vocab).reshape(-1)
+            num_uniq = batch.get("sparse_num_uniq")
+            num_uniq = None if num_uniq is None else int(num_uniq)
+            mesh = context.get_mesh()
+            sharded = key.rpartition("/")[0] + "/embedding" in mp_tables
+            if sharded or (mesh is not None and mesh.dp > 1):
+                # over the global batch's unique rows: a table row-sharded
+                # over mp, or any table under a dp-sharded batch
+                mp = mesh.mp if sharded else 1
+                pack = su.infer_pack(vocab, table.shape[0] * mp, mp)
+                # the engine's delta is 128 lanes a position; the local tap w
+                sub = None if sharded else (hashed % pack).to(torch.int32)
+                if "sparse_uniq" in batch and pack == default_pack:
+                    uniq, slot = batch["sparse_uniq"], batch["sparse_slot"]
+                else:
+                    # device dedup of the global batch's rows (the host dedup
+                    # of the feed is the fast path)
+                    phys = torch.div(hashed, pack, rounding_mode="floor").to(torch.int32)
+                    if mesh.dp > 1:
+                        phys = torch.from_numpy(all_gather_rows(
+                            phys.cpu().numpy(), mesh.dp_group, phys.device)).to(phys.device)
+                    uniq, slot = su.dedup_rows(phys, su.SENTINEL)
+                    num_uniq = None
+                n = hashed.shape[0]
+                if slot.shape[0] != mesh.dp * n:
+                    raise ValueError(
+                        f"sparse_slot has {slot.shape[0]} positions; the global "
+                        f"batch of a {mesh.dp}x{mesh.mp} mesh has {mesh.dp * n}")
+                apply_fn = (su.apply_sparse_adagrad_sharded if adagrad
+                            else su.apply_sparse_adam_sharded)
+                apply_fn(mesh, table, extra[key], dgrad, uniq,
+                         slot[mesh.dp_index * n:(mesh.dp_index + 1) * n], lr,
+                         rng=rng, sub=sub, num_uniq=num_uniq, sharded=sharded)
+                continue
+            pack = su.infer_pack(vocab, table.shape[0])
             sub = (hashed % pack).to(torch.int32)
             if "sparse_uniq" in batch and pack == default_pack:
                 # host-deduped fast path: O(batch) scratch
                 apply_fn = (su.apply_sparse_adagrad_compact if adagrad
                             else su.apply_sparse_adam_compact)
-                num_uniq = batch.get("sparse_num_uniq")
                 apply_fn(table, extra[key], dgrad, batch["sparse_uniq"],
                          batch["sparse_slot"], lr, rng=rng, sub=sub,
-                         num_uniq=None if num_uniq is None else int(num_uniq))
+                         num_uniq=num_uniq)
             else:
                 apply_fn = (su.apply_sparse_adagrad if adagrad
                             else su.apply_sparse_update)
@@ -380,7 +476,14 @@ class LogitModelDef(ModelDef):
     def _logits_and_aux(self, module: nn.Module,
                         batch: Batch) -> Tuple[torch.Tensor, Aux]:
         logits = module(*self.model_inputs(batch)).reshape(-1)
-        return logits, self._aux(logits, batch)
+        aux = self._aux(logits, batch)
+        overflow = [o for m in module.modules() if isinstance(m, SlotEmbedding)
+                    and (o := m.take_overflow()) is not None]
+        if overflow:
+            # the row-sharded lookups' dropped ids, this rank's (the JAX
+            # module sows them; the trainer sums them over the world)
+            aux["embedding_overflow"] = sum(o.sum() for o in overflow).to(torch.int32)
+        return logits, aux
 
     def train_forward(self, module: nn.Module,
                       batch: Batch) -> Tuple[torch.Tensor, Aux]:

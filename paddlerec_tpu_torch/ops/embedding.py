@@ -6,8 +6,25 @@ The local packed path of ``paddlerec_tpu/ops/embedding.py`` ``SlotEmbedding``:
 one ``(R, 128)`` packed table (parameter ``embedding``) shared by every
 slot, ids hashed ``ids % vocab``, one id per slot or a pooled multi-hot
 slot.  Every lookup is one launch of kernel K1 on the table's logical view,
-and its gradient one launch of K1b.  The row-sharded (all_to_all) path is
-not ported yet.
+and its gradient one launch of K1b.
+
+**Row-sharded path** (``_use_distributed``, the JAX module's decision):
+``packed`` and the mesh of the parallel context (``parallel/context.py``,
+which the trainer sets) has ``mp > 1``, or ``distributed=True`` and a mesh
+is set; below ``sharding.MIN_ROWS_TO_SHARD`` packed rows the table stays
+local, with the reference's one-time warning where ``distributed=True``
+asked for it.  The decision is taken when the module is built.  The
+parameter ``embedding`` is then this rank's ``(rows_local, 128)`` shard of
+the engine's padded table (``parallel/embedding.py`` ``ShardedEmbedding``),
+filled with the values the one-device table has at those rows (the same
+generator, drawn through the whole table), and a lookup is the engine's
+exchange: K1 on the shard, K1b into it in the backward.  Multi-hot ids go
+flat through the engine and are pooled after it.  In external-update mode
+the lookup is ``lookup_external`` with a zero ``(B·S·L, 128)`` float32 delta,
+the JAX package's ``embedding_delta`` cut to the batch, whose gradient
+``take_delta_grad`` hands out (128 lanes a position).  Each lookup's
+dropped-id count, an int32 ``(1, 1)`` tensor on the device, waits for the
+model (``take_overflow``), where the JAX module ``sow``s it.
 
 **External (sparse) update mode** (``external_update=True``, the
 reference's ``_external_lookup``).  The table takes no gradient: it is read
@@ -33,6 +50,7 @@ steps it, also in a sparse run.
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import Optional, Tuple, Union
 
@@ -41,8 +59,15 @@ from torch import nn
 
 from paddlerec_tpu_torch.ops.gather_pool import gather_pool
 from paddlerec_tpu_torch.ops.packed_embedding import (
-    fill_normal, init_packed_table, logical_view, packed_lookup,
+    fill_normal, init_packed_table, logical_view, packed_lookup, sub_width,
 )
+from paddlerec_tpu_torch.parallel import context, sharding
+
+logger = logging.getLogger(__name__)
+
+# (vocab, dim) pairs whose explicit distributed=True was downgraded by the
+# MIN_ROWS_TO_SHARD floor: warn once per geometry
+_DOWNGRADE_WARNED: set = set()
 
 
 class SlotEmbedding(nn.Module):
@@ -63,6 +88,9 @@ class SlotEmbedding(nn.Module):
       external_update: sparse-update mode, see the module docstring;
         ``delta_capacity`` bounds the lookup positions per batch and must be
         set explicitly (``CTRModelDef.sparse_embed_kwargs`` does).
+      distributed: None = auto (row-shard over the context mesh's mp axis
+        when it is above 1), True = shard whenever a mesh is set, False =
+        never; see the module docstring.
     """
 
     def __init__(self, vocab_size: int, embedding_dim: int,
@@ -70,7 +98,7 @@ class SlotEmbedding(nn.Module):
                  dtype: torch.dtype = torch.float32, init_stddev: float = 1e-2,
                  device=None, generator: Optional[torch.Generator] = None,
                  external_update: bool = False, delta_capacity: int = 0,
-                 packed: bool = True):
+                 packed: bool = True, distributed: Optional[bool] = None):
         super().__init__()
         if combiner not in ("sum", "mean"):
             raise ValueError(f"combiner must be 'sum' or 'mean', not {combiner!r}")
@@ -81,7 +109,17 @@ class SlotEmbedding(nn.Module):
         self.packed = bool(packed)
         self.external_update = bool(external_update) and self.packed
         self.delta_capacity = int(delta_capacity)
-        if not self.packed:
+        self.distributed = distributed
+        self.engine = self._engine(dtype, device)
+        if self.engine is not None:
+            eng = self.engine
+            shard = torch.empty((eng.rows_local, 128), dtype=dtype, device=device)
+            # the one-device table's rows of this shard (padding rows zero)
+            fill_normal(shard, init_stddev, generator,
+                        rows=-(-vocab_size // eng.pack),
+                        first=eng.mesh.mp_index * eng.rows_local)
+            self.embedding = nn.Parameter(shard, requires_grad=not self.external_update)
+        elif not self.packed:
             self.embedding = nn.Parameter(fill_normal(
                 torch.empty((vocab_size, embedding_dim), dtype=dtype,
                             device=device), init_stddev, generator))
@@ -94,6 +132,82 @@ class SlotEmbedding(nn.Module):
                 generator=generator, device=device,
             ), requires_grad=not self.external_update)
         self._delta_tap: Optional[torch.Tensor] = None
+        self._overflow: Optional[torch.Tensor] = None
+
+    def _use_distributed(self) -> bool:
+        if self.distributed is not None:
+            want = self.distributed and context.get_mesh() is not None
+        else:
+            want = self.packed and context.model_parallel_size() > 1
+        if not want:
+            return False
+        # tables too small for param_spec to row-shard keep the local packed
+        # lookup: the engine pads rows to an mp multiple, and below the
+        # threshold the replicated table is both correct and faster
+        rows = -(-self.vocab_size // (128 // sub_width(self.embedding_dim)))
+        if rows < sharding.MIN_ROWS_TO_SHARD:
+            if self.distributed is True:
+                key = (self.vocab_size, self.embedding_dim)
+                if key not in _DOWNGRADE_WARNED:
+                    _DOWNGRADE_WARNED.add(key)
+                    logger.warning(
+                        "SlotEmbedding(distributed=True, vocab=%d, dim=%d):"
+                        " %d packed rows < MIN_ROWS_TO_SHARD=%d — falling"
+                        " back to the local replicated table (different"
+                        " param geometry than the sharded engine).",
+                        self.vocab_size, self.embedding_dim, rows,
+                        sharding.MIN_ROWS_TO_SHARD,
+                    )
+            return False
+        return True
+
+    def _engine(self, dtype, device):
+        """The context mesh's engine for this table, or None (local path)."""
+        if not self._use_distributed():
+            return None
+        from paddlerec_tpu_torch.parallel.embedding import get_engine
+
+        return get_engine(context.get_mesh(), self.vocab_size, self.embedding_dim,
+                          dtype=dtype, device=torch.device(device or "cpu"))
+
+    def take_overflow(self) -> Optional[torch.Tensor]:
+        """This rank's dropped-id count of the last row-sharded lookup, an
+        int32 (1, 1) tensor on the device (None on the local path, or when
+        taken already)."""
+        out, self._overflow = self._overflow, None
+        return out
+
+    def _engine_lookup(self, ids: torch.Tensor) -> torch.Tensor:
+        """The row-sharded lookup: hashed int32 ids (B, ...) → ids.shape +
+        (E,), flat through the engine."""
+        eng = self.engine
+        flat = ids.reshape(ids.shape[0], -1)
+        if self.external_update:
+            n = flat.numel()
+            self._check_delta_capacity(n, self.delta_capacity)
+            # the JAX package's embedding_delta, cut to this batch's positions
+            delta = torch.zeros((n, 128), dtype=torch.float32, device=ids.device,
+                                requires_grad=torch.is_grad_enabled())
+            vecs, self._overflow = eng.lookup_external(self.embedding, delta, flat)
+            if delta.requires_grad:
+                self._delta_tap = delta
+        else:
+            vecs, self._overflow = eng.lookup_with_overflow(self.embedding, flat)
+        return vecs.reshape(ids.shape + (self.embedding_dim,))
+
+    def _pool(self, vecs: torch.Tensor, ids: torch.Tensor,
+              mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """(B, S, L, E) vectors of multi-hot ids → pooled (B, S, E)."""
+        if mask is not None:
+            vecs = vecs * mask[..., None]
+        pooled = vecs.sum(dim=2)
+        if self.combiner == "mean":
+            denom = (mask.sum(dim=2, keepdim=True) if mask is not None
+                     else torch.full(pooled.shape[:-1] + (1,),
+                                     float(ids.shape[2]), dtype=pooled.dtype,
+                                     device=ids.device))
+            pooled = pooled / torch.clamp(denom, min=1.0)
+        return pooled
 
     @staticmethod
     def _check_delta_capacity(n: int, cap: int) -> None:
@@ -123,8 +237,9 @@ class SlotEmbedding(nn.Module):
 
     def take_delta_grad(self) -> Optional[torch.Tensor]:
         """The (N, w) float32 gradient of the last recorded external
-        lookup's vectors, in the flat order of its ids; ``None`` if no
-        backward pass reached it.  The capture is dropped."""
+        lookup's vectors, in the flat order of its ids (on the row-sharded
+        path the (N, 128) gradient of its delta); ``None`` if no backward
+        pass reached it.  The capture is dropped."""
         tap, self._delta_tap = self._delta_tap, None
         return None if tap is None else tap.grad
 
@@ -134,26 +249,18 @@ class SlotEmbedding(nn.Module):
             ids = ids % self.vocab_size
         ids = ids.to(torch.int32)
         e = self.embedding_dim
-        if self.external_update:
-            if not self.hash_ids:
-                raise ValueError(
-                    "external_update requires hash_ids=True: the optimizer-"
-                    "side row mapping mirrors the ids % vocab hash"
-                )
-            vecs = self._external_lookup(ids)
+        if self.external_update and not self.hash_ids:
+            raise ValueError(
+                "external_update requires hash_ids=True: the optimizer-"
+                "side row mapping mirrors the ids % vocab hash"
+            )
+        if self.engine is not None or self.external_update:
+            vecs = (self._engine_lookup(ids) if self.engine is not None
+                    else self._external_lookup(ids))
             if ids.dim() == 2:
                 return vecs
             # one gradient row per position: pool outside the lookup
-            if mask is not None:
-                vecs = vecs * mask[..., None]
-            pooled = vecs.sum(dim=2)
-            if self.combiner == "mean":
-                denom = (mask.sum(dim=2, keepdim=True) if mask is not None
-                         else torch.full(pooled.shape[:-1] + (1,),
-                                         float(ids.shape[2]), dtype=pooled.dtype,
-                                         device=ids.device))
-                pooled = pooled / torch.clamp(denom, min=1.0)
-            return pooled
+            return self._pool(vecs, ids, mask)
         view = (logical_view(self.embedding, e) if self.packed
                 else self.embedding)
         if ids.dim() == 2:  # (B, S) → (B, S, E)

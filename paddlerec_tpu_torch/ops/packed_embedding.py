@@ -61,16 +61,28 @@ def packed_lookup(table: torch.Tensor, ids: torch.Tensor,
 
 
 def fill_normal(table: torch.Tensor, stddev: float,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[int] = None, first: int = 0) -> torch.Tensor:
     """normal(0, stddev) into the 2-D ``table`` in place, drawn in float32
     blocks of rows on the table's device (``generator`` must live there) and
-    cast block by block, so a table of gigabytes never has a float32 copy."""
-    rows, width = table.shape
+    cast block by block, so a table of gigabytes never has a float32 copy.
+
+    With ``rows``: ``table`` holds rows ``[first, first + len(table))`` of a
+    table of ``rows`` rows drawn so (rows past ``rows`` are zero).  The
+    generator draws every block of the whole table, in order, and the rows
+    outside are dropped: a mesh rank's shard gets the values the one-device
+    table has there, and the generator ends where that table's leaves it."""
+    total, width = table.shape
+    rows = total if rows is None else rows
+    if rows != total or first:
+        table.zero_()
     step = max(_INIT_BLOCK_BYTES // (4 * max(width, 1)), 1)
     for start in range(0, rows, step):
         n = min(step, rows - start)
         block = torch.randn((n, width), generator=generator, device=table.device)
-        table[start:start + n] = block.mul_(stddev)
+        lo, hi = max(start, first), min(start + n, first + total)
+        if lo < hi:
+            table[lo - first:hi - first] = block[lo - start:hi - start].mul_(stddev)
     return table
 
 

@@ -1,7 +1,6 @@
 """Sparse row-wise optimizer for packed embedding tables.
 
-Counterpart of ``paddlerec_tpu/ops/sparse_update.py`` (single device; the
-``*_sharded`` rules wait for the multi-GPU slice).  With a dense optimizer
+Counterpart of ``paddlerec_tpu/ops/sparse_update.py``.  With a dense optimizer
 every step reads and writes the FULL table and its moments; here a step
 touches only the physical rows a batch used, so the only state of the
 table's size is the table and its row state.
@@ -41,14 +40,31 @@ What differs:
   functions return the same objects.  The index and elementwise steps are
   plain tensor operations here as they are plain XLA operations there.
 * ``rng`` is a ``torch.Generator`` on the table's device, not a key.
+
+**On a mesh** (``apply_sparse_adagrad_sharded`` /
+``apply_sparse_adam_sharded``, the JAX package's ``*_sharded`` rules under
+``shard_map``, and its compact rules over a dp-sharded batch).  The table and its row state are this rank's ``(rows_local,
+·)`` shard of a table row-sharded over the mesh's mp axis
+(``parallel/embedding.py``); ``uniq`` holds the unique physical rows of the
+global batch (every dp row's, ``ModelDef.global_dedup_arrays``) and ``slot``
+this rank's positions in it.  Each rank sums its positions per unique row
+(one K1b launch into the global ``(U, 128)`` buffer) and the sums are added
+over the dp group, so every rank of a shard's column holds the same bits
+and its replicas stay equal.  The stochastic-rounding noise is drawn over
+the whole ``(U, 128)`` from the step's generator, as at one device, and
+each rank applies the rule to the rows it owns (``_owned_rows``: a
+contiguous range of the ascending ``uniq``) and writes only those.  A table
+that is whole on every rank (dp > 1 at mp = 1, or too small to shard) takes
+the same rules with every row its own (``sharded=False``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from paddlerec_tpu_torch.ops.gather_pool import gather_pool_bwd
 
@@ -125,12 +141,13 @@ def stochastic_round_bf16(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
 
 
 def _cast_to_table(t_n: torch.Tensor, table: torch.Tensor,
-                   rng: Optional[torch.Generator]) -> torch.Tensor:
+                   rng: Union[torch.Generator, torch.Tensor, None]) -> torch.Tensor:
     """f32 update results → table dtype; stochastic rounding for bf16 when
-    a generator is given (hyper sparse_update_stochastic_round)."""
+    a generator (or the noise it drew, a tensor of ``t_n``'s shape) is
+    given (hyper sparse_update_stochastic_round)."""
     if table.dtype == torch.bfloat16 and rng is not None:
-        noise = torch.randint(0, 1 << 16, t_n.shape, generator=rng,
-                              device=t_n.device, dtype=torch.int32)
+        noise = rng if isinstance(rng, torch.Tensor) else torch.randint(
+            0, 1 << 16, t_n.shape, generator=rng, device=t_n.device, dtype=torch.int32)
         return stochastic_round_bf16(t_n, noise)
     return t_n.to(table.dtype)
 
@@ -268,6 +285,71 @@ def apply_sparse_adam_compact(
     rows = _real_uniq(uniq, num_uniq)
     g_uniq = _grad_sum(delta_grad, sub, slot, rows.shape[0])
     _adam_rows(table, state, rows, g_uniq, lr, b1, b2, eps, rng)
+    return table, state
+
+
+def _owned_rows(rows: torch.Tensor, mp_index: int, rows_local: int):
+    """The range ``[a, b)`` of the ascending global ``rows`` that shard
+    ``mp_index`` owns (rows ``[lo, lo + rows_local)``), and those rows as
+    local indices of the shard.  Reads the two bounds from the device."""
+    lo = mp_index * rows_local
+    edges = torch.tensor([lo, lo + rows_local], dtype=rows.dtype, device=rows.device)
+    a, b = torch.searchsorted(rows, edges).tolist()
+    return a, b, rows[a:b] - lo
+
+
+def _sharded_setup(mesh, table, delta_grad, uniq, slot, rng, sub, num_uniq, sharded):
+    """Shared preamble of the sharded rules: the global real rows, their
+    f32 gradient sums over the whole mesh column (one K1b launch, then the
+    dp sum), the rounding noise of the whole ``(U, 128)`` where the table
+    is bfloat16, and the owned range (every row of a table that is not
+    sharded)."""
+    rows = _real_uniq(uniq, num_uniq)
+    g_uniq = _grad_sum(delta_grad, sub, slot, rows.shape[0])
+    if mesh.dp_group is not None:
+        dist.all_reduce(g_uniq, group=mesh.dp_group)
+    noise = None
+    if table.dtype == torch.bfloat16 and rng is not None:
+        noise = torch.randint(0, 1 << 16, g_uniq.shape, generator=rng,
+                              device=g_uniq.device, dtype=torch.int32)
+    a, b, local = _owned_rows(rows, mesh.mp_index if sharded else 0, table.shape[0])
+    return g_uniq[a:b], None if noise is None else noise[a:b], local
+
+
+@torch.no_grad()
+def apply_sparse_adagrad_sharded(
+        mesh, table: torch.Tensor, state: RowwiseAdagradState,
+        delta_grad: torch.Tensor, uniq: torch.Tensor, slot: torch.Tensor,
+        lr: float, eps: float = 1e-8, rng: Optional[torch.Generator] = None,
+        sub: Optional[torch.Tensor] = None, num_uniq: Optional[int] = None,
+        sharded: bool = True,
+) -> Tuple[torch.Tensor, RowwiseAdagradState]:
+    """Row-wise adagrad on this rank's shard of a table row-sharded over
+    ``mesh``'s mp axis (see the module docstring): ``uniq`` the global
+    batch's unique rows (SENTINEL-padded, ascending), ``slot`` the slots
+    of this rank's positions, ``delta_grad`` their gradients.  With
+    ``sharded=False`` the table is whole on every rank (a dp mesh, or a
+    table too small to shard) and every row is this rank's."""
+    g, noise, local = _sharded_setup(mesh, table, delta_grad, uniq, slot, rng,
+                                     sub, num_uniq, sharded)
+    _adagrad_rows(table, state, local, g, lr, eps, noise)
+    return table, state
+
+
+@torch.no_grad()
+def apply_sparse_adam_sharded(
+        mesh, table: torch.Tensor, state: RowwiseAdamState,
+        delta_grad: torch.Tensor, uniq: torch.Tensor, slot: torch.Tensor,
+        lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+        rng: Optional[torch.Generator] = None,
+        sub: Optional[torch.Tensor] = None, num_uniq: Optional[int] = None,
+        sharded: bool = True,
+) -> Tuple[torch.Tensor, RowwiseAdamState]:
+    """Row-wise lazy Adam on this rank's shard (see the adagrad variant);
+    rows whose summed grad is exactly zero take no step."""
+    g, noise, local = _sharded_setup(mesh, table, delta_grad, uniq, slot, rng,
+                                     sub, num_uniq, sharded)
+    _adam_rows(table, state, local, g, lr, b1, b2, eps, noise)
     return table, state
 
 

@@ -1,10 +1,10 @@
 """Process-wide parallel context (``paddlerec_tpu/parallel/context.py``).
 
-A trainer whose mesh has a distributed path announces it here, and layers
-with such a path pick it up without mesh handles threaded through every
-model constructor.  The port's trainer runs only the 1x1 mesh yet and
-announces nothing: the context stays empty, and layers keep their local
-implementations.
+The trainer announces its mesh here (``Trainer.__init__``, ``init_state``,
+``train``, ``evaluate``), and layers with a distributed path pick it up
+without mesh handles threaded through every model constructor:
+``SlotEmbedding`` holds a row shard and looks up through the all_to_all
+engine when the mesh's mp is above 1 (``ops/embedding.py``).
 """
 
 from __future__ import annotations

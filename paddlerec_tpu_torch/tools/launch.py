@@ -5,16 +5,22 @@ Spawns ``nproc`` copies of a command on this machine, rank ``r`` with the
 ``torch.distributed`` variables ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR`` and ``MASTER_PORT``, the backend in
 ``PADDLEREC_DIST_BACKEND`` (``nccl``, the default, or ``gloo`` for ranks on
-the CPU), and the reference's role
+the CPU or ranks that share a card), and the reference's role
 variables ``PADDLE_TRAINER_ID``, ``PADDLE_TRAINERS_NUM`` and
-``TRAINING_ROLE``.  A child joins the group with ``init_from_env()``; with
-``nccl`` rank ``r`` takes card ``LOCAL_RANK``.  The launcher returns the
-first non-zero exit code of a child, and then stops the others, which would
-wait for it in a collective.
+``TRAINING_ROLE``.  A child joins the group with ``init_from_env(device)``.
+The device is the caller's choice, apart from the backend: the card unless
+the CPU is asked for, rank ``r`` on card ``LOCAL_RANK % device_count()``.
+So gloo ranks may share one card (NCCL refuses two ranks on one GPU), and
+an entry point's ``--device`` rides in the command after ``--`` untouched.
+The launcher returns the first non-zero exit code of a child, and then
+stops the others, which would wait for it in a collective.
 
 Usage:
     python -m paddlerec_tpu_torch.tools.launch --nproc 2 --backend gloo \
         -- python my_script.py
+    python -m paddlerec_tpu_torch.tools.launch --nproc 4 --backend gloo -- \
+        python -m paddlerec_tpu_torch.tools.train -m configs/rank/deepfm/config.yaml \
+        -o runner.mesh_dp=2 runner.mesh_mp=2 [--device cpu]
 """
 
 from __future__ import annotations
@@ -86,31 +92,44 @@ def launch(nproc: int, cmd: Sequence[str], backend: str = "nccl",
     return rc
 
 
-def init_from_env(timeout_s: float = 120.0):
+def init_from_env(device=None, timeout_s: float = 120.0):
     """Join the process group the launcher set up: the backend, address,
-    rank and world size from the environment; with ``nccl`` this rank's
-    card is ``LOCAL_RANK``.  Returns the ``torch.device`` of the rank."""
+    rank and world size from the environment.  ``device`` is the caller's
+    (``None`` or ``"cuda"``: the card, ``cuda:(LOCAL_RANK % device_count)``,
+    which raises without one; ``"cpu"``: the CPU), whatever the backend.
+    Returns the ``torch.device`` of the rank."""
     import torch
     import torch.distributed as dist
 
+    from paddlerec_tpu_torch.core.device import resolve_device
+
     backend = os.environ.get(BACKEND_VAR, "nccl")
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    device = torch.device("cpu")
-    if backend == "nccl":
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
-        torch.cuda.set_device(device)
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        dev = torch.device("cuda", local % torch.cuda.device_count())
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
     dist.init_process_group(
         backend,
         init_method=f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
         rank=rank, world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
-    return device
+    return dev
+
+
+def launched() -> bool:
+    """Whether this process is a rank of a launch of more than one
+    (``WORLD_SIZE`` > 1 in the environment)."""
+    return int(os.environ.get("WORLD_SIZE", "1")) > 1
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="multi-process launcher")
     parser.add_argument("--nproc", type=int, default=1)
     parser.add_argument("--backend", default="nccl", choices=("gloo", "nccl"),
-                        help="nccl: one card a rank (default); gloo: ranks on the CPU")
+                        help="nccl: one card a rank (default); gloo: ranks on the CPU, "
+                             "or several ranks on one card")
     parser.add_argument("--port", type=int, default=0,
                         help="MASTER_PORT (default: a free port)")
     parser.add_argument("cmd", nargs=argparse.REMAINDER,

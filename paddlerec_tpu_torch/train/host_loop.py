@@ -26,8 +26,8 @@ Enable from any CTR config with one fused slot table::
       files_per_pass: 1
 
 The table's capacity is then bounded by host memory, while the device holds
-only the per-pass working set.  The port is one process on one device, so
-the JAX package's refusal of multi-process runs has nothing to refuse here.
+only the per-pass working set.  More than one process (``tools.launch``)
+raises the JAX package's ``ValueError``: the host tier is per-process state.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from paddlerec_tpu_torch.core.device import to_tensors
 from paddlerec_tpu_torch.data.wire import WireEncoder
 from paddlerec_tpu_torch.ops.packed_embedding import sub_width
 from paddlerec_tpu_torch.parallel.host_table import HostTieredTable
+from paddlerec_tpu_torch.parallel.mesh import world_size
 from paddlerec_tpu_torch.train import checkpoint as ckpt_lib
 from paddlerec_tpu_torch.train.trainer import Trainer, _count_uniq, logger
 
@@ -58,6 +59,18 @@ class HostTableTrainer:
         from paddlerec_tpu_torch.core.registry import load_model_def
 
         self.config = config
+        if world_size() > 1:
+            # each rank's tier would train on its own file shard and diverge:
+            # the table and its accumulator are per-process host state
+            raise ValueError(
+                "use_host_table does not compose with multi-process "
+                "training: the host tier (table + adagrad accumulator) "
+                "is per-process state, so each host would train a "
+                "diverging copy on its own file shard. Run host-table "
+                "mode single-process (it exists for host-RAM capacity, "
+                "not dp scale), or use sparse_update + multi-host dp for "
+                "distributed big-vocab training."
+            )
         self.vocab = int(config.hyper("sparse_feature_number", 1000001))
         self.cap_rows = int(config.runner("host_table_cache_rows", 1 << 18))
         self.files_per_pass = int(config.runner("files_per_pass", 1))

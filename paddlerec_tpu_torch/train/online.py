@@ -49,6 +49,7 @@ from paddlerec_tpu_torch.native.cube import export_table
 from paddlerec_tpu_torch.ops.embedding import take_rows
 from paddlerec_tpu_torch.ops.packed_embedding import sub_width
 from paddlerec_tpu_torch.ops.sparse_update import SENTINEL
+from paddlerec_tpu_torch.parallel.mesh import world_size
 from paddlerec_tpu_torch.train import checkpoint as ckpt_lib
 from paddlerec_tpu_torch.train.touched import batch_rows_by_table
 from paddlerec_tpu_torch.train.trainer import Trainer, logger
@@ -227,6 +228,12 @@ class OnlineTrainer(Trainer):
             raise NotImplementedError(
                 "runner.use_host_table is not ported to the online loop of "
                 "paddlerec_tpu_torch (use tools/train.py's HostTableTrainer)")
+        if world_size() > 1:
+            # the multi-host halves of the day/pass loop (each host's share of
+            # a pass, the rank-0 publishing) are not ported yet
+            raise NotImplementedError(
+                "OnlineTrainer across processes is not ported to "
+                "paddlerec_tpu_torch yet")
         super().__init__(config, model_def=model_def, device=device)
         raw_days = config.runner("days", "")
         if isinstance(raw_days, (list, tuple)):

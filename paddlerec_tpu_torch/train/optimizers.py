@@ -103,13 +103,14 @@ def _scalar(x: float, dtype: torch.dtype) -> float:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: List[torch.Tensor],
-                        max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """New gradient tensors: unchanged where the global norm is below
     ``max_norm``, else ``(g / norm) * max_norm``.  The choice is made on the
-    device (``torch.where``), not on the host."""
-    total = sum(torch.sum(g * g).to(torch.float32) for g in grads)
-    norm = torch.sqrt(total)
+    device (``torch.where``), not on the host.  ``norm``: the global norm
+    where it is not these gradients' alone (a mesh rank's shards)."""
+    if norm is None:
+        norm = torch.sqrt(sum(torch.sum(g * g).to(torch.float32) for g in grads))
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm)
             for g in grads]
@@ -413,7 +414,9 @@ class Optimizer:
         return step(params, grads, state, lr)
 
     @torch.no_grad()
-    def apply(self, params: Tensors, grads: Tensors, state: OptState) -> None:
+    def apply(self, params: Tensors, grads: Tensors, state: OptState,
+              norm: Optional[torch.Tensor] = None) -> None:
+        """One step in place; ``norm`` as ``clip_by_global_norm`` takes it."""
         hyper = state.get("hyperparams", {})
         lr = float(hyper.get("learning_rate", self.lr))
         el2 = float(hyper.get("embedding_l2", self.embedding_l2))
@@ -424,7 +427,7 @@ class Optimizer:
             state["schedule_count"] += 1
         if self.clip is not None:
             names = list(grads)
-            clipped = clip_by_global_norm([grads[k] for k in names], self.clip)
+            clipped = clip_by_global_norm([grads[k] for k in names], self.clip, norm)
             grads = dict(zip(names, clipped))
         updates = self._step(params, grads, state, step_lr)
         if el2:

@@ -43,9 +43,14 @@ class TrainState:
         return {k: p for k, p in self.module.named_parameters()
                 if p.requires_grad}
 
-    def apply_gradients(self) -> None:
-        """One optimizer step from the parameters' ``.grad``."""
+    def apply_gradients(self, norm: Optional[torch.Tensor] = None) -> None:
+        """One optimizer step from the parameters' ``.grad``; ``norm``, the
+        gradients' global norm for the optimizer's clip where the trainer
+        takes it over a mesh (an ``Optimizer`` with a clip only)."""
         params = self.params
         grads = {k: p.grad for k, p in params.items()}
-        self.tx.apply(params, grads, self.opt_state)
+        if norm is None:
+            self.tx.apply(params, grads, self.opt_state)
+        else:
+            self.tx.apply(params, grads, self.opt_state, norm=norm)
         self.step += 1

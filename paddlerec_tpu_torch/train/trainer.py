@@ -1,11 +1,11 @@
-"""The trainer: the single-device subset of ``paddlerec_tpu/train/trainer.py``.
+"""The trainer: the port of ``paddlerec_tpu/train/trainer.py``.
 
     batch (host) ──> device ──> train_step (eager: decode, forward, loss,
     backward, optimizer step, in-step AUC buckets) ──> per-epoch checkpoint
     + logging.
 
 The JAX trainer jits one SPMD step over a mesh; here one process drives one
-device and the step runs eagerly.  The embedding lookup is kernel K1 and its
+device (one rank of the mesh) and the step runs eagerly.  The embedding lookup is kernel K1 and its
 gradient kernel K1b (``ops/gather_pool.py``) when the device is a card.  The
 step never synchronises with the host: the loss stays on the device until a
 log line or the end of an epoch reads it, at the places where the reference
@@ -38,14 +38,38 @@ replays them; ``dump_fields`` writes per-instance JSONL from ``evaluate()``
 batch range with ``torch.profiler`` and ``use_visual`` appends scalars
 (``utils/visual.py``).
 
+**On a ``(dp, mp)`` mesh** (``runner.mesh_dp`` / ``runner.mesh_mp`` /
+``hyper_parameters.distributed_embedding`` under ``tools.launch``; one
+process a rank) the step is the JAX package's SPMD step written out.  The
+trainer announces its mesh in the parallel context, so that every
+``SlotEmbedding`` past ``MIN_ROWS_TO_SHARD`` rows holds its rank's shard and
+looks up through the all_to_all engine (K1 on the shard, K1b into it).  The
+ranks of a dp row read the same file shard (``shard_files`` by dp index)
+and hold the same batch; before every step all ranks agree that each has a
+batch (an all_reduce MIN: uneven shards stop together).  Each rank weights
+its loss by its dp row's share of the rows the loss averages (the mask's
+sum, else the rows), so that the sum over dp is the gradient of the global
+masked mean; the dense gradients (every leaf but the mp-sharded tables,
+whose engine backward sums them over dp already) and the loss are summed
+over the dp group.  ``DistributedDataParallel`` would average over the
+whole group and count the mp ranks' identical gradients mp times.  The
+clip, the dense optimizer and the row rules follow (``mp_tables``: the
+sharded tables take the sharded rules over the global batch's unique rows,
+which the main thread gathers before the wire encoding,
+``ModelDef.global_dedup_arrays``).  The streaming metrics stay per rank and
+are summed over dp when read, the engine's dropped-id count over the world
+(``embedding_overflow``, with the reference's warning and
+``runner.overflow_raise_after``).  Only global rank 0 logs and writes
+checkpoints; every rank takes part in every collective, the checkpoint's
+gather of each sharded table over mp among them.  The file holds the whole
+table at the engine's padded rows; loading cuts each rank's rows.
+
 The online day/pass loop (``train/online.py`` ``OnlineTrainer``) subclasses
 this trainer; the host-tiered pass loop (``train/host_loop.py``
-``HostTableTrainer``) drives one.  Not ported yet (their config keys raise
-``NotImplementedError`` when the trainer is built, ``check_ported``): meshes
-with ``mp > 1`` or ``dp > 1`` and multi-process runs (and with them the
-row-sharded sparse rules and the global dedup), and the geo and fl sync
-modes across processes.  At one process geo trains as plain sync and a
-1×1 ``distributed_embedding`` mesh is accepted, as in the JAX package.
+``HostTableTrainer``) drives one.  Not ported yet (``NotImplementedError``
+when the trainer is built): the geo and fl sync modes across processes and
+the online loop across processes.  At one process geo trains as plain sync
+and a 1×1 ``distributed_embedding`` mesh is accepted, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,10 +78,11 @@ import json
 import logging
 import os
 import time
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from paddlerec_tpu_torch.core import metrics as metrics_lib
 from paddlerec_tpu_torch.core.config import Config, resolve_path
@@ -66,12 +91,15 @@ from paddlerec_tpu_torch.core.device import (
 )
 from paddlerec_tpu_torch.data.schema import schema_from_config
 from paddlerec_tpu_torch.data.slot_reader import (
-    PrefetchIterator, SlotDataset, list_data_files,
+    PrefetchIterator, SlotDataset, list_data_files, shard_files,
 )
 from paddlerec_tpu_torch.data.superbatch import stack_superbatches
 from paddlerec_tpu_torch.data.wire import WireEncoder, decode_batch
+from paddlerec_tpu_torch.ops.embedding import SlotEmbedding
 from paddlerec_tpu_torch.ops.sparse_update import SENTINEL
+from paddlerec_tpu_torch.parallel import context
 from paddlerec_tpu_torch.parallel.mesh import Mesh, mesh_from_config, world_size
+from paddlerec_tpu_torch.parallel.sharding import local_rows
 from paddlerec_tpu_torch.train import checkpoint as ckpt_lib
 from paddlerec_tpu_torch.train.state import TrainState
 
@@ -89,26 +117,28 @@ if not logger.handlers:
     logger.propagate = False
 
 
+def rank0_info(msg: str) -> None:
+    """Log on global rank 0 only: every rank of a launch runs the same code
+    (and computes the message: a metric read in it is a collective)."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        logger.info(msg)
+
+
 def check_ported(config: Config, world: Optional[int] = None) -> Mesh:
     """Check the multi-device keys against what the port runs, and return
     the mesh they give at this world size (default: the process group's,
-    1 without one), as ``paddlerec_tpu/train/trainer.py`` builds it.
+    1 without one), as ``paddlerec_tpu/train/trainer.py`` builds it.  Under
+    a process group of that size this creates the mesh's groups (every rank
+    calls it).
 
-    At one process the reference's rules hold: ``runner.sync_mode: geo``
-    trains as plain sync (it averages only across processes; one log line
-    says so), ``sync_mode: fl`` raises its ``ValueError`` (a federated run
-    needs a client a process), and ``distributed_embedding``, ``mesh_dp``
-    and ``mesh_mp`` that resolve to the 1×1 mesh are accepted (the table
-    takes its local path).  Still ``NotImplementedError``, naming the key:
-    ``mesh_dp`` or ``mesh_mp`` above 1, any mesh with dp or mp above 1, and
-    geo or fl across processes.  The online loop's ``OnlineTrainer`` is
-    held to the same rules.  Every optimizer key of ``create_optimizer`` is
-    ported."""
-    def refuse(key: str, what: str = "") -> None:
-        raise NotImplementedError(
-            f"{key}{what} is not ported to paddlerec_tpu_torch yet"
-        )
-
+    Every mesh that ``mesh_from_config`` resolves is accepted for sync
+    training.  At one process the reference's rules hold: ``runner.sync_mode:
+    geo`` trains as plain sync (it averages only across processes; one log
+    line says so) and ``sync_mode: fl`` raises its ``ValueError`` (a
+    federated run needs a client a process).  Still ``NotImplementedError``,
+    naming the key: geo and fl across processes; the online loop's
+    ``OnlineTrainer`` refuses more than one process itself.  Every optimizer
+    key of ``create_optimizer`` is ported."""
     world = world_size() if world is None else int(world)
     mode = str(config.runner("sync_mode", "") or "").lower()
     if mode == "fl" and world <= 1:
@@ -118,19 +148,46 @@ def check_ported(config: Config, world: Optional[int] = None) -> Mesh:
             "and torch.distributed"
         )
     if mode in ("geo", "fl") and world > 1:
-        refuse("runner.sync_mode", f": {mode} across processes")
-    for key in ("mesh_mp", "mesh_dp"):
-        if config.runner(key) not in (None, 1, -1):
-            refuse(f"runner.{key}", " > 1")
+        raise NotImplementedError(
+            f"runner.sync_mode: {mode} across processes is not ported to "
+            "paddlerec_tpu_torch yet"
+        )
     mesh = mesh_from_config(config, world)
-    if mesh.dp > 1 or mesh.mp > 1:
-        refuse("runner.mesh_dp / runner.mesh_mp / "
-               "hyper_parameters.distributed_embedding",
-               f" (a {mesh.dp}x{mesh.mp} mesh)")
     if mode == "geo":
         logger.info("sync_mode: geo at one process trains as plain sync "
                     "(parameters are averaged only across processes)")
     return mesh
+
+
+def _sum_over(tensors: List[torch.Tensor], group) -> None:
+    """Sum tensors over ``group`` in place: one all_reduce a dtype, over
+    their concatenation."""
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        dist.all_reduce(flat, group=group)
+        offset = 0
+        for t in ts:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+
+
+def _clone_tree(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return []
 
 
 class Trainer:
@@ -138,6 +195,15 @@ class Trainer:
         self.config = config
         self.device = resolve_device(device)
         self.mesh = check_ported(config)
+        self.world = world_size()
+        self.rank = dist.get_rank() if self.world > 1 else 0
+        # host-side collectives (has-next flags, row ids) cross on the CPU
+        # under gloo; NCCL takes only card tensors
+        self._comm_device = (torch.device("cpu") if self.world <= 1
+                             or dist.get_backend() == "gloo" else self.device)
+        # announce the mesh so that layers with a distributed path
+        # (SlotEmbedding) pick it up when the module is built
+        context.set_mesh(self.mesh)
         # full float32 products on the card: the parity tolerances against
         # the JAX package assume it
         full_float32_matmul()
@@ -161,17 +227,35 @@ class Trainer:
         # runner.feed_device_resident: staged superbatches kept on the device
         # by corpus key ({"sbs", "replays", "bytes"})
         self._resident: Dict[str, Dict[str, Any]] = {}
+        self._overflow_strikes = 0
+        self._overflow_seen = 0
+        # state_dict names of the parameters row-sharded over mp (the tables
+        # the engine holds a shard of), set by init_state
+        self._sharded: frozenset = frozenset()
 
     # -- setup ----------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> TrainState:
+        context.set_mesh(self.mesh)
         seed = int(self.config.runner("seed", 2023) if seed is None else seed)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         module = self.model_def.make_module(device=self.device,
                                             generator=generator)
+        self._sharded = frozenset(
+            ".".join(filter(None, [name, "embedding"]))
+            for name, m in module.named_modules()
+            if isinstance(m, SlotEmbedding) and m.engine is not None)
+        # the sharded tables' Adam moments and row state are shards too:
+        # they are built from the shards
         self.state = TrainState.create(
             module, self.tx, extra=self.model_def.init_sparse_state(module))
         self._step_rng = torch.Generator(device=self.device)
         return self.state
+
+    def _mp_table_paths(self) -> frozenset:
+        """The "/"-joined paths of the tables row-sharded over mp, read off
+        the live modules (the JAX trainer reads the live shardings); they
+        route the row-wise step to the sharded rules."""
+        return frozenset(name.replace(".", "/") for name in self._sharded)
 
     def set_hyperparams(self, **values: float) -> None:
         """Retune the injected optimizer hyperparameters (learning_rate,
@@ -194,16 +278,19 @@ class Trainer:
         """Restore params(+opt) from a checkpoint onto the device.
 
         params_only skips the optimizer-state restore so export/inference
-        tools can load checkpoints saved under ANY optimizer config."""
+        tools can load checkpoints saved under ANY optimizer config.  On a
+        mesh each rank takes its rows of every sharded table, moment and row
+        state (a checkpoint saved on the same mesh)."""
         if self.state is None:
             self.init_state()
         if params_only:
-            self.state.module.load_state_dict(
-                ckpt_lib.load_params_from_state(root, tag))
+            self.state.module.load_state_dict(self._local(
+                ckpt_lib.load_params_from_state(root, tag), self._sharded))
             return
         params, opt_state, extra = ckpt_lib.load_model(root, tag)
-        self.state.module.load_state_dict(params)
-        _copy_into(self.state.opt_state, opt_state, "opt_state")
+        self.state.module.load_state_dict(self._local(params, self._sharded))
+        _copy_into(self.state.opt_state, self._local(opt_state, self._sharded),
+                   "opt_state")
         if self.state.extra is None:
             return
         if extra is None:
@@ -214,6 +301,7 @@ class Trainer:
                 "optimizer moments start fresh"
             )
             return
+        extra = {k: self._local(v, self._sharded_extra(k)) for k, v in extra.items()}
         _copy_into({k: v._asdict() for k, v in self.state.extra.items()},
                    extra, "extra")
 
@@ -221,10 +309,71 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- sharded checkpoints ------------------------------------------------------
+    def _sharded_extra(self, key: str) -> frozenset:
+        """The fields of row state ``key`` that are shards: all of them
+        where its table is row-sharded over mp."""
+        table = key.rpartition("/")[0].replace("/", ".") + ".embedding"
+        return (frozenset(("acc", "m", "v", "count")) if table.lstrip(".") in self._sharded
+                else frozenset())
+
+    def _local(self, tree, names: frozenset):
+        """A loaded tree with each sharded leaf (a tensor keyed by one of
+        ``names``, anywhere in it) cut to this rank's rows."""
+        if not names:
+            return tree
+        if isinstance(tree, dict):
+            return {k: (local_rows(v, self.mesh.mp_index, self.mesh.mp).clone()
+                        if k in names and isinstance(v, torch.Tensor)
+                        else self._local(v, names)) for k, v in tree.items()}
+        return tree
+
+    def _whole(self, tree, names: frozenset):
+        """A tree with each sharded leaf gathered whole over the mesh row
+        (the row's first rank gets it; the others get their shard back)."""
+        if not names:
+            return tree
+        if hasattr(tree, "_asdict"):
+            tree = tree._asdict()
+        if isinstance(tree, dict):
+            return {k: (self._gather_row(v) if k in names and isinstance(v, torch.Tensor)
+                        else self._whole(v, names)) for k, v in tree.items()}
+        return tree
+
+    def _gather_row(self, t: torch.Tensor) -> torch.Tensor:
+        group = self.mesh.mp_group
+        t = t.detach().to(self._comm_device).contiguous()
+        first = int(self.mesh.grid[self.mesh.dp_index, 0])
+        parts = ([torch.empty_like(t) for _ in range(self.mesh.mp)]
+                 if self.rank == first else None)
+        dist.gather(t, parts, dst=first, group=group)
+        return torch.cat(parts) if parts is not None else t
+
+    def save_checkpoint(self, root: str, tag) -> Optional[str]:
+        """Save params+opt(+extra) under root/tag (``ckpt_lib.save_model``).
+        On a mesh every rank takes part (the sharded tables, their moments
+        and row state gathered whole over mp) and global rank 0 writes;
+        returns the path there, None on the other ranks."""
+        state = self.state
+        params, opt_state, extra = state.module.state_dict(), state.opt_state, state.extra
+        if self._sharded:
+            params = self._whole(params, self._sharded)
+            opt_state = self._whole(opt_state, self._sharded)
+            if extra is not None:
+                extra = {k: self._whole(v, self._sharded_extra(k)) for k, v in extra.items()}
+        path = None
+        if self.rank == 0:
+            path = ckpt_lib.save_model(params, opt_state, root, tag, extra=extra)
+        if self.world > 1:
+            dist.barrier()  # the file is whole before any rank reads it
+        return path
+
     # -- steps ------------------------------------------------------------------
     def train_step(self, batch, metric_state):
         """One optimizer step on a device batch.  Returns (metric_state,
-        loss); the loss is a device scalar and nothing here waits for it."""
+        loss); the loss is a device scalar and nothing here waits for it.
+        On a mesh with dp > 1 the loss is the global batch's (the dp sum of
+        the weighted rows' losses)."""
         state, model_def = self.state, self.model_def
         batch = decode_batch(batch)  # no-op unless wire-encoded
         state.module.zero_grad(set_to_none=True)
@@ -236,25 +385,57 @@ class Trainer:
                                                 generator=self._step_rng)
         else:
             loss, aux = model_def.train_forward(state.module, batch)
+        dp_group = self.mesh.dp_group if self.mesh.dp > 1 else None
+        if dp_group is not None:
+            # this dp row's share of the global loss: its rows that the loss
+            # averages over the dp row's total, so that the dp sum of the
+            # gradients is the global masked mean's
+            rows = (batch["mask"].sum().to(torch.float32) if "mask" in batch
+                    else torch.tensor(float(self._batch_rows(batch)), device=loss.device))
+            total = rows.clone()
+            dist.all_reduce(total, group=dp_group)
+            loss = loss * (torch.clamp(rows, min=1.0) / torch.clamp(total, min=1.0))
         loss.backward()
+        if dp_group is not None:
+            # the dense gradients and the loss, summed over dp; the sharded
+            # tables' gradients are the engine's dp sums already
+            grads = [p.grad for k, p in state.params.items()
+                     if p.grad is not None and k not in self._sharded]
+            loss = loss.detach().reshape(1)
+            _sum_over(grads + [loss], dp_group)
+            loss = loss[0]
+        delta_grads = {}
         if self.sparse:
             delta_grads = {
                 key: g for key, emb in model_def.sparse_taps(state.module).items()
                 if (g := emb.take_delta_grad()) is not None}
             # one shared global-norm clip for dense AND row-wise: the
             # optimizer's own clip is left out whenever sparse_update is on
-            model_def.clip_grads(state.params, delta_grads)
-        state.apply_gradients()
+            model_def.clip_grads(state.params, delta_grads, self.mesh)
+        state.apply_gradients(self._global_grad_norm()
+                              if self._sharded and getattr(state.tx, "clip", None) else None)
         if state.extra is not None:
             # row-wise sparse embedding update (the dense optimizer above
             # never sees the tapped tables)
             self._step_rng.manual_seed(step_seed(seed, state.step))
             model_def.apply_sparse_updates(
                 state.module, state.extra, delta_grads, batch,
-                rng=self._step_rng)
+                rng=self._step_rng, mp_tables=self._mp_table_paths())
         if self.use_auc:
             metric_state = model_def.update_metric_state(metric_state, aux)
-        return metric_state, loss.detach()
+        return self._accumulate_overflow(metric_state, aux), loss.detach()
+
+    @torch.no_grad()
+    def _global_grad_norm(self) -> torch.Tensor:
+        """The gradients' global norm where some leaves are mp shards: their
+        squares summed over the mesh row, so that the dense optimizer's clip
+        sees the whole table (``optax.clip_by_global_norm`` on the JAX mesh)."""
+        params = self.state.params
+        shard_sq = sum(torch.sum(p.grad * p.grad).to(torch.float32)
+                       for k, p in params.items() if k in self._sharded)
+        dist.all_reduce(shard_sq, group=self.mesh.mp_group)
+        return torch.sqrt(shard_sq + sum(torch.sum(p.grad * p.grad).to(torch.float32)
+                                         for k, p in params.items() if k not in self._sharded))
 
     def super_step(self, sb, i: int, metric_state):
         # index sub-batch i out of a staged superbatch ON DEVICE
@@ -289,7 +470,8 @@ class Trainer:
                 return self.model_def.make_dataset(data_dir, batch_size,
                                                    shuffle)
         schema = schema_from_config(self.config)
-        files = list_data_files(data_dir)
+        # the ranks of a dp row read the same shard (one batch a row)
+        files = shard_files(list_data_files(data_dir), self.mesh.dp_index, self.mesh.dp)
         reader_type = str(self.config.runner("reader_type", "")).lower()
         from paddlerec_tpu_torch.data.binary import BinarySlotDataset, is_slotbin
 
@@ -340,16 +522,19 @@ class Trainer:
             pipe_command=self.config.runner("pipe_command") or None,
         )
 
-    def _wire_encode(self, dataset):
-        """Optional compact wire encoding (runner.wire_format: compact):
-        shrinks host→device bytes ~1.6x; decoded at the head of the step."""
+    def _wire_encoder(self):
+        """The compact wire encoding of a stream (runner.wire_format:
+        compact; shrinks host→device bytes ~1.6x; decoded at the head of the
+        step), or None.  ONE stateful encoder per stream: the sparse
+        representation is pinned after the first batch (escalate-only), so
+        boundary-straddling streams can't flip dtypes batch to batch."""
         if str(self.config.runner("wire_format", "")).lower() != "compact":
-            return dataset
-        # ONE stateful encoder per stream: the sparse representation is
-        # pinned after the first batch (escalate-only), so boundary-
-        # straddling streams can't flip dtypes batch to batch
-        enc = WireEncoder(int(self.config.hyper("sparse_feature_number", 0)))
-        return (enc(b) for b in dataset)
+            return None
+        return WireEncoder(int(self.config.hyper("sparse_feature_number", 0)))
+
+    def _wire_encode(self, dataset):
+        enc = self._wire_encoder()
+        return dataset if enc is None else (enc(b) for b in dataset)
 
     def _device_batches(self, dataset, allow_super: bool = False,
                         augment: bool = False,
@@ -359,10 +544,50 @@ class Trainer:
         # batches.  augment: the train loop's batches get the host dedup of
         # a sparse run (evaluation has no use for it).  resident_key: the
         # corpus key of runner.feed_device_resident
+        if augment and self.sparse and self.mesh.dp > 1:
+            # the row update wants the GLOBAL batch's unique rows: a
+            # collective in the main thread, then the wire encoding
+            yield from self._global_dedup_batches(dataset)
+            return
         if augment and self.sparse:
             dataset = (_count_uniq(self.model_def.augment_batch_host(b))
                        for b in dataset)
-        dataset = self._wire_encode(dataset)
+        batches = self._rank_batches(self._wire_encode(dataset), allow_super,
+                                     resident_key)
+        yield from (self._unanimous(batches) if self.world > 1 else batches)
+
+    def _all_have(self, has: bool) -> bool:
+        """Whether every rank has a next batch: an all_reduce MIN over the
+        world (file shards may hold different batch counts; without it the
+        shorter rank leaves while its peers wait in a collective)."""
+        flag = torch.tensor([int(has)], dtype=torch.int32, device=self._comm_device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        return bool(flag.item())
+
+    def _unanimous(self, items):
+        it = iter(items)
+        while True:
+            try:
+                item, has = next(it), True
+            except StopIteration:
+                item, has = None, False
+            if not self._all_have(has):
+                return
+            yield item
+
+    def _global_dedup_batches(self, dataset):
+        """Host batches + the global dedup (``global_dedup_arrays``), then
+        the wire encoding, one batch at a time after the unanimous has-next
+        (the dedup's gather is a collective: all ranks reach it in step)."""
+        enc = self._wire_encoder()
+        for batch in self._unanimous(PrefetchIterator(iter(dataset), depth=4)):
+            ded = self.model_def.global_dedup_arrays(batch, self.mesh, self._comm_device)
+            if ded is not None:
+                batch = _count_uniq(dict(batch, sparse_uniq=ded[0], sparse_slot=ded[1]))
+            yield to_tensors(batch if enc is None else enc(batch), self.device)
+
+    def _rank_batches(self, dataset, allow_super: bool, resident_key: Optional[str]):
+        """This rank's device batches (or superbatch items) of a dataset."""
         k = int(self.config.runner("feed_superbatch", 0) or 0)
         if k > 1 and allow_super:
             # superbatch staging: K host batches ride ONE host→device
@@ -510,13 +735,92 @@ class Trainer:
         return int(lead.shape[0])
 
     def _init_metric_state(self):
-        return self.model_def.init_metric_state(device=self.device)
+        ms = self.model_def.init_metric_state(device=self.device)
+        if isinstance(ms, dict) and self.mesh.mp > 1:
+            # mp meshes route lookups through the all_to_all exchange: carry
+            # its dropped-id counter (this rank's) alongside the metrics
+            ms = dict(ms, embedding_overflow=torch.zeros((), dtype=torch.int32,
+                                                         device=self.device))
+        self._overflow_seen = 0
+        return ms
+
+    def _global_metrics(self, metric_state):
+        """The metric state of the whole mesh, for reading: each rank's
+        streaming state summed over the dp group (the mp ranks of a row
+        hold the same one) and the dropped-id counter over the world, on
+        copies (the live state keeps counting this rank's).  A collective:
+        every rank reads at the same steps.  The state itself at one
+        process."""
+        if self.world <= 1 or not isinstance(metric_state, dict):
+            return metric_state
+        out = {k: v for k, v in metric_state.items() if k != "embedding_overflow"}
+        copies = _clone_tree(out)
+        if self.mesh.dp > 1:
+            _sum_over(_tensors(copies), self.mesh.dp_group)
+        if "embedding_overflow" in metric_state:
+            total = metric_state["embedding_overflow"].clone()
+            dist.all_reduce(total)
+            copies["embedding_overflow"] = total
+        return copies
 
     def _compute_metrics(self, metric_state):
-        return self.model_def.compute_metric_bundle(metric_state)
+        metric_state = self._global_metrics(metric_state)
+        out = self.model_def.compute_metric_bundle(metric_state)
+        if isinstance(metric_state, dict) and "embedding_overflow" in metric_state:
+            out["embedding_overflow"] = int(metric_state["embedding_overflow"])
+        return out
 
     def _auc_str(self, metric_state):
-        return self.model_def.metric_log_str(metric_state)
+        return self.model_def.metric_log_str(self._global_metrics(metric_state))
+
+    # -- overflow observability --------------------------------------------------
+    # The all_to_all exchange drops ids when a bucket overflows.  The count
+    # is taken in the step (the model's aux) and folded into the metric
+    # state, so it works on any mesh.
+    @staticmethod
+    def _accumulate_overflow(metric_state, aux):
+        """Fold this step's dropped-id count into the counter."""
+        if (isinstance(aux, dict) and isinstance(metric_state, dict)
+                and "embedding_overflow" in aux
+                and "embedding_overflow" in metric_state):
+            metric_state = dict(
+                metric_state,
+                embedding_overflow=metric_state["embedding_overflow"]
+                + aux["embedding_overflow"],
+            )
+        return metric_state
+
+    def _check_overflow(self, metric_state) -> None:
+        """At the print interval, on every rank: warn on counter growth;
+        ``runner.overflow_raise_after: N`` raises after N consecutive
+        growing intervals (skewed, non-hashed id distributions degrade
+        quality invisibly otherwise — raise
+        ``hyper_parameters.embedding_capacity_factor`` when it fires)."""
+        if not (isinstance(metric_state, dict)
+                and "embedding_overflow" in metric_state):
+            return
+        total = int(self._global_metrics(metric_state)["embedding_overflow"])
+        if total > self._overflow_seen:
+            dropped = total - self._overflow_seen
+            self._overflow_seen = total
+            self._overflow_strikes += 1
+            if self.rank == 0:
+                logger.warning(
+                    f"embedding exchange overflow: {dropped} ids dropped "
+                    f"since the last check (strike {self._overflow_strikes}); "
+                    "raise hyper_parameters.embedding_capacity_factor"
+                )
+            limit = self.config.runner("overflow_raise_after")
+            if limit is not None and self._overflow_strikes >= int(limit):
+                raise RuntimeError(
+                    f"embedding exchange overflowed on "
+                    f"{self._overflow_strikes} consecutive checks "
+                    f"({total} ids dropped in total); ids are too skewed "
+                    "for the configured bucket capacity"
+                )
+        else:
+            self._overflow_strikes = 0
+        self._overflow_seen = total
 
     def _bundle_str(self, metrics: Dict[str, float], prefix: str) -> str:
         if "auc" in metrics:
@@ -527,6 +831,7 @@ class Trainer:
 
     # -- loops ---------------------------------------------------------------------
     def train(self) -> Dict[str, float]:
+        context.set_mesh(self.mesh)
         cfg = self.config
         epochs = int(cfg.runner("epochs", 1))
         batch_size = int(cfg.runner("train_batch_size", 32))
@@ -546,7 +851,7 @@ class Trainer:
 
         # VisualDL-analog scalar telemetry
         visual = None
-        if bool(cfg.runner("use_visual", False)):
+        if bool(cfg.runner("use_visual", False)) and self.rank == 0:
             from paddlerec_tpu_torch.utils.visual import ScalarWriter
 
             visual = ScalarWriter(
@@ -589,6 +894,7 @@ class Trainer:
                 else:
                     metric_state, loss = self.train_step(batch, metric_state)
                     n = self._batch_rows(batch)
+                n *= self.mesh.dp  # the global batch: every dp row's
                 interval_samples += n
                 total_samples += n
                 global_step += 1
@@ -605,7 +911,7 @@ class Trainer:
                             global_step,
                         )
                     auc_str = self._auc_str(metric_state) if self.use_auc else ""
-                    logger.info(
+                    rank0_info(
                         f"epoch: {epoch}, batch_id: {batch_id}, {auc_str}"
                         f"loss: {float(loss):.6f}, "
                         f"avg_reader_cost: {reader_cost / print_interval:.5f} sec, "
@@ -615,6 +921,7 @@ class Trainer:
                     )
                     reader_cost = train_cost = 0.0
                     interval_samples = 0
+                    self._check_overflow(metric_state)
                 else:
                     train_cost += time.time() - step_start
                 reader_start = time.time()
@@ -626,7 +933,7 @@ class Trainer:
                 self._compute_metrics(metric_state) if self.use_auc else {}
             )
             if self.use_auc:
-                logger.info(
+                rank0_info(
                     "epoch: {} done, {}, epoch time: {:.2f} s, ips: {:.2f} ins/s".format(
                         epoch,
                         self._bundle_str(last_metrics, "train"),
@@ -635,16 +942,10 @@ class Trainer:
                     )
                 )
             else:
-                logger.info(f"epoch: {epoch} done, epoch time: {epoch_time:.2f} s")
+                rank0_info(f"epoch: {epoch} done, epoch time: {epoch_time:.2f} s")
             if save_path:
-                path = ckpt_lib.save_model(
-                    self.state.module.state_dict(),
-                    self.state.opt_state,
-                    save_path,
-                    epoch,
-                    extra=self.state.extra,
-                )
-                logger.info(f"saved checkpoint to {path}")
+                path = self.save_checkpoint(save_path, epoch)
+                rank0_info(f"saved checkpoint to {path}")
             last_metrics["epoch_time"] = epoch_time
             last_metrics["ips"] = total_samples / max(epoch_time, 1e-9)
         if visual is not None:
@@ -652,6 +953,7 @@ class Trainer:
         return last_metrics
 
     def evaluate(self, epoch_tag=None) -> Dict[str, float]:
+        context.set_mesh(self.mesh)
         cfg = self.config
         batch_size = int(cfg.runner("infer_batch_size", 32))
         print_interval = int(cfg.runner("print_interval", 10))
@@ -680,7 +982,7 @@ class Trainer:
             resident_key=None if dumping
             else self._resident_key("eval", data_dir, batch_size))
         dump_file = None
-        if dumping:
+        if dumping and self.rank == 0:  # on a mesh: dp row 0's instances
             os.makedirs(os.path.dirname(dump_path) or ".", exist_ok=True)
             dump_file = open(dump_path, "w")
         metric_state = self._init_metric_state()
@@ -697,17 +999,18 @@ class Trainer:
                     _dump_batch(dump_file, batch_id, batch, aux, dump_fields)
                 total += self._batch_rows(batch)
             if (batch_id + 1) % print_interval == 0 and self.use_auc:
-                logger.info(
+                rank0_info(
                     f"infer batch_id: {batch_id}, {self._auc_str(metric_state)}"
                 )
         if dump_file is not None:
             dump_file.close()
-            logger.info(f"dumped fields {dump_fields} to {dump_path}")
+            rank0_info(f"dumped fields {dump_fields} to {dump_path}")
         self._sync()  # the steps are only queued: wait, so the time is theirs
         elapsed = time.time() - begin
+        total *= self.mesh.dp  # every dp row's rows
         metrics = self._compute_metrics(metric_state) if self.use_auc else {}
         if self.use_auc:
-            logger.info(
+            rank0_info(
                 "{}, infer time: {:.2f} s, ips: {:.2f} ins/s".format(
                     self._bundle_str(metrics, "infer"),
                     elapsed,

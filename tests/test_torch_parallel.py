@@ -322,15 +322,18 @@ class _Capture(logging.Handler):
     ({"runner.sync_mode": "fl"}, 2, NotImplementedError),
     ({"hyper_parameters.distributed_embedding": 1}, 1, (1, 1)),
     ({"runner.mesh_mp": -1, "runner.mesh_dp": 1}, 1, (1, 1)),
-    ({"runner.mesh_mp": 2}, 1, NotImplementedError),
-    ({"runner.mesh_dp": 2}, 2, NotImplementedError),
-    ({"hyper_parameters.distributed_embedding": 1}, 2, NotImplementedError),
-    ({}, 2, NotImplementedError),
+    ({"runner.mesh_mp": 2}, 1, ValueError),
+    ({"runner.mesh_dp": 2}, 2, (2, 1)),
+    ({"hyper_parameters.distributed_embedding": 1}, 2, (1, 2)),
+    ({}, 2, (2, 1)),
+    ({"runner.mesh_dp": 2, "runner.mesh_mp": 2}, 4, (2, 2)),
+    ({"runner.mesh_mp": 4, "hyper_parameters.sparse_update": True}, 4, (1, 4)),
 ])
 def test_check_ported_at_one_process_and_across(flat, world, outcome):
     """At one process the reference's rules: geo trains as plain sync (one
-    log line), fl raises its ValueError, a 1×1 mesh is accepted; dp or mp
-    above 1, and geo or fl across processes, still raise."""
+    log line), fl raises its ValueError; every mesh that ``mesh_from_config``
+    resolves is accepted (a grid that is not the world raises its
+    ValueError); geo or fl across processes still raise."""
     cfg = Config({"runner.model": "rank.dnn", **flat})
     if isinstance(outcome, type):
         with pytest.raises(outcome):
@@ -342,7 +345,7 @@ def test_check_ported_at_one_process_and_across(flat, world, outcome):
         mesh = port_trainer_mod.check_ported(cfg, world)
     finally:
         port_trainer_mod.logger.removeHandler(handler)
-    assert (mesh.dp, mesh.mp) == (1, 1)
+    assert (mesh.dp, mesh.mp) == ((1, 1) if outcome == "plain sync" else outcome)
     geo_lines = [x for x in handler.lines if "sync_mode: geo" in x]
     assert len(geo_lines) == (outcome == "plain sync")
 
@@ -398,7 +401,7 @@ def test_launch_two_gloo_ranks_all_reduce(tmp_path):
         f"import sys; sys.path.insert(0, {REPO!r})\n"
         "import torch, torch.distributed as dist\n"
         "from paddlerec_tpu_torch.tools.launch import init_from_env\n"
-        "init_from_env(timeout_s=60)\n"
+        "init_from_env('cpu', timeout_s=60)\n"
         "x = torch.ones(2) * (dist.get_rank() + 1)\n"
         "dist.all_reduce(x)\n"
         "assert x.tolist() == [3.0, 3.0], x\n"

@@ -32,7 +32,7 @@ def run(case_dir: str) -> None:
     from paddlerec_tpu_torch.tools.launch import init_from_env
 
     torch.set_num_threads(1)
-    init_from_env(timeout_s=60)
+    init_from_env("cpu", timeout_s=60)
     z = np.load(os.path.join(case_dir, "case.npz"))
     dp, mp = int(z["dp"]), int(z["mp"])
     mesh = create_mesh(dp, mp)

@@ -306,9 +306,8 @@ def test_keys_that_are_not_ported_raise_by_name(tmp_path, key, value):
     """``check_ported`` at one process, sparse runs included, as the JAX
     trainer at one process: geo trains as plain sync and a 1×1
     ``distributed_embedding`` mesh is accepted (both build), fl raises the
-    reference's ValueError, and a mesh wider than one rank still raises
-    ``NotImplementedError`` naming the key."""
-    name = key.split(".")[-1]
+    reference's ValueError, and a mesh wider than the one rank raises the
+    mesh's ValueError (the JAX ``create_mesh``'s)."""
     for sparse in (False, True):
         cfg = Config({**small_config(tmp_path, **SMALL).to_dict(), key: value,
                       "hyper_parameters.sparse_update": sparse})
@@ -319,7 +318,7 @@ def test_keys_that_are_not_ported_raise_by_name(tmp_path, key, value):
             trainer = port_trainer_mod.Trainer(cfg, device="cpu")
             assert (trainer.mesh.dp, trainer.mesh.mp) == (1, 1)
         else:
-            with pytest.raises(NotImplementedError, match=name):
+            with pytest.raises(ValueError, match=r"mesh \d+x\d+ != world size 1"):
                 port_trainer_mod.Trainer(cfg, device="cpu")
 
 
