@@ -7,7 +7,7 @@ and the CUDA toolkit:
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --only k1 [--against OTHER_gather_pool.cu ...]
     python3 chip_smoke.py --only k1b [--against OTHER_gather_pool_bwd.cu ...]
-    python3 chip_smoke.py --only 29-32 | 33-36 | 37-41 | 42-45 | 46-48
+    python3 chip_smoke.py --only 29-32 | 33-36 | 37-41 | 42-45 | 46-48 | 49-51
 
 Phases, in order; any failure is fatal and the script exits non-zero
 without a result line.  ``--only k1`` runs phases 1 and 2, K1's checks of
@@ -22,7 +22,8 @@ or ``csrc/gather_pool_bwd.cu``, with the same C interface, a parent commit's
 say) is built beside it and timed in turns with it at every shape.
 ``--only 29-32`` runs phases 1, 2 and 29-32 (a few minutes), ``--only
 33-36`` phases 1, 2 and 33-36, ``--only 37-41`` phases 1, 2 and 37-41,
-``--only 42-45`` phases 1, 2 and 42-45, ``--only 46-48`` phases 1, 2 and 46-48.
+``--only 42-45`` phases 1, 2 and 42-45, ``--only 46-48`` phases 1, 2 and 46-48,
+``--only 49-51`` phases 1, 2 and 49-51.
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build every kernel of ``paddlerec_tpu_torch/csrc`` with ``nvcc``;
@@ -120,7 +121,8 @@ say) is built beside it and timed in turns with it at every shape.
     dselect_k, maml, metaheac): each model's ``configs/multitask/<model>/
     config.yaml`` at the ModelDef's default widths, card against a CPU twin
     from one seed, one inference forward and three train steps at batch 32
-    (atol 1e-5; maml and metaheac on their meta-losses after the inner loop;
+    (maml's twin at ``MT_TWIN_TASKS`` tasks; atol 1e-5; maml and metaheac on
+    their meta-losses after the inner loop;
     maml's steps each from the twin's state, in float64 over one step at
     1e-5 and in float32 at 1e-3, its conditioning: see ``MT_FLOAT64``),
     K1 and K1b launches per forward and step asserted (none for the census
@@ -146,7 +148,8 @@ say) is built beside it and timed in turns with it at every shape.
     recall.word2vec): each model's ``configs/<family>/<model>/config.yaml``
     at the ModelDef's default widths, card against a CPU twin from one seed
     (tables that start at zero filled from it), one forward and three
-    train steps at batch 32 (atol 1e-5), one K1 launch per ``Embed`` table
+    train steps at batch 32 (kim's at 8: ``TWIN_ROWS``; atol 1e-5), one K1
+    launch per ``Embed`` table
     and forward and one K1b per table and step (dssm 0, multiview_simnet 1,
     match_pyramid 1, kim 1, textcnn 1, tagspace 2, ncf 4, word2vec 3);
 24. each of them through ``Trainer.train()`` for two epochs and
@@ -177,7 +180,7 @@ say) is built beside it and timed in turns with it at every shape.
     through ``set_graph`` on a seeded graph; the serving calls (deepwalk's
     ``node_embeddings``, mind's ``user_capsules``, tisas's ``score_items``,
     ensfm's scores, mhcn's ``user_item_embeddings``) card against CPU at
-    batch 32, then timed at batch 32 and 1024 (p50, p99 of 300 calls); the
+    batch 32, then timed at batch 32 and 1024 (p50, p99 of 100 calls); the
     walk feeds (deepwalk's, graph.gnn's, graph.deepwalk_million's) read and
     stepped for 200 batches on a graph of BlogCatalog's size (333,983 edges
     at the configs' node counts); deepwalk,
@@ -211,7 +214,7 @@ say) is built beside it and timed in turns with it at every shape.
 33. the online day/pass loop on ``configs/rank/slot_dnn/config.yaml`` at
     full width (vocab 1,000,001, dim 9, tower [512, 256, 128, 32], Adam,
     batch 32) through ``tools/online_train.py``'s ``main`` (``online_slot_dnn``):
-    one seeded day of four passes of 2,048 planted-signal rows, each pass
+    one seeded day of four passes of 1,024 planted-signal rows, each pass
     directory marked ready by a data donefile; the first base, a checkpoint
     every 2 passes, a delta every pass in 2 cube shards, the day's shrink and
     base.  Each delta equal to K1's gather of its logical ids from the card's
@@ -325,8 +328,28 @@ say) is built beside it and timed in turns with it at every shape.
     kept): the shard gathers (62,501 f32 and 6,250,001 bf16 rows), the
     engine's scatter into DeepFM's shard, the row rules' global per-unique
     merge, each held against its plain version and timed beside the library
-    call and the bound of the valid ids.  One line gives every phase's
-    seconds.
+    call and the bound of the valid ids;
+49. geo across processes (``cross_phases``): ``tools.launch --nproc 2
+    --backend gloo`` runs this script's ``geo_rank`` twice, both ranks on the
+    card, and the same launch on the CPU: DeepFM at ``config.yaml``'s width
+    with ``sync_mode: geo`` (k = 4) at batch 512 over three seeded files (6
+    and 3 batches a worker) from one start: every worker trains all its
+    batches, the rendezvous bytes are the touched rows' and the dense
+    leaves', the ranks bitwise equal after each rendezvous, the untouched
+    rows at their start, the card against the CPU run (``GEO_TOL``);
+50. FL on the same ranks: 2 rounds, half the clients a round: the plan the
+    same on every rank, the weights the chosen clients' examples over
+    their sum, the ranks bitwise after each round, the card against the CPU;
+51. slot_dnn's online day of two passes on 2×2 (4 ranks of
+    ``online_cross_rank`` on the card, the table sharded over mp): the
+    merged stats and evictions the same on every rank and the 1×1 run's,
+    rank 0 alone writing, each delta K1's gather of the dp rows' touched
+    rows from the table gathered whole, deltas and table against the 1×1
+    run of the same global batches (``ONLINE51_TOL``); then K1 and K1b at
+    the new shapes (geo's touched-row gather, the delta gathers and the
+    engine's gather and scatter on a shard), each held against its plain
+    version and timed.  Each phase prints a ``{"phase": ...}`` line as it
+    ends, and one line gives every phase's seconds.
 
 K1b's ``launches`` in the ``kernels`` line are those of each case's own
 (rows, D, dtable dtype, N) over the main path (a case the main path does
@@ -361,6 +384,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -1669,11 +1693,18 @@ def _twin_steps(gp, chip, host, batches, output) -> tuple:
              "loss_cuda": losses["cuda"]}, launched["cuda"])
 
 
+# the rows of a twin's batch where the CPU side would take most of a phase:
+# kim's batch of 32 carries 64 MB of one-hop entity vectors (51 s of phase 23
+# at 32 on the CPU)
+TWIN_ROWS = {"match.kim": 8}
+
+
 def twin_zoo(gp, seed: int, card: str, models, name: str, config=None,
              expect_tables=None) -> dict:
     """Phases 13, 16 and 23: each of ``models`` at the full width of its
-    config (``config(model)``, by default ``zoo_config``), batch 32: a module
-    on the card and its twin on the CPU from one seed (tables that start at
+    config (``config(model)``, by default ``zoo_config``), batch 32
+    (``TWIN_ROWS`` where it names the model): a module on the card and its
+    twin on the CPU from one seed (tables that start at
     zero filled: ``_fill_zero_tables``), one forward and three train steps on
     four of the model's example batches (a stochastic model's noise the same
     on both); outputs (``_twin_output``) and losses card against CPU (atol
@@ -1704,9 +1735,9 @@ def twin_zoo(gp, seed: int, card: str, models, name: str, config=None,
         if host.stochastic:
             for trainer in (host, chip):
                 _same_noise(trainer.model_def, trainer, seed + 16)
-        rows = host.model_def.example_batch(4 * SEQ_BATCH)
-        batches = [{k: v[i * SEQ_BATCH:(i + 1) * SEQ_BATCH] for k, v in rows.items()}
-                   for i in range(4)]
+        per = TWIN_ROWS.get(model, SEQ_BATCH)
+        rows = host.model_def.example_batch(4 * per)
+        batches = [{k: v[i * per:(i + 1) * per] for k, v in rows.items()} for i in range(4)]
         twin, launched = _twin_steps(gp, chip, host, batches, _twin_output)
         steps = len(batches) - 1
         per_step = {d: c * steps for d, c in widths.items()}
@@ -1872,7 +1903,7 @@ def seq_paths(gp, work: str, seed: int, card: str) -> dict:
         # bookkeeping (parsing its events on the host) grows with them, so it
         # profiles fewer
         emit({"profile_train": profile_train(run_cfg, SEQ_BATCH, seed,
-                                             iters=20 if model == "din" else 2),
+                                             iters=5 if model == "din" else 2),
               "card": card})
 
     # dmr through the train CLI, on rows in its own format
@@ -1902,7 +1933,7 @@ REST = ("deeprec", "iprec", "naml", "fastformer", "sign", "bert4rec")  # the res
 # K1 launches per forward and K1b per step: one per Embed table
 REST_TABLES = {"deeprec": 0, "iprec": 3, "naml": 3, "fastformer": 5, "sign": 2, "bert4rec": 3}
 REST_SERVED = ("iprec", "naml", "fastformer")
-REST_SERVE_TIMED = 10  # the timed batches of 1024 served after the warm-up
+REST_SERVE_TIMED = 4  # the timed batches of 1024 served after the warm-up
 REST_SERVE_ROWS = (REST_SERVE_TIMED + 1) * 1024 + 64
 REST_TWIN_ROWS = 256  # the served rows the CPU twin predicts too (rows are independent)
 REST_TRAIN_ROWS = 60 * SEQ_BATCH  # naml's and bert4rec's rows: 60 steps an epoch
@@ -2205,7 +2236,7 @@ MULTITASK = ("share_bottom", "mmoe", "ple", "esmm", "aitm", "escm2", "dselect_k"
 ALI_CCP_MODELS = ("esmm", "aitm", "escm2")
 MT_TRAIN_STEPS = 80  # steps an epoch at the configs' batch 32
 MT_EPISODES = 20  # maml's episodes an epoch (each a batch of 32 tasks)
-MT_SERVE_ROWS = REST_SERVE_ROWS  # ten timed batches of 1024 after the warm-up
+MT_SERVE_ROWS = REST_SERVE_ROWS  # REST_SERVE_TIMED timed batches of 1024 after the warm-up
 MT_SERVE_BATCHES = REST_SERVE_TIMED + 1  # metaheac's served batches: a warm-up, then timed
 
 
@@ -2266,6 +2297,9 @@ def _mt_output(model_def, module, batch) -> np.ndarray:
 # the 7e-5 that its conditioning gives.
 MT_FLOAT64 = ("maml",)
 MT_F32_ATOL = 1e-3
+# maml's twin batches: 8 tasks (its CPU side took 62 of phase 19's 74 s at
+# the config's 32); the training runs of phase 20 keep 32
+MT_TWIN_TASKS = 8
 
 
 def _mt_twin(gp, model: str, seed: int, dtype=torch.float32, resync: bool = False,
@@ -2286,7 +2320,8 @@ def _mt_twin(gp, model: str, seed: int, dtype=torch.float32, resync: bool = Fals
             trainer.state.opt_state = trainer.tx.init(trainer.state.params)
     chip, host = trainers["cuda"], trainers["cpu"]
     chip.state.module.load_state_dict(host.state.module.state_dict())
-    batches = _split_batch(host.model_def.example_batch((steps + 1) * SEQ_BATCH), steps + 1,
+    per = MT_TWIN_TASKS if model == "maml" else SEQ_BATCH
+    batches = _split_batch(host.model_def.example_batch((steps + 1) * per), steps + 1,
                            axis=1 if model == "metaheac" else 0)
 
     def tensors(batch, device):
@@ -2317,7 +2352,7 @@ def _mt_twin(gp, model: str, seed: int, dtype=torch.float32, resync: bool = Fals
 
 def multitask_zoo(gp, seed: int, card: str) -> dict:
     """Phase 19: each multitask model at the ModelDef's default widths from
-    its ``configs/multitask/<model>/config.yaml``, batch 32 (32 tasks for
+    its ``configs/multitask/<model>/config.yaml``, batch 32 (``MT_TWIN_TASKS`` for
     maml, 5 tasks of 32 rows for metaheac): a module on the card and its twin
     on the CPU from one seed, one inference forward and three train steps on
     four of the model's example batches (``_mt_twin``); outputs
@@ -2496,7 +2531,7 @@ def multitask_paths(gp, work: str, seed: int, card: str) -> dict:
         adaptation above 0.2 (chance); K1 and K1b launches per step and per
         evaluated batch as ``mt_launches`` says;
       * mmoe and esmm exported from their checkpoints and served by
-        ``run_predict`` at batch 32 and 1024 (ten timed batches of 1024),
+        ``run_predict`` at batch 32 and 1024 (``REST_SERVE_TIMED`` timed batches of 1024),
         the first 512 rows against the port's CPU run (atol 1e-5); metaheac
         served at batch 32 through its grad-enabled inference, every
         prediction against the CPU run;
@@ -2616,7 +2651,7 @@ def multitask_paths(gp, work: str, seed: int, card: str) -> dict:
         shutil.rmtree(export_dir)
     # metaheac's and maml's steps run many thousands of kernels: the
     # profiler's own bookkeeping grows with them, so those two profile one step
-    for model, iters in (("esmm", 20), ("metaheac", 1), ("maml", 1)):
+    for model, iters in (("esmm", 5), ("metaheac", 1), ("maml", 1)):
         emit({"profile_train": profile_train(mt_config(model), SEQ_BATCH, seed, iters=iters),
               "card": card})
     return out
@@ -2976,7 +3011,7 @@ def match_paths(gp, work: str, seed: int, card: str) -> dict:
         checkpoint with ``pnr``/``auc`` above 0.5; K1 and K1b launches per
         table, step and evaluated batch;
       * match_pyramid, textcnn and tagspace exported from their checkpoints
-        and served by ``run_predict`` at batch 32 and 1024 (ten timed
+        and served by ``run_predict`` at batch 32 and 1024 (``REST_SERVE_TIMED`` timed
         batches of 1024), kim at batch 32, the first rows against the port's
         CPU run (atol 1e-5; tagspace, whose aux holds no prediction that
         ``run_predict`` writes, on its similarities through
@@ -3097,7 +3132,7 @@ def match_paths(gp, work: str, seed: int, card: str) -> dict:
             or not on_card["analogy_acc"] >= 0.4):
         raise AssertionError(f"analogy_eval: card {on_card}, CPU {on_cpu}")
     emit({"analogy_eval": {"card": on_card, "cpu": on_cpu}, "card": card})
-    for model, iters in (("match.kim", 3), ("contentunderstanding.tagspace", 20)):
+    for model, iters in (("match.kim", 3), ("contentunderstanding.tagspace", 5)):
         emit({"profile_train": profile_train(slice_config(model), SEQ_BATCH, seed, iters=iters),
               "card": card})
     return out
@@ -3112,6 +3147,8 @@ MATCH_SHAPES = (
     ("match_pyramid left + right words, B=32", 193368, 50, 32 * 520, 1, True),
     ("match_pyramid left + right words, B=1024", 193368, 50, 1024 * 520, 1, False),
     ("kim title words, 50 clicked + 5 candidates", 1891, 300, 32 * 55 * 30, 1, True),
+    ("kim title words, the CPU twin's batch (phase 23)", 1891, 300,
+     TWIN_ROWS["match.kim"] * 55 * 30, 1, True),
     ("textcnn words, B=32", 33257, 128, 32 * 100, 1, True),
     ("textcnn words, B=1024", 33257, 128, 1024 * 100, 1, False),
     ("tagspace text, B=32", 75378, 10, 32 * 32, 1, True),
@@ -3178,7 +3215,7 @@ GRAPH_SLICE = ("recall.deepwalk", "graph.gnn", "graph.lightgcn", "graph.transfor
 # mhcn's two are the batch's rows of its final user and item embeddings
 GRAPH_LAUNCHES = {"recall.tisas": (5, 5), "recall.ensfm": (4, 5), "recall.mhcn": (2, 2)}
 GRAPH_SERVE = (SEQ_BATCH, 1024)
-SERVE_CALLS = 301  # a warm-up and 300 timed calls a batch size
+SERVE_CALLS = 101  # a warm-up and 100 timed calls a batch size
 TISAS_CANDIDATES = 100  # scored a row when served: TiSASRec's 1 + 99 protocol
 GRAPH_STEPS = 30  # mind's, tisas's, ensfm's and mhcn's steps an epoch at batch 32
 # BlogCatalog (Tang & Liu, KDD 2009; DeepWalk's graph, the configs' 10,312
@@ -3686,7 +3723,7 @@ def graph_paths(gp, work: str, seed: int, card: str) -> dict:
               "card": card})
         shutil.rmtree(export_dir)
     for model in ("recall.tisas", "recall.mind"):
-        emit({"profile_train": profile_train(graph_config(model), SEQ_BATCH, seed, iters=20),
+        emit({"profile_train": profile_train(graph_config(model), SEQ_BATCH, seed, iters=5),
               "card": card})
     return out
 
@@ -4317,7 +4354,9 @@ SLICE_SHAPES = {
 
 
 class PhaseClock:
-    """Seconds of each phase of a run, from the end of the one before."""
+    """Seconds of each phase of a run, from the end of the one before.  Each
+    lap prints its line as the phase ends, so that a run cut short still
+    shows where it was."""
 
     def __init__(self):
         self.start = self.last = time.perf_counter()
@@ -4327,6 +4366,7 @@ class PhaseClock:
         now = time.perf_counter()
         self.seconds[name] = now - self.last
         self.last = now
+        emit({"phase": name, "seconds": self.seconds[name], "total_s": now - self.start})
 
     def line(self, card: str) -> dict:
         return {"phase_seconds": self.seconds, "total_s": self.last - self.start,
@@ -4390,7 +4430,7 @@ DIN = os.path.join(ROOT, "configs", "rank", "din", "config.yaml")
 ONLINE_DAY = "20240101"
 ONLINE_DONE = "to.hadoop.done"  # the producer's data donefile in each pass directory
 ONLINE_SPLIT = 360  # minutes a pass: four passes a day (slot_dnn, the 10^8 run)
-ONLINE_ROWS = 2048  # slot_dnn's rows a pass: 64 steps of its batch 32
+ONLINE_ROWS = 1024  # slot_dnn's rows a pass: 32 steps of its batch 32
 BIG_ONLINE_BATCHES = 3  # config_bigdata.yaml's batches of 8192 a pass
 DIN_ONLINE_ROWS = 512  # din's rows a pass: 16 steps of its batch 32
 # delete_threshold: a row shown once in the day (decayed to 0.98) is evicted
@@ -5336,11 +5376,62 @@ def host_first_steps(cfg, pass_file: str, seed: int) -> dict:
             "cache_elements_differing": int((rows[0] != rows[1]).sum())}
 
 
-def host_leg(cfg, seed: int) -> tuple:
+def _record_tier(table) -> list:
+    """Wrap ``table``'s ``begin_pass`` and ``end_pass`` so that each pass
+    appends ``[ids asked for, rows read, rows flushed]`` to the list
+    returned.  It keeps references: the pass loop writes neither array after
+    the call."""
+    log = []
+    begin, end = table.begin_pass, table.end_pass
+
+    def begin_pass(ids):
+        rows = begin(ids)
+        log.append([ids, rows, None])
+        return rows
+
+    def end_pass(cache):
+        end(cache)
+        log[-1][2] = cache
+
+    table.begin_pass, table.end_pass = begin_pass, end_pass
+    return log
+
+
+def replay_tier(table, log: list) -> dict:
+    """Replay the passes ``_record_tier`` kept of ``table`` (the spill leg's
+    tiered table) into a RAM-only ``HostTieredTable`` of the same seed: each
+    pass's rows read and the final ``snapshot_rows`` must be the RAM tier's
+    bitwise.  This holds the mmap tier (its prefetch, its eviction to disk and
+    its reads back) to the RAM tier exactly, whatever order the card's float
+    atomics took in the training that produced the flushed rows."""
+    from paddlerec_tpu_torch.parallel.host_table import HostTieredTable
+
+    twin = HostTieredTable(table.vocab, table.dim, seed=table.seed,
+                           init_scale=table.init_scale, show_decay=table.show_decay)
+    differing = []
+    for ids, rows, flushed in log:
+        got = twin.begin_pass(ids)
+        differing.append(int((got != rows).sum()) if got.shape == rows.shape else None)
+        twin.end_pass(flushed)
+    ids_t, vals_t = twin.snapshot_rows()
+    ids_s, vals_s = table.snapshot_rows()
+    same_ids = bool(np.array_equal(ids_t, ids_s))
+    out = {"passes": len(log), "rows_read_differing": differing, "ids_equal": same_ids,
+           "rows": int(len(ids_s)),
+           "elements_differing": int((vals_t != vals_s).sum()) if same_ids else None}
+    if not (same_ids and out["elements_differing"] == 0 and differing
+            and all(d == 0 for d in differing)):
+        raise AssertionError(f"the spill tier disagrees with a RAM tier fed the same passes: {out}")
+    return out
+
+
+def host_leg(cfg, seed: int, record_tier: bool = False) -> tuple:
     """One epoch of ``HostTableTrainer.train()`` on the card: one K1 and one
     K1b launch a step, the loss finite and falling over the epoch, and the
     peak allocation held under cache + row state + dense parameters and
-    moments + 1 GB.  Returns (trainer, result)."""
+    moments + 1 GB.  With ``record_tier`` the table's passes are kept
+    (``_record_tier``) in the trainer's ``tier_log``.  Returns (trainer,
+    result)."""
     from paddlerec_tpu_torch.train.host_loop import HostTableTrainer
 
     gc.collect()
@@ -5350,6 +5441,7 @@ def host_leg(cfg, seed: int) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ht = HostTableTrainer(cfg)
+    ht.tier_log = _record_tier(ht.table) if record_tier else None
     ht.trainer.init_state(seed=seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -5402,12 +5494,17 @@ def host_table_phase(gp, work: str, seed: int, card: str) -> dict:
     ``write_host_table_data``'s three passes.  The first steps against the
     port's CPU run (``host_first_steps``); a RAM-only leg and a spill leg
     (``host_table_ram_rows`` 500,000, the mmap file under the work
-    directory: rows on disk), whose final ``snapshot_rows`` are the same ids
-    with values within rtol 2^-6 / atol 1e-5 (K1b's atomics add in another
-    order, so a row's bf16 rounding can differ by an ulp or two; the CPU
-    tests hold the tiers bitwise) and accumulators within rtol 1e-3; then
-    ``save``, ``load`` into a fresh trainer (the host tier and the dense
-    state bitwise) and one more pass.  Each leg's per-pass seconds (the
+    directory: rows on disk), whose final ``snapshot_rows`` hold the same
+    ids; the spill leg's passes replayed into a RAM-only tier
+    (``replay_tier``: every pass's rows read and the final rows bitwise, as
+    the CPU tests hold the tiers); then ``save``, ``load`` into a fresh
+    trainer (the host tier and the dense state bitwise) and one more pass.
+    The two legs' values and accumulators are printed, not bounded: they are
+    two trainings on the card, which K1b's float atomics do not make
+    bitwise reproducible, and in this regime (row-wise adagrad on bf16 rows
+    with stochastic rounding, accumulators near 1e-11) a float32 ulp of
+    difference grows through the run (``tools_dev/host_leg_drift.py``
+    measures how far).  Each leg's per-pass seconds (the
     host table's ``begin_pass``, the upload, the steps, the flush, the wait
     for the next pass's preparation), rows cached and rows in RAM and on
     disk are printed."""
@@ -5430,29 +5527,31 @@ def host_table_phase(gp, work: str, seed: int, card: str) -> dict:
     spill_dir = os.path.join(work, "host_spill")
     spill, out["spill"] = host_leg(host_config(data, seed, **{
         "runner.host_table_ram_rows": HOST_RAM_ROWS,
-        "runner.host_table_spill_dir": spill_dir}), seed)
+        "runner.host_table_spill_dir": spill_dir}), seed, record_tier=True)
     if not (spill.table.rows_on_disk > 0 and spill.table.rows_in_ram <= HOST_RAM_ROWS
             < spill.table.rows_resident):
         raise AssertionError(f"the spill leg: {out['spill']['rows_in_ram']} rows in RAM, "
                              f"{out['spill']['rows_on_disk']} on disk")
+    t_tier = time.perf_counter()
+    out["spill_tier_vs_ram_tier"] = replay_tier(spill.table, spill.tier_log)
+    out["spill_tier_vs_ram_tier"]["seconds"] = time.perf_counter() - t_tier
+    spill.tier_log = None
     ids_r, vals_r = ram.table.snapshot_rows()
     ids_s, vals_s = spill.table.snapshot_rows()
-    differ = vals_r != vals_s
-    out["spill_vs_ram"] = {
-        "rows": int(len(ids_r)), "ids_equal": bool(np.array_equal(ids_r, ids_s)),
-        "max_abs_err": float(np.abs(vals_r - vals_s).max()) if len(ids_r) == len(ids_s) else None,
-        "elements_differing": int(differ.sum()) if len(ids_r) == len(ids_s) else None,
-        "acc_max_rel_err": float((np.abs(ram.host_acc - spill.host_acc)
-                                  / np.maximum(np.abs(ram.host_acc), 1e-30)).max()),
-        "tolerance": {"rtol": 2 ** -6, "atol": 1e-5, "acc_rtol": 1e-3},
+    same = bool(np.array_equal(ids_r, ids_s))
+    out["spill_leg_vs_ram_leg"] = {
+        "rows": int(len(ids_r)), "ids_equal": same,
+        "max_abs_err": float(np.abs(vals_r - vals_s).max()) if same else None,
+        "elements_differing": int((vals_r != vals_s).sum()) if same else None,
+        "acc_max_abs_err": float(np.abs(ram.host_acc - spill.host_acc).max()),
+        "acc_rows_differing": int((ram.host_acc != spill.host_acc).sum()),
         "spill_file_bytes_on_disk": int(os.stat(os.path.join(
             spill_dir, "table_spill.npy")).st_blocks * 512),
     }
-    if not (out["spill_vs_ram"]["ids_equal"]
-            and np.allclose(vals_s, vals_r, rtol=2 ** -6, atol=1e-5)
-            and np.allclose(spill.host_acc, ram.host_acc, rtol=1e-3, atol=0)):
-        raise AssertionError(f"the spill leg disagrees with the RAM leg: {out['spill_vs_ram']}")
-    del spill, ids_s, vals_s, differ
+    if not same:
+        raise AssertionError(f"the spill leg's rows are not the RAM leg's: "
+                             f"{out['spill_leg_vs_ram_leg']}")
+    del spill, ids_s, vals_s
     gc.collect()
     shutil.rmtree(spill_dir)  # the spill file takes its full 6.4 GB on some disks
 
@@ -6025,7 +6124,13 @@ def kernel_libraries(sources, stem: str) -> dict:
     return libs
 
 
-def time_k1_shapes(gp, shapes, seed: int, variants=None) -> list:
+# the timing loops' iterations a shape at most: the whole run's, and those of
+# --only k1 / --only k1b, which keep the full counts for kernel work
+TIMING_ITERS = 100
+K1_ONLY_ITERS, K1B_ONLY_ITERS = 400, 300
+
+
+def time_k1_shapes(gp, shapes, seed: int, variants=None, cap: int = TIMING_ITERS) -> list:
     """K1 at each of ``shapes``: held against its plain version on the first
     id set (``k1_check``; it raises on a disagreement), then timed with CUDA
     events, the host queued ahead, beside the plain version, the library
@@ -6037,7 +6142,7 @@ def time_k1_shapes(gp, shapes, seed: int, variants=None) -> list:
     ``variants`` (label -> library from ``kernel_libraries``): each is checked the
     same way and timed in turns with the current kernel (variant, current,
     current, variant) through the same wrapper, so that both run on one
-    card in one call."""
+    card in one call.  ``cap``: the most timed iterations of a shape."""
     from torch.nn import functional as F
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -6054,7 +6159,7 @@ def time_k1_shapes(gp, shapes, seed: int, variants=None) -> list:
                                                    * max(shape.dim, 16) * table_es))))
                   if shape.ids in ("uniform", "tenth outside", "sorted unique") else 1)
         sets = [_k1_ids(shape, g) for _ in range(n_sets)]
-        iters = max(n_sets, min(400, int(4e9 / out_bytes)))
+        iters = max(n_sets, min(cap, int(4e9 / out_bytes)))
         err, ok, tol = k1_check(gp, table, sets[0], mask, out_dtype, shape.mode)
         row = {**shape._asdict(), "max_abs_err": err, "ok": ok, "tolerance": tol}
         if not ok:
@@ -6135,7 +6240,7 @@ def k1_only(gp, seed: int, card: str, against) -> None:
     shapes = (k1_shapes("main") + k1_shapes("seq") + k1_shapes("rest") + k1_shapes("mt")
               + k1_shapes("match") + k1_shapes("graph") + k1_shapes("tree")
               + k1_shapes("movie") + EXTRA_SHAPES)
-    rows = time_k1_shapes(gp, shapes, seed + 9, variants)
+    rows = time_k1_shapes(gp, shapes, seed + 9, variants, cap=K1_ONLY_ITERS)
     set_share(rows, floor_ms)
     for row in rows:
         emit({"k1": row, "card": card})
@@ -6295,7 +6400,7 @@ def k1b_check(gp, grad, ids, mask, rows: int, dtype, mode: str):
 
 
 @_uncounted
-def time_k1b_shapes(gp, shapes, seed: int, variants=None) -> list:
+def time_k1b_shapes(gp, shapes, seed: int, variants=None, cap: int = TIMING_ITERS) -> list:
     """K1b at each of ``shapes``: held against its plain version on the first
     id set (``k1b_check``; it raises on a disagreement), then timed with
     CUDA events, the host queued ahead, beside the plain version, the
@@ -6306,7 +6411,8 @@ def time_k1b_shapes(gp, shapes, seed: int, variants=None) -> list:
 
     ``variants`` (label -> library from ``kernel_libraries``): each is
     checked the same way and timed in turns with the current kernel
-    (variant, current, current, variant) through the same wrapper."""
+    (variant, current, current, variant) through the same wrapper.  ``cap``:
+    the most timed iterations of a shape."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     rng = np.random.RandomState(seed)
     own = gp._lib("gather_pool_bwd") if variants else None
@@ -6319,7 +6425,7 @@ def time_k1b_shapes(gp, shapes, seed: int, variants=None) -> list:
                 if shape.masked else None)
         out_es, g_es = (torch.finfo(t).bits // 8 for t in (dtype, g_dtype))
         out_bytes = rows * shape.dim * out_es
-        iters = max(2 * len(sets), min(300, int(8e9 / out_bytes)))
+        iters = max(2 * len(sets), min(cap, int(8e9 / out_bytes)))
         err, ok, tol, adds = k1b_check(gp, grad, sets[0], mask, rows, dtype, shape.mode)
         row = {**shape._asdict(), "rows": rows, "max_abs_err": err, "ok": ok,
                "tolerance": tol, "most_adds_per_row": adds}
@@ -6401,7 +6507,7 @@ def k1b_only(gp, seed: int, card: str, against) -> None:
     shapes = sum((k1b_shapes(group) for group in
                   ("main", "compact", "seq", "rest", "mt", "match", "graph", "tree", "movie",
                    "extra")), ())
-    rows = time_k1b_shapes(gp, shapes, seed + 9, variants)
+    rows = time_k1b_shapes(gp, shapes, seed + 9, variants, cap=K1B_ONLY_ITERS)
     set_share(rows, floor_ms)
     for row in rows:
         emit({"k1b": row, "card": card})
@@ -6463,6 +6569,10 @@ FI_ATOL = 1e-4
 COMPRESSED_ATOL = 0.02  # phase 42: predictions of the int8 artifact
 TIPC_DNN = os.path.join(ROOT, "test_tipc", "configs", "dnn", "train_infer_python.txt")
 ENGINE_STEPS = 3  # phase 45: lookups and backwards of the engine
+# the launched phases' waits, each at most 3x the phase's seconds (phase 45
+# measured 16.8 s, phases 46-47 30.2 s: NVIDIA H100 80GB HBM3, 700 W): the
+# launcher stops the ranks at the first, this script waits a little longer
+ENGINE_TIMEOUT, MESH_TIMEOUT = 45, 80
 ENGINE_LR = 0.1
 DEEPFM_512_K1 = (125001 * 8, 16, "float32", API_BATCH * SLOTS, 1)
 # phase 44's lookups: dnn's TIPC table (vocab 10,000, dim 8: the 8-lane view
@@ -6610,11 +6720,11 @@ def engine_phase(work: str, seed: int, card: str) -> dict:
     os.makedirs(out)
     log_path = os.path.join(out, "rank.log")
     cmd = [sys.executable, "-m", "paddlerec_tpu_torch.tools.launch", "--nproc", "1",
-           "--backend", "nccl", "--", sys.executable, os.path.abspath(__file__),
-           "--engine-rank", out, "--seed", str(seed)]
+           "--backend", "nccl", "--timeout", str(ENGINE_TIMEOUT), "--", sys.executable,
+           os.path.abspath(__file__), "--engine-rank", out, "--seed", str(seed)]
     with open(log_path, "w") as log:
         rc = subprocess.run(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
-                            timeout=600).returncode
+                            timeout=ENGINE_TIMEOUT + 5).returncode
     if rc != 0:
         raise AssertionError(f"the engine's rank exited {rc}:\n{open(log_path).read()[-6000:]}")
     with open(os.path.join(out, "engine.json")) as f:
@@ -6904,12 +7014,12 @@ def mesh_phase(work: str, seed: int, card: str) -> dict:
     os.makedirs(out)
     log_path = os.path.join(out, "rank.log")
     cmd = [sys.executable, "-m", "paddlerec_tpu_torch.tools.launch", "--nproc",
-           str(MESH_DP * MESH_MP), "--backend", "gloo", "--", sys.executable,
-           os.path.abspath(__file__), "--mesh-rank", out, "--seed", str(seed)]
+           str(MESH_DP * MESH_MP), "--backend", "gloo", "--timeout", str(MESH_TIMEOUT), "--",
+           sys.executable, os.path.abspath(__file__), "--mesh-rank", out, "--seed", str(seed)]
     t0 = time.perf_counter()
     with open(log_path, "w") as log:
         rc = subprocess.run(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
-                            timeout=900).returncode
+                            timeout=MESH_TIMEOUT + 10).returncode
     launch_s = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"a mesh rank exited {rc}:\n{open(log_path).read()[-8000:]}")
@@ -7436,19 +7546,678 @@ def mesh_only(gp, seed: int, card: str) -> None:
     emit(clock.line(card))
 
 
+# -- phases 49-51: geo, FL and the online day across processes ----------------
+GEO_BATCH, GEO_K = 512, 4  # phase 49: config.yaml's DeepFM at batch 512, k = 4
+GEO_FILE_BATCHES = (4, 3, 2)  # batches of each seeded file: rank 0 reads files 0 and 2
+FL_ROUNDS = 2  # phase 50: FedAvg rounds of one local epoch, half the clients a round
+GEO_KEEP = 4  # the last geo touched-row gathers whose ids rank 0 keeps for timing
+ONLINE51_ROWS = 1024  # phase 51: slot_dnn's rows a pass, 16 batches of 32 a dp row
+ONLINE51_SPLIT = 720  # minutes a pass: two passes a day
+# phases 49-50, the card's ranks against the CPU ranks of the same launch from
+# the same start: float32 sums in another order through lazy Adam's
+# m / sqrt(v) (MESH_TOL's parameter bars); the replicas bitwise
+GEO_TOL = {"param": 5e-5, "param_share_beyond_1e-5": 1e-3}
+# phase 51, 2x2 against the 1x1 run of the same global batches: as phase 46
+# (plain Adam on slot_dnn's table); the stats, evictions and delta keys exact
+ONLINE51_TOL = {"value": 5e-5, "param": 5e-5, "param_share_beyond_1e-5": 1e-3}
+# the launches' wait, at most 3x the phases' seconds (45.6 s, the three launches
+# together 40.2 s: NVIDIA H100 80GB HBM3, 700 W): the launcher stops their
+# ranks at 120 s, this script waits 15 s more
+CROSS_TIMEOUT = 120
+RANK_GROUP_TIMEOUT = 60  # init_from_env: a rank whose peers hang fails within it
+
+
+def geo_config(mode: str, data: str, seed: int):
+    """``config.yaml``'s DeepFM at full width with ``runner.sync_mode`` ``geo``
+    (``GEO_K`` local steps a round) or ``fl`` (``FL_ROUNDS`` rounds, half the
+    clients a round)."""
+    from paddlerec_tpu_torch.core.config import Config, load_config
+
+    flat = dict(load_config(CONFIG).to_dict())
+    flat.update({"runner.train_data_dir": data, "runner.train_batch_size": GEO_BATCH,
+                 "runner.epochs": 1, "runner.print_interval": 1000, "runner.reader_type": "",
+                 "runner.model_save_path": None, "runner.seed": seed,
+                 "runner.sync_mode": mode})
+    if mode == "geo":
+        flat["runner.geo_k_steps"] = GEO_K
+    else:
+        # the coordinator's draws from seed + 3: at --seed 0 the plan takes
+        # both clients in round 0 and one in round 1
+        flat.update({"runner.fl_rounds": FL_ROUNDS, "runner.fl_local_epochs": 1,
+                     "runner.fl_client_fraction": 0.5, "runner.seed": seed + 3})
+    return Config(flat)
+
+
+def write_geo_data(data_dir: str, vocab: int, seed: int) -> None:
+    """Three slotbin files of ``GEO_FILE_BATCHES`` batches of planted-signal
+    rows: the workers' shards are uneven (rank 0 reads files 0 and 2)."""
+    from paddlerec_tpu_torch.data.binary import write_slotbin
+    from paddlerec_tpu_torch.data.synthetic import synthetic_batch
+
+    os.makedirs(data_dir)
+    rng = np.random.RandomState(seed)
+    for i, batches in enumerate(GEO_FILE_BATCHES):
+        part = synthetic_batch(rng, batches * GEO_BATCH, vocab=vocab)
+        write_slotbin(os.path.join(data_dir, f"part-{i}.bin"), part["label"],
+                      part["sparse"].astype(np.int32), part["dense"])
+
+
+def _by_shape(counter) -> list:
+    return [[*k, v] for k, v in counter.items()]
+
+
+def geo_rank(out_dir: str, seed: int, device: str) -> int:
+    """A launched rank of phases 49-50 (``tools.launch --nproc 2 --backend
+    gloo``; ``device`` cuda, both ranks on the one card, or cpu for the CPU
+    run of the same launch).  From the same start (``geo_init.pt``) it trains
+    geo through ``Trainer.train()``, then FL through ``FLTrainer.train()``,
+    and writes per mode: its steps, each rendezvous' step counts, weights,
+    bytes and a fingerprint of its parameters after it, its K1 and K1b
+    launches by shape, and its final parameters.  Rank 0 on the card keeps
+    the ids of the last geo touched-row gathers for phase 51's timing."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from paddlerec_tpu_torch.ops import embedding as emb_ops
+    from paddlerec_tpu_torch.ops import gather_pool as gp
+    from paddlerec_tpu_torch.tools.launch import init_from_env
+    from paddlerec_tpu_torch.train.fl import FLTrainer
+    from paddlerec_tpu_torch.train.trainer import Trainer
+
+    if device == "cpu":
+        torch.set_num_threads(2)
+    dev = init_from_env(device, timeout_s=RANK_GROUP_TIMEOUT)
+    rank = dist.get_rank()
+    work = os.path.dirname(out_dir)
+    init = torch.load(os.path.join(work, "geo_init.pt"), weights_only=True)
+    kept = []
+    take_rows = emb_ops.take_rows
+
+    def keep(x, ids, *args, **kwargs):
+        if rank == 0 and dev.type == "cuda":
+            kept.append((tuple(x.shape), ids.detach().clone()))
+            del kept[:-GEO_KEEP]
+        return take_rows(x, ids, *args, **kwargs)
+
+    emb_ops.take_rows = keep
+    result = {"device": str(dev)}
+    for mode in ("geo", "fl"):
+        cfg = geo_config(mode, os.path.join(work, "geo_data"), seed)
+        trainer = (FLTrainer if mode == "fl" else Trainer)(cfg, device=dev)
+        trainer.init_state()
+        trainer.state.module.load_state_dict({k: v.to(dev) for k, v in init.items()})
+        steps, syncs = [0], []
+        step, sync = trainer.train_step, trainer._geo_sync
+
+        def counted(*args, _step=step):
+            steps[0] += 1
+            return _step(*args)
+
+        def recorded(counts, weights=None, _sync=sync, _t=trainer):
+            _sync(counts, weights)
+            syncs.append({"counts": np.asarray(counts).tolist(),
+                          "weights": None if weights is None else np.asarray(weights).tolist(),
+                          "bytes": _t._geo_last_sync_bytes,
+                          "fingerprint": sum(_fingerprint(v.reshape(v.shape[0] if v.dim() else 1, -1))
+                                             for v in _t.state.module.state_dict().values())})
+
+        trainer.train_step, trainer._geo_sync = counted, recorded
+        gp.gather_pool.launches_by_shape.clear()
+        gp.gather_pool_bwd.launches_by_shape.clear()
+        t0 = time.perf_counter()
+        metrics = trainer.train()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        result[mode] = {
+            "seconds": time.perf_counter() - t0, "steps": steps[0], "syncs": syncs,
+            "max_sync_bytes": trainer._geo_max_sync_bytes,
+            "total_ins": metrics.get("total_ins"), "auc": metrics.get("auc"),
+            "plan": ([trainer.plan(r).tolist() for r in range(trainer.rounds)]
+                     if mode == "fl" else None),
+            "k1_by_shape": _by_shape(gp.gather_pool.launches_by_shape),
+            "k1b_by_shape": _by_shape(gp.gather_pool_bwd.launches_by_shape)}
+        torch.save({k: v.detach().cpu() for k, v in trainer.state.module.state_dict().items()},
+                   os.path.join(out_dir, f"{mode}_{rank}.pt"))
+        del trainer
+    if kept:
+        torch.save(kept, os.path.join(out_dir, "kept_geo.pt"))
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def online_cross_config(data: str, out: str, seed: int, dp: int, mp: int, batch: int):
+    """slot_dnn's config at full width for the online day of phase 51 on a
+    ``dp × mp`` mesh (the table sharded over mp), ``batch`` rows a dp row."""
+    return online_config(SLOT_DNN, data, out, **{
+        "runner.split_interval": ONLINE51_SPLIT, "runner.checkpoint_per_pass": 1,
+        "runner.save_first_base": True, "runner.seed": seed,
+        "runner.train_batch_size": batch, "runner.infer_batch_size": batch,
+        "runner.mesh_dp": dp, "runner.mesh_mp": mp,
+        "hyper_parameters.distributed_embedding": int(mp > 1)})
+
+
+def online_cross_rank(out_dir: str, seed: int) -> int:
+    """A launched rank of phase 51 (``tools.launch --nproc 4 --backend gloo``,
+    every rank on the one card): slot_dnn's online day on 2×2 through
+    ``OnlineTrainer.run()``.  Each delta is checked as it is published: the
+    union of the dp rows' touched rows, and rank 0's cube shards against K1's
+    gather of those rows from the table gathered whole over mp, bitwise.
+    Writes its stats, evictions, shard, delta keys and values (rank 0), K1
+    and K1b launches by shape (the delta gathers apart), and rank 0 keeps the
+    ids of the engine's last gathers and scatters and of the delta gathers
+    for the timing."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from paddlerec_tpu_torch.ops import gather_pool as gp
+    from paddlerec_tpu_torch.parallel import embedding as emb
+    from paddlerec_tpu_torch.tools.launch import init_from_env
+    from paddlerec_tpu_torch.train import online as online_mod
+
+    dev = init_from_env(None, timeout_s=RANK_GROUP_TIMEOUT)
+    rank = dist.get_rank()
+    work = os.path.dirname(out_dir)
+    cfg = online_cross_config(os.path.join(work, "online51"), os.path.join(out_dir, "model"),
+                              seed, MESH_DP, MESH_MP, 32)
+    trainer = online_mod.OnlineTrainer(cfg, device=dev)
+    kept = {"k1": [], "k1b": [], "delta": []}
+    k1, k1b, take_rows = emb.gather_pool, emb.gather_pool_bwd, online_mod.take_rows
+    deltas = {"launches": 0, "n": [], "exports": 0}
+    export_table = online_mod.export_table
+
+    def counted_export(*args, **kwargs):  # a delta table's cube shards written
+        deltas["exports"] += 1
+        return export_table(*args, **kwargs)
+
+    online_mod.export_table = counted_export
+
+    def keep_k1(table, ids, *args, **kwargs):
+        kept["k1"] = (kept["k1"] + [(tuple(table.shape), ids.detach().clone())])[-MESH_KEEP:]
+        return k1(table, ids, *args, **kwargs)
+
+    def keep_k1b(g, ids, mask, rows, *args, **kwargs):
+        kept["k1b"] = (kept["k1b"] + [(g.detach().clone(), ids.detach().clone(), rows)]
+                       )[-MESH_KEEP:]
+        return k1b(g, ids, mask, rows, *args, **kwargs)
+
+    def counted_rows(x, ids, *args, **kwargs):
+        deltas["launches"] += 1
+        deltas["n"].append(int(ids.numel()))
+        if rank == 0:
+            kept["delta"].append((tuple(x.shape), ids.detach().clone()))
+        return take_rows(x, ids, *args, **kwargs)
+
+    if rank == 0:
+        emb.gather_pool, emb.gather_pool_bwd = keep_k1, keep_k1b
+    online_mod.take_rows = counted_rows
+    evicted, published = [], {}
+    shrink, save_delta = trainer.shrink, trainer.save_delta
+    trainer.shrink = lambda: evicted.append(shrink()) or evicted[-1]
+
+    def checked_delta(save_root, tag):
+        masks = {n: trainer._union_touched(m) for n, m in trainer._touched.items()}
+        whole = {n: emb._all_gather(t.detach(), trainer.mesh)
+                 for n, t in trainer._embedding_entries()}
+        path = save_delta(save_root, tag)
+        if rank == 0:
+            # the delta against K1's gather from the whole tables
+            tables = types.SimpleNamespace(_embedding_entries=lambda: list(whole.items()))
+            keys, vals, _ = _uncounted(check_cube_delta)(gp, tables, path, masks)
+            published[tag] = {n: (keys[n], vals[n]) for n in keys}
+        return path
+
+    trainer.save_delta = checked_delta
+    gp.gather_pool.launches_by_shape.clear()
+    gp.gather_pool_bwd.launches_by_shape.clear()
+    t0 = time.perf_counter()
+    metrics = trainer.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    st = trainer.stats["embedding/embedding"]
+    shard = trainer.state.module.embedding.embedding.detach()
+    torch.save({"seconds": seconds, "auc": metrics.get("auc"), "evicted": evicted,
+                "show": torch.from_numpy(st.show.copy()), "seen": torch.from_numpy(st.seen.copy()),
+                "unseen_days": torch.from_numpy(st.unseen_days.copy()),
+                "shard": shard.cpu(), "mp_index": trainer.mesh.mp_index,
+                "sharded": sorted(trainer._sharded), "published": published,
+                "delta_launches": deltas["launches"], "delta_n": deltas["n"],
+                "delta_exports": deltas["exports"],
+                "k1_by_shape": _by_shape(gp.gather_pool.launches_by_shape),
+                "k1b_by_shape": _by_shape(gp.gather_pool_bwd.launches_by_shape)},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    if rank == 0:
+        torch.save(kept, os.path.join(out_dir, "kept.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _launch_ranks(nproc: int, flag: str, out: str, seed: int, extra=()) -> tuple:
+    """``tools.launch --nproc N --backend gloo --timeout CROSS_TIMEOUT`` of
+    this script's ``flag`` ranks, started without waiting: (process, log)."""
+    os.makedirs(out)
+    log = open(os.path.join(out, "rank.log"), "w")
+    cmd = [sys.executable, "-m", "paddlerec_tpu_torch.tools.launch", "--nproc", str(nproc),
+           "--backend", "gloo", "--timeout", str(CROSS_TIMEOUT), "--", sys.executable,
+           os.path.abspath(__file__), flag, out, "--seed", str(seed), *extra]
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT), log
+
+
+def _finish_ranks(proc, log, what: str) -> None:
+    try:
+        rc = proc.wait(timeout=CROSS_TIMEOUT + 15)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "a timeout"
+    log.close()
+    if rc != 0:
+        raise AssertionError(f"the {what} ranks exited {rc}:\n{open(log.name).read()[-8000:]}")
+
+
+@_uncounted
+def _online_one_device(cfg, data: str):
+    """Phase 51's reference: the 1×1 ``OnlineTrainer`` on the card (its own
+    seed: the mesh's start), fed the global batches of the 2×2 run (dp row
+    i's batch of its file shard the i-th part of each).  Not the main path:
+    its launches stay out of the counts."""
+    from paddlerec_tpu_torch.data.binary import BinarySlotDataset
+    from paddlerec_tpu_torch.data.slot_reader import list_data_files, shard_files
+    from paddlerec_tpu_torch.train.online import OnlineTrainer
+
+    class Global:
+        def __init__(self, dirs):
+            self.dirs = dirs
+
+        def __iter__(self):
+            for d in self.dirs:
+                files = list_data_files(d)
+                rows = [BinarySlotDataset([f for f in shard_files(files, i, MESH_DP)
+                                           if f.endswith(".bin")], 32)
+                        for i in range(MESH_DP)]
+                for parts in zip(*rows):
+                    yield {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+    ref = OnlineTrainer(cfg)
+    ref._prepare_pass = lambda dirs, seed: Global(dirs)
+    evicted = []
+    shrink = ref.shrink
+    ref.shrink = lambda: evicted.append(shrink()) or evicted[-1]
+    ref.run()
+    torch.cuda.synchronize()
+    return ref, evicted
+
+
+def _share_beyond(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(((got.float() - want.float()).abs() > 1e-5).float().mean())
+
+
+def check_geo_fl(work: str, seed: int) -> dict:
+    """Phases 49-50's checks on the ranks' files: see ``cross_phases``."""
+    from paddlerec_tpu_torch.core.registry import load_model_def
+    from paddlerec_tpu_torch.data.binary import BinarySlotDataset
+    from paddlerec_tpu_torch.data.slot_reader import list_data_files, shard_files
+    from paddlerec_tpu_torch.train.touched import batch_rows_by_table
+
+    out = os.path.join(work, "geo")
+    card = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    cpu = torch.load(os.path.join(out + "_cpu", "rank0.pt"), weights_only=False)
+    init = torch.load(os.path.join(work, "geo_init.pt"), weights_only=True)
+    per_rank = (GEO_FILE_BATCHES[0] + GEO_FILE_BATCHES[2], GEO_FILE_BATCHES[1])
+    result = {}
+    for mode in ("geo", "fl"):
+        c0, c1 = (torch.load(os.path.join(out, f"{mode}_{r}.pt"), weights_only=True)
+                  for r in range(2))
+        twin = torch.load(os.path.join(out + "_cpu", f"{mode}_0.pt"), weights_only=True)
+        if not all(torch.equal(c0[k], c1[k]) for k in c0):
+            raise AssertionError(f"phase {mode}: the card's ranks' parameters differ")
+        syncs = [r[mode]["syncs"] for r in card]
+        if any(a["fingerprint"] != b["fingerprint"] for a, b in zip(*syncs)):
+            raise AssertionError(f"{mode}: the ranks differ after a rendezvous: {syncs}")
+        errs = {"param": max(_max_err(c0[k], twin[k]) for k in c0),
+                "param_share_beyond_1e-5": max(_share_beyond(c0[k], twin[k]) for k in c0)}
+        twin_syncs = [{k: v for k, v in s.items() if k != "fingerprint"}
+                      for s in cpu[mode]["syncs"]]
+        if (any(errs[k] > GEO_TOL[k] for k in GEO_TOL)
+                or twin_syncs != [{k: v for k, v in s.items() if k != "fingerprint"}
+                                  for s in syncs[0]]
+                or cpu[mode]["steps"] != card[0][mode]["steps"]):
+            raise AssertionError(f"{mode} on the card against its CPU run: {errs}, "
+                                 f"{syncs[0]} against {cpu[mode]['syncs']}")
+        entry = {"steps": [r[mode]["steps"] for r in card], "rendezvous": len(syncs[0]),
+                 "sync_bytes": [s["bytes"] for s in syncs[0]],
+                 "max_sync_bytes": card[0][mode]["max_sync_bytes"],
+                 "total_ins": card[0][mode]["total_ins"], "auc": card[0][mode]["auc"],
+                 "seconds": [r[mode]["seconds"] for r in card], "errors_vs_cpu": errs,
+                 "tolerance": GEO_TOL}
+        if mode == "geo":
+            # every worker trained all its batches; the rows no worker
+            # touched keep their initial bits, the touched ones moved
+            if entry["steps"] != list(per_rank) or entry["total_ins"] != sum(per_rank) * GEO_BATCH:
+                raise AssertionError(f"geo: steps {entry['steps']}, examples "
+                                     f"{entry['total_ins']}, not {per_rank}")
+            md = load_model_def(geo_config("geo", "", seed))
+            table = c0["embedding.embedding"]
+            files = list_data_files(os.path.join(work, "geo_data"))
+            touched = np.zeros(table.shape[0], bool)
+            # each worker's rows a round: the rendezvous ships the dense
+            # leaves whole and the largest worker's touched rows (int32 ids
+            # and float32 diffs) from every worker
+            dense = sum(v.numel() for k, v in c0.items()
+                        if k != "embedding.embedding" and v.is_floating_point())
+            rounds = []
+            for r in range(2):
+                batches = list(BinarySlotDataset(shard_files(files, r, 2), GEO_BATCH))
+                for i in range(0, len(batches), GEO_K):
+                    rows = np.unique(np.concatenate([
+                        batch_rows_by_table(md, b, {"embedding/embedding": table.shape[0]})
+                        ["embedding/embedding"] for b in batches[i:i + GEO_K]]))
+                    touched[rows] = True
+                    if len(rounds) <= i // GEO_K:
+                        rounds.append([0, 0])
+                    rounds[i // GEO_K][r] = len(rows)
+            want = [2 * dense * 4 + 2 * max(c) * (4 + table.shape[1] * 4) for c in rounds]
+            moved = (table != init["embedding.embedding"]).any(dim=1).numpy()
+            if moved[~touched].any() or not moved[touched].mean() > 0.99:
+                raise AssertionError(f"geo: {int(moved[~touched].sum())} untouched rows moved, "
+                                     f"{float(moved[touched].mean())} of the touched rows")
+            entry.update(touched_rows=int(touched.sum()), touched_by_round=rounds,
+                         table_bytes=int(table.numel() * table.element_size()))
+            if entry["sync_bytes"] != want:
+                raise AssertionError(f"geo's rendezvous shipped {entry['sync_bytes']} B, "
+                                     f"not {want}")
+        else:
+            plans = [r["fl"]["plan"] for r in card] + [cpu["fl"]["plan"]]
+            for rnd, s in enumerate(syncs[0]):
+                chosen = plans[0][rnd]
+                want = [per_rank[k] * GEO_BATCH * int(chosen[k]) for k in range(2)]
+                weights = np.asarray(want, np.float64) / sum(want)
+                if (s["counts"] != want or not np.allclose(s["weights"], weights, atol=1e-7)
+                        or not any(chosen)):
+                    raise AssertionError(f"fl round {rnd}: {s}, plan {chosen}")
+            if any(p != plans[0] for p in plans):
+                raise AssertionError(f"fl: the ranks' plans differ: {plans}")
+            entry["plan"] = plans[0]
+        result[mode] = entry
+    return result
+
+
+def check_online_cross(work: str, seed: int) -> dict:
+    """Phase 51's checks on the ranks' files and the 1×1 run: see
+    ``cross_phases``."""
+    from paddlerec_tpu_torch.native.cube import CubeClient
+
+    out = os.path.join(work, "online51_ranks")
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(MESH_DP * MESH_MP)]
+    root = os.path.join(out, "model")
+    ref_root = os.path.join(work, "online51_1x1")
+    cfg = online_cross_config(os.path.join(work, "online51"), ref_root, seed, 1, 1,
+                              MESH_DP * 32)
+    ref, evicted = _online_one_device(cfg, os.path.join(work, "online51"))
+    st = ref.stats["embedding/embedding"]
+    n = len(st.show)  # the 2x2 table's padding row past it: never shown, never seen
+    for r, got in enumerate(ranks):
+        for key in ("show", "seen", "unseen_days"):
+            ours = got[key].numpy()
+            if (ours[:n].tobytes() != getattr(st, key).tobytes()
+                    or (key != "unseen_days" and ours[n:].any())):
+                raise AssertionError(f"rank {r}: the merged {key} differ from the 1x1 run's")
+        if got["evicted"] != evicted or got["sharded"] != ["embedding.embedding"]:
+            raise AssertionError(f"rank {r}: evicted {got['evicted']} against {evicted}, "
+                                 f"sharded {got['sharded']}")
+        peer = ranks[got["mp_index"]]
+        if not torch.equal(got["shard"], peer["shard"]):
+            raise AssertionError(f"rank {r}: its shard differs from its replica's")
+    records, ref_records = _records(root), _records(ref_root)
+    exports = [r["delta_exports"] for r in ranks]
+    if (records != ref_records or len(records) != len(set(records))
+            or exports != [sum(kind == "delta" for *_, kind, _ in records)] + [0] * (len(ranks) - 1)):
+        raise AssertionError(f"the donefile: {records} against {ref_records}; the ranks wrote "
+                             f"{exports} delta tables")
+    errs = {"value": 0.0}
+    deltas = [rel for _, _, kind, rel in records if kind == "delta"]
+    if sorted(ranks[0]["published"]) != sorted(os.path.basename(d) for d in deltas):
+        raise AssertionError(f"rank 0 checked {sorted(ranks[0]['published'])}, not {deltas}")
+    for rel in deltas:
+        for name, (keys, vals) in ranks[0]["published"][os.path.basename(rel)].items():
+            shards = sorted(glob.glob(os.path.join(ref_root, rel, name.replace("/", "_"),
+                                                   "cube_shard_*.bin")))
+            want_keys = np.sort(np.concatenate([_shard_keys(s) for s in shards]))
+            with CubeClient(shards) as client:
+                want = client.seek(keys)
+            if not np.array_equal(keys, want_keys):
+                raise AssertionError(f"{rel}: {len(keys)} keys against the 1x1 run's "
+                                     f"{len(want_keys)}")
+            errs["value"] = max(errs["value"], float(np.abs(vals - want).max()))
+    table = ref.state.module.embedding.embedding.detach()
+    joined = torch.cat([ranks[j]["shard"] for j in range(MESH_MP)]).to(table.device)
+    joined = joined[:table.shape[0]]
+    errs["param"] = _max_err(joined, table)
+    errs["param_share_beyond_1e-5"] = _share_beyond(joined, table)
+    if any(errs[k] > ONLINE51_TOL[k] for k in ONLINE51_TOL) or not evicted[0] > 0:
+        raise AssertionError(f"phase 51 against the 1x1 run: {errs}, evicted {evicted}")
+    del ref
+    return {"passes": len(deltas), "records": len(records), "evicted": evicted[0],
+            "seen_rows": int(st.seen.sum()), "delta_keys": [
+                int(sum(len(k) for k, _ in ranks[0]["published"][os.path.basename(d)].values()))
+                for d in deltas],
+            "errors": errs, "tolerance": ONLINE51_TOL,
+            "seconds": [r["seconds"] for r in ranks], "auc": ranks[0]["auc"],
+            "delta_launches": [r["delta_launches"] for r in ranks],
+            "rows_local": int(ranks[0]["shard"].shape[0])}
+
+
+@_uncounted
+def time_cross_kernels(gp, work: str, seed: int) -> tuple:
+    """Phase 51's timing: K1 and K1b at the new shapes of phases 49-51, on
+    the ids rank 0 kept: geo's touched-row gather from DeepFM's packed table
+    (125,001 × 128, clip, sorted distinct rows), the online day's delta
+    gathers from a shard of slot_dnn's table (62,501 × 128, clip) and the
+    engine's gather (drop, N = mp·C) and scatter on that shard at batch 32.
+    Each held against its plain version, then timed with CUDA events beside
+    the plain version, ``index_select`` (``index_add_`` for the scatter) and
+    the byte bound of what these ids need.  Returns (K1 cases, K1b cases)."""
+    geo = torch.load(os.path.join(work, "geo", "kept_geo.pt"), weights_only=False)
+    kept = torch.load(os.path.join(work, "online51_ranks", "kept.pt"), weights_only=False)
+    g = torch.Generator(device="cuda").manual_seed(seed + 51)
+    iters = 50
+    k1_cases, k1b_cases = [], []
+    for what, mode, entries in (("geo touched-row gather", "clip", geo),
+                                ("online delta gather from a shard", "clip", kept["delta"]),
+                                ("online engine shard gather", "drop", kept["k1"])):
+        (rows, dim), _ = entries[-1]
+        sets = [ids.cuda().reshape(-1, 1).to(torch.int32) for _, ids in entries]
+        table = torch.randn(rows, dim, device="cuda", generator=g) * 0.01
+        padded = torch.cat([table, table.new_zeros(1, dim)])
+        mapped = {id(s): torch.where(s < 0, rows, s).reshape(-1).long() for s in sets}
+        valid = sum(int((s >= 0).sum()) for s in sets) / len(sets)
+        n = sum(s.shape[0] for s in sets) / len(sets)
+        err, ok, tol = k1_check(gp, table, sets[-1], None, None, mode)
+        if not ok:
+            raise AssertionError(f"K1, {what} ({rows} rows): {err}")
+        device, call = _timed({
+            "ms": lambda s: gp.gather_pool(table, s, mode=mode),
+            "plain_ms": lambda s: gp.gather_pool_plain(table, s, mode=mode),
+            "library_ms": lambda s: padded.index_select(0, mapped[id(s)]),
+        }, sets, iters)
+        nbytes = valid * dim * 4 + n * 4 + n * dim * 4
+        k1_cases.append({
+            "name": f"{what} ({rows:,} × {dim} float32), N≈{n:,.0f}, {mode} (phases 49-51)",
+            "rows": rows, "dim": dim, "dtype": "float32", "n": int(round(n)), "pool": 1,
+            "mode": mode, "ids": what, "valid_ids": valid, "max_abs_err": err, "ok": ok,
+            "tolerance": tol, "iters": iters, **device, "library": "index_select",
+            "bytes": nbytes, "bound_by": "bytes",
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, n * dim / F32_FLOPS) * 1e3,
+            "call_ms": call, "phase": "49" if what.startswith("geo") else "51"})
+        del table, padded
+    sets = [(gm.cuda(), ids.cuda(), int(r)) for gm, ids, r in kept["k1b"]]
+    gm, ids, rows = sets[-1]
+    n, dim = gm.shape
+    err, ok, tol, adds = k1b_check(gp, gm, ids, None, rows, torch.float32, "drop")
+    if not ok:
+        raise AssertionError(f"K1b, the online engine's scatter: {err}")
+    valid_ids = {id(s): s[1].reshape(-1).long()[s[1].reshape(-1) >= 0] for s in sets}
+    valid_g = {id(s): s[0][s[1].reshape(-1) >= 0] for s in sets}
+    device, call = _timed({
+        "ms": lambda s: gp.gather_pool_bwd(s[0], s[1], None, s[2], mode="drop"),
+        "plain_ms": lambda s: gp.gather_pool_bwd_plain(s[0], s[1], None, s[2], mode="drop"),
+        "library_ms": lambda s: torch.zeros(s[2], dim, device="cuda").index_add_(
+            0, valid_ids[id(s)], valid_g[id(s)]),
+    }, sets, iters)
+    valid = sum(int((s[1] >= 0).sum()) for s in sets) / len(sets)
+    nbytes = rows * dim * 4 + valid * dim * 4 + n * 4
+    k1b_cases.append({
+        "name": f"online engine shard scatter ({rows:,} × {dim} float32), N=mp·C={n:,}, "
+                "drop (phase 51)", "rows": rows, "dim": dim, "dtype": "float32", "n": n,
+        "ids": "mesh buckets", "valid_ids": valid, "max_abs_err": err, "ok": ok,
+        "tolerance": tol, "most_adds_per_row": adds, "iters": iters, **device,
+        "library": "index_add_", "bytes": nbytes, "bound_by": "bytes",
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, valid * dim / F32_FLOPS) * 1e3,
+        "call_ms": call, "phase": "51"})
+    return k1_cases, k1b_cases
+
+
+def cross_phases(gp, work: str, seed: int, card: str, clock: PhaseClock) -> tuple:
+    """Phases 49-51, their launches started together (each through
+    ``tools.launch --backend gloo --timeout``, its ranks joining with a
+    ``RANK_GROUP_TIMEOUT`` s group timeout):
+
+    * 49: ``config.yaml``'s DeepFM at full width, ``sync_mode: geo`` with k =
+      ``GEO_K`` at batch 512, 2 ranks on the card over uneven shards (three
+      seeded files: 6 and 3 batches), and the same launch on the CPU, both
+      from one start (``geo_init.pt``): every worker trained all its batches,
+      every rank's parameters bitwise equal after each rendezvous, the rows
+      no worker touched at their initial bits, the rendezvous bytes, the
+      card against the CPU run (``GEO_TOL``) and the same rendezvous;
+    * 50: the same ranks, ``sync_mode: fl``, ``FL_ROUNDS`` rounds, half the
+      clients a round: the plan the same on every rank, the weights the
+      chosen clients' example counts over their sum, the ranks bitwise equal
+      after each round, the card against the CPU run;
+    * 51: slot_dnn's online day of two passes on 2×2 (4 ranks on the card,
+      the table sharded over mp): each delta the union of the dp rows'
+      touched rows and rank 0's shards K1's gather of them from the table
+      gathered whole, the merged stats and shrink's evictions the same on
+      every rank and the 1×1 run's, the donefile written once, the shards'
+      replicas bitwise equal, deltas and table against the 1×1 run of the
+      same global batches (``ONLINE51_TOL``).
+
+    Then K1 and K1b at the new shapes (``time_cross_kernels``).  Returns (K1
+    cases, K1b cases, the DeepFM view's K1 and K1b launches at B=512 of the
+    geo ranks, K1 launches, K1b launches, the phases' numbers)."""
+    from paddlerec_tpu_torch.core.registry import load_model_def
+    from paddlerec_tpu_torch.train.trainer import Trainer
+
+    vocab = MESH_VOCAB
+    write_geo_data(os.path.join(work, "geo_data"), vocab, seed + 49)
+    write_online_day(os.path.join(work, "online51"), ONLINE51_SPLIT,
+                     lambda d, s: write_train_data(d, ONLINE51_ROWS, vocab, s), seed + 51)
+    init = Trainer(geo_config("geo", "", seed))
+    init.init_state()
+    torch.save({k: v.detach().cpu() for k, v in init.state.module.state_dict().items()},
+               os.path.join(work, "geo_init.pt"))
+    del init
+    t0 = time.perf_counter()
+    launches = [
+        (_launch_ranks(2, "--geo-rank", os.path.join(work, "geo"), seed), "geo card"),
+        (_launch_ranks(2, "--geo-rank", os.path.join(work, "geo_cpu"), seed,
+                       ("--rank-device", "cpu")), "geo CPU"),
+        (_launch_ranks(MESH_DP * MESH_MP, "--online-rank", os.path.join(work, "online51_ranks"),
+                       seed), "online 2x2"),
+    ]
+    for (proc, log), what in launches:
+        _finish_ranks(proc, log, what)
+    launch_s = time.perf_counter() - t0
+    geo = check_geo_fl(work, seed)
+    emit({"geo_49": geo["geo"], "card": card})
+    emit({"fl_50": geo["fl"], "card": card})
+    online = check_online_cross(work, seed)
+    online["launch_s"] = launch_s
+    emit({"online_51": online, "card": card})
+    clock.lap("49-51 geo, FL, the online day across processes")
+    k1_cases, k1b_cases = time_cross_kernels(gp, work, seed)
+    # the launches of the ranks' main path, by shape: the geo ranks' DeepFM
+    # view (phase 7's B=512 rows) and touched-row gathers, the online ranks'
+    # engine gathers, delta gathers and scatters
+    card_ranks = [torch.load(os.path.join(work, "geo", f"rank{r}.pt"), weights_only=False)
+                  for r in range(2)]
+    online_ranks = [torch.load(os.path.join(work, "online51_ranks", f"rank{r}.pt"),
+                               weights_only=False) for r in range(MESH_DP * MESH_MP)]
+    view_k1 = view_k1b = geo_k1 = 0
+    view = (-(-vocab // 8) * 8, 16, "float32", GEO_BATCH * SLOTS)
+    for r in card_ranks:
+        for mode in ("geo", "fl"):
+            for *key, v in r[mode]["k1_by_shape"]:
+                if tuple(key) == (*view, 1):
+                    view_k1 += v
+                elif tuple(key[:3]) == (k1_cases[0]["rows"], 128, "float32") and key[4] == 1:
+                    geo_k1 += v
+                else:
+                    raise AssertionError(f"a geo rank launched K1 at {key}")
+            for *key, v in r[mode]["k1b_by_shape"]:
+                if tuple(key) != view:
+                    raise AssertionError(f"a geo rank launched K1b at {key}")
+                view_k1b += v
+    shard_k1 = sum(v for r in online_ranks for *key, v in r["k1_by_shape"])
+    delta_k1 = sum(r["delta_launches"] for r in online_ranks)
+    engine_k1b = sum(v for r in online_ranks for *key, v in r["k1b_by_shape"])
+    if any(tuple(key[:3]) != (online["rows_local"], 128, "float32")
+           for r in online_ranks for *key, _ in r["k1_by_shape"] + r["k1b_by_shape"]):
+        raise AssertionError("an online rank launched a kernel off its shard")
+    k1_cases[0]["launches"], k1_cases[1]["launches"] = geo_k1, delta_k1
+    k1_cases[2]["launches"] = shard_k1 - delta_k1
+    k1b_cases[0]["launches"] = engine_k1b
+    if not (view_k1 > 0 and view_k1b > 0
+            and all(c["launches"] > 0 for c in k1_cases + k1b_cases)):
+        raise AssertionError(f"phases 49-51 launched K1 at the view {view_k1}, K1b {view_k1b}, "
+                             f"{[(c['name'], c['launches']) for c in k1_cases + k1b_cases]}")
+    clock.lap("49-51 K1/K1b at their shapes")
+    return (k1_cases, k1b_cases, view_k1, view_k1b, view_k1 + shard_k1 + geo_k1,
+            view_k1b + engine_k1b, {"geo": geo, "online": online})
+
+
+def cross_only(gp, seed: int, card: str) -> None:
+    """``--only 49-51``: phases 49-51, one JSON line a K1 and a K1b shape,
+    and the phases' seconds."""
+    clock = PhaseClock()
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        k1_cases, k1b_cases, view_k1, view_k1b, k1, k1b, _ = cross_phases(
+            gp, work, seed, card, clock)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    floor_ms = time_launch_floor(gp)
+    set_share(k1_cases, floor_ms)
+    set_share(k1b_cases, floor_ms)
+    for row in k1_cases:
+        emit({"k1": row, "card": card})
+    for row in k1b_cases:
+        emit({"k1b": row, "card": card})
+    emit({"cross_only": {"k1_launches": k1, "k1b_launches": k1b,
+                         "deepfm_view_b512_k1": view_k1, "deepfm_view_b512_k1b": view_k1b,
+                         "launch_floor_ms": floor_ms}, "card": card})
+    emit(clock.line(card))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", choices=("k1", "k1b", "29-32", "33-36", "37-41", "42-45",
-                                           "46-48"),
+                                           "46-48", "49-51"),
                         help="k1 (k1b): phases 1-2, K1's (K1b's) checks of phase 3, then "
                              "that kernel checked and timed at every shape; 29-32 (33-36, "
-                             "37-41, 42-45, 46-48): phases 1-2 and 29-32 (33-36, 37-41, "
-                             "42-45, 46-48) (default: every phase)")
-    # phase 45's and phases 46-47's launched ranks (tools.launch sets their
-    # group up): not for users
+                             "37-41, 42-45, 46-48, 49-51): phases 1-2 and 29-32 (33-36, "
+                             "37-41, 42-45, 46-48, 49-51) (default: every phase)")
+    # the launched ranks of phase 45, phases 46-47 and phases 49-51
+    # (tools.launch sets their group up): not for users
     parser.add_argument("--engine-rank", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--mesh-rank", metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("--geo-rank", metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("--online-rank", metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("--rank-device", default="cuda", choices=("cuda", "cpu"),
+                        help=argparse.SUPPRESS)
     parser.add_argument("--against", action="append", default=[], metavar="SOURCE.cu",
                         help="with --only: another source of that kernel with the same C "
                              "interface, built and timed in turns with the current one")
@@ -7462,6 +8231,10 @@ def main(argv=None) -> int:
         return engine_rank(args.engine_rank, args.seed)
     if args.mesh_rank:
         return mesh_rank(args.mesh_rank, args.seed)
+    if args.geo_rank:
+        return geo_rank(args.geo_rank, args.seed, args.rank_device)
+    if args.online_rank:
+        return online_cross_rank(args.online_rank, args.seed)
     sys.path.insert(0, ROOT)
     from paddlerec_tpu_torch.core.config import load_config
     from paddlerec_tpu_torch.data.schema import schema_from_config
@@ -7493,8 +8266,10 @@ def main(argv=None) -> int:
             host_only(gp, args.seed, card)
         elif args.only == "42-45":
             api_only(gp, args.seed, card)
-        else:
+        elif args.only == "46-48":
             mesh_only(gp, args.seed, card)
+        else:
+            cross_only(gp, args.seed, card)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -7626,7 +8401,7 @@ def main(argv=None) -> int:
         for model in ("dcn_v2", "xdeepfm"):
             emit({"profile_train": profile_train(
                 train_config(zoo_config(model), work, BATCHES[-1]), BATCHES[-1],
-                args.seed), "card": card})
+                args.seed, iters=5), "card": card})
         gc.collect()
         torch.cuda.empty_cache()
         clock.lap("12 zoo paths")
@@ -7704,12 +8479,15 @@ def main(argv=None) -> int:
         # phases 46-48: the trainer on a 2x2 mesh of ranks, their shapes
         mesh_cases, mesh_bwd_cases, mesh_k1, mesh_k1b = mesh_phases(
             gp, work, args.seed, card, clock)
+        # phases 49-51: geo, FL and the online day across processes, their shapes
+        cross_cases, cross_bwd_cases, cross_view_k1, cross_view_k1b, cross_k1, cross_k1b, _ = (
+            cross_phases(gp, work, args.seed, card, clock))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for case, batch in zip(cases, BATCHES):
         case["launches"] = launches[batch]
     cases[-1]["launches"] += host_rest["deepfm_k1"]  # phases 38 and 40
-    cases[0]["launches"] += api_deepfm_k1  # phases 42 and 43
+    cases[0]["launches"] += api_deepfm_k1 + cross_view_k1  # phases 42-43, 49-50
     # K1b's rows also carry their count by run (DeepFM's runs, the sparse
     # deepfm run) or by row width (the rest), each of which must be above 0
     for case, batch in zip(bwd_cases, BATCHES):
@@ -7823,9 +8601,10 @@ def main(argv=None) -> int:
     # ranks in theirs (phases 46-47), which counted their launches: their rows
     # join after the attribution by this process's keys
     bwd_all.append(engine["k1b"])
-    bwd_all.extend(mesh_bwd_cases)
-    k1_launches += engine["k1_launches"] + mesh_k1
-    k1b_launches += engine["k1b_launches"] + mesh_k1b
+    bwd_all.extend(mesh_bwd_cases + cross_bwd_cases)
+    bwd_cases[0]["launches"] += cross_view_k1b  # phases 49-50's ranks at DeepFM's B=512 view
+    k1_launches += engine["k1_launches"] + mesh_k1 + cross_k1
+    k1b_launches += engine["k1b_launches"] + mesh_k1b + cross_k1b
     for case in bwd_all:
         # card time lost to the floor a run: launches × (ms − max(bound, floor))
         case["lost_ms"] = case["launches"] * max(
@@ -7851,7 +8630,7 @@ def main(argv=None) -> int:
          max(main_err, sparse["lookup"]["k1_err"]),
          cases + zoo_cases + big_cases + seq_cases + rest_cases + mt_cases + match_cases
          + graph_cases + slice_cases + online_cases + host_cases + api_cases
-         + [engine["k1"]] + mesh_cases,
+         + [engine["k1"]] + mesh_cases + cross_cases,
          cases[-1]),
         # the JAX package has no kernel for the gradient: K1b takes the
         # place of the XLA scatter-add of _packed_lookup_bwd

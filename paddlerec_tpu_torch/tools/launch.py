@@ -17,7 +17,7 @@ stops the others, which would wait for it in a collective.
 
 Usage:
     python -m paddlerec_tpu_torch.tools.launch --nproc 2 --backend gloo \
-        -- python my_script.py
+        [--timeout SECONDS] -- python my_script.py
     python -m paddlerec_tpu_torch.tools.launch --nproc 4 --backend gloo -- \
         python -m paddlerec_tpu_torch.tools.train -m configs/rank/deepfm/config.yaml \
         -o runner.mesh_dp=2 runner.mesh_mp=2 [--device cpu]
@@ -132,13 +132,15 @@ def main(argv=None):
                              "or several ranks on one card")
     parser.add_argument("--port", type=int, default=0,
                         help="MASTER_PORT (default: a free port)")
+    parser.add_argument("--timeout", type=float, default=None,
+                        help="seconds after which every rank is stopped (exit code 124)")
     parser.add_argument("cmd", nargs=argparse.REMAINDER,
                         help="-- command to launch")
     args = parser.parse_args(argv)
     cmd = args.cmd[1:] if args.cmd and args.cmd[0] == "--" else args.cmd
     if not cmd:
         parser.error("no command given (put it after --)")
-    return launch(args.nproc, cmd, args.backend, args.port or None)
+    return launch(args.nproc, cmd, args.backend, args.port or None, args.timeout)
 
 
 if __name__ == "__main__":

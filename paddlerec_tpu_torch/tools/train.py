@@ -7,7 +7,9 @@ Usage (same flags, plus ``--device``):
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card it raises.
 ``runner.use_host_table: true`` trains through the host-tiered pass loop
-(``train/host_loop.py`` ``HostTableTrainer``), as the JAX CLI does.
+(``train/host_loop.py`` ``HostTableTrainer``), and ``runner.sync_mode: fl``
+through the federated rounds (``train/fl.py`` ``FLTrainer``), as the JAX CLI
+does.
 
 Under ``tools.launch`` (``WORLD_SIZE`` > 1) each process joins the group
 first (``maybe_init_distributed``) and drives one rank of the ``(dp, mp)``
@@ -17,6 +19,13 @@ mesh of ``runner.mesh_dp`` / ``runner.mesh_mp`` /
     python -m paddlerec_tpu_torch.tools.launch --nproc 4 --backend gloo -- \
         python -m paddlerec_tpu_torch.tools.train -m configs/rank/deepfm/config.yaml \
         -o runner.mesh_dp=2 runner.mesh_mp=2 [--device cpu]
+
+Geo and FL take one process a worker, each on its own file shard:
+
+    python -m paddlerec_tpu_torch.tools.launch --nproc 2 --backend gloo -- \
+        python -m paddlerec_tpu_torch.tools.train -m configs/rank/deepfm/config.yaml \
+        -o runner.sync_mode=geo runner.geo_k_steps=4 [--device cpu]
+    ... -o runner.sync_mode=fl runner.fl_rounds=2 runner.fl_client_fraction=0.5
 """
 
 from __future__ import annotations
@@ -61,6 +70,11 @@ def main(argv=None):
         from paddlerec_tpu_torch.train.host_loop import HostTableTrainer
 
         trainer = HostTableTrainer(config, device=args.device)
+    elif str(config.runner("sync_mode", "") or "").lower() == "fl":
+        # federated rounds over private per-process shards (FL-PS analog)
+        from paddlerec_tpu_torch.train.fl import FLTrainer
+
+        trainer = FLTrainer(config, device=args.device)
     else:
         trainer = Trainer(config, device=args.device)
     metrics = trainer.train()

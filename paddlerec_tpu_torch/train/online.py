@@ -24,10 +24,22 @@ K1 launch (``ops/embedding.py`` ``take_rows``, float32 out, from a bfloat16
 table as well) and unpacks them with numpy.
 
 Roots reach their filesystem through ``utils/fs.py`` ``get_fs`` (local
-paths, ``gs://`` with google-cloud-storage installed).  Not ported yet: the
-multi-host halves of the JAX loop (the sparse allgathers of stats and
-touched rows, the sharded row gather, stats merged across hosts).  At one
-process the union of touched rows is this process's own.
+paths, ``gs://`` with google-cloud-storage installed).
+
+**Across processes** (``tools.launch``; one rank of the trainer's ``(dp,
+mp)`` mesh a process) each dp row trains its share of a pass (its file shard,
+or with ``runner.global_shuffle`` its rows ``[dp_index::dp]`` of every file),
+and the tables past ``MIN_ROWS_TO_SHARD`` are row-sharded over mp behind the
+engine of ``SlotEmbedding``.  The bookkeeping names a sharded table by its
+whole padded rows (``train/touched.py``).  Each dp row observed only its own
+batches, so the lifecycle stats merge before they are saved or evict
+(``FeatureStats(track_base=True)``: each row's show increments since the last
+merge, ``_allgather_sparse`` over the dp group, applied in row order, so every
+rank holds the same bits) and a delta covers the union of the dp rows'
+touched rows.  A delta's rows are read off each shard with one K1 launch and
+gathered over the mesh row.  Rank 0 alone writes the donefile, the stats,
+the deltas and the bases; every rank takes part in every collective, and
+``shrink`` zeroes the same rows on every replica of a shard.
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from paddlerec_tpu_torch.convert import is_embedding_path
 from paddlerec_tpu_torch.core import metrics as metrics_lib
@@ -49,10 +62,10 @@ from paddlerec_tpu_torch.native.cube import export_table
 from paddlerec_tpu_torch.ops.embedding import take_rows
 from paddlerec_tpu_torch.ops.packed_embedding import sub_width
 from paddlerec_tpu_torch.ops.sparse_update import SENTINEL
-from paddlerec_tpu_torch.parallel.mesh import world_size
+from paddlerec_tpu_torch.parallel.embedding import _all_gather
 from paddlerec_tpu_torch.train import checkpoint as ckpt_lib
 from paddlerec_tpu_torch.train.touched import batch_rows_by_table
-from paddlerec_tpu_torch.train.trainer import Trainer, logger
+from paddlerec_tpu_torch.train.trainer import Trainer, all_gather_np, logger, rank0_info
 from paddlerec_tpu_torch.utils.fs import get_fs
 
 
@@ -110,6 +123,32 @@ class _ArrayDataset:
             yield batch
 
 
+def _allgather_sparse(rows: np.ndarray, vals: Optional[np.ndarray], group,
+                      device: torch.device):
+    """Every member's (row ids[, values]) of ``group``, in group order, padded
+    to the largest count: the bytes follow the rows touched, never the table.
+    A collective: every member calls it in step.  Returns (rows by member,
+    values by member or None)."""
+    n = dist.get_world_size(group)
+    rows = np.asarray(rows, np.int64)
+    counts = all_gather_np(np.asarray([len(rows)], np.int64), device, group).reshape(-1)
+    cap = int(counts.max())
+    if cap == 0:
+        empty = [np.zeros(0, np.int64) for _ in range(n)]
+        return empty, (None if vals is None else
+                       [np.zeros((0,) + vals.shape[1:], vals.dtype) for _ in range(n)])
+    pad = np.zeros(cap, np.int64)
+    pad[:len(rows)] = rows
+    g_rows = all_gather_np(pad, device, group)
+    out_rows = [g_rows[h, :int(counts[h])] for h in range(n)]
+    if vals is None:
+        return out_rows, None
+    vpad = np.zeros((cap,) + vals.shape[1:], vals.dtype)
+    vpad[:len(vals)] = vals
+    g_vals = all_gather_np(vpad, device, group)
+    return out_rows, [g_vals[h, :int(counts[h])] for h in range(n)]
+
+
 class FeatureStats:
     """Per-row show counters with daily decay: feature lifecycle
     bookkeeping, a copy of the JAX package's (numpy only).
@@ -121,9 +160,10 @@ class FeatureStats:
     table row) and eviction zeroes the rows of the table and its optimizer
     moments.
 
-    ``track_base=True`` keeps a snapshot of ``show`` at the last merge, so
-    that ``local_delta``/``apply_global`` exchange only the rows observed
-    since: the multi-host merge, which the port's loop does not run yet.
+    ``track_base=True`` (dp > 1) keeps a snapshot of ``show`` at the last
+    merge, so that ``local_delta``/``apply_global`` exchange only the rows
+    observed since: each dp row sees only its own batches, and eviction and
+    the saved stats act on the merged view.
     """
 
     def __init__(self, num_rows: int, decay: float = 0.98,
@@ -228,12 +268,6 @@ class OnlineTrainer(Trainer):
             raise NotImplementedError(
                 "runner.use_host_table is not ported to the online loop of "
                 "paddlerec_tpu_torch (use tools/train.py's HostTableTrainer)")
-        if world_size() > 1:
-            # the multi-host halves of the day/pass loop (each host's share of
-            # a pass, the rank-0 publishing) are not ported yet
-            raise NotImplementedError(
-                "OnlineTrainer across processes is not ported to "
-                "paddlerec_tpu_torch yet")
         super().__init__(config, model_def=model_def, device=device)
         raw_days = config.runner("days", "")
         if isinstance(raw_days, (list, tuple)):
@@ -289,6 +323,8 @@ class OnlineTrainer(Trainer):
         return records[-1] if records else None
 
     def write_done(self, day: str, pass_id: int, path: str, kind: str) -> None:
+        if self.rank != 0:
+            return  # one writer: concurrent appends duplicate or interleave
         done = self._donefile()
         get_fs(done).append_line(done, json.dumps(
             {"day": day, "pass": pass_id, "path": path, "kind": kind, "ts": time.time()}))
@@ -319,10 +355,18 @@ class OnlineTrainer(Trainer):
     def _embedding_entries(self):
         """[(name, table)] for every embedding table of the module, by its
         flax-form name, in the JAX package's order (the flattened tree's,
-        sorted by path)."""
+        sorted by path).  A sharded table is this rank's shard."""
         entries = [(_flax_name(k), p) for k, p in self.state.module.named_parameters()
                    if is_embedding_path(k) and p.dim() >= 2]
         return sorted(entries, key=lambda e: e[0].split("/"))
+
+    def _is_sharded(self, name: str) -> bool:
+        return name.replace("/", ".") in self._sharded
+
+    def _table_rows(self, name: str, table: torch.Tensor) -> int:
+        """The rows of the whole table: a shard's rows times mp (the engine's
+        padded table), else its own."""
+        return table.shape[0] * (self.mesh.mp if self._is_sharded(name) else 1)
 
     def _ensure_tracking(self) -> bool:
         """Allocate the per-table touched masks and lifecycle stats once."""
@@ -332,9 +376,10 @@ class OnlineTrainer(Trainer):
         self._touched = {}
         self.stats = {}
         for name, table in entries:
-            self._touched[name] = np.zeros(table.shape[0], bool)
+            rows = self._table_rows(name, table)
+            self._touched[name] = np.zeros(rows, bool)
             if self._feature_lifecycle:
-                self.stats[name] = self._make_stats(table.shape[0])
+                self.stats[name] = self._make_stats(rows)
         if not entries:
             self._feature_lifecycle = False
         return bool(entries)
@@ -346,7 +391,24 @@ class OnlineTrainer(Trainer):
             delete_threshold=float(self.config.get("table_parameters.delete_threshold", 0.8)),
             delete_after_unseen_days=int(self.config.get(
                 "table_parameters.delete_after_unseen_days", 30)),
+            # each dp row observes only its own batches: the stats merge to
+            # the global view before eviction and persistence
+            track_base=self.mesh.dp > 1,
         )
+
+    def _merge_stats_global(self) -> None:
+        """A collective: merge the dp rows' lifecycle stats into the same
+        global view on every rank, over the dp group (the mp ranks of a row
+        observed the same batches).  The bytes follow the rows observed since
+        the last merge, never the table's."""
+        if self.mesh.dp <= 1 or not self.stats:
+            return
+        for name in sorted(self.stats):
+            st = self.stats[name]
+            rows, delta = st.local_delta()
+            g_rows, g_vals = _allgather_sparse(rows, delta, self.mesh.dp_group,
+                                               self._comm_device)
+            st.apply_global(g_rows, g_vals)
 
     def _observing(self, dataset):
         """Wrap a host-batch iterator: the feed's dedup of a sparse run, then
@@ -423,9 +485,17 @@ class OnlineTrainer(Trainer):
                 st.show = z[f"{k}--show"]
                 st.unseen_days = z[f"{k}--unseen_days"]
                 st.seen = z[f"{k}--seen"]
+                if st._show_base is not None:
+                    # every rank restores the same merged stats: a merge point
+                    st._show_base = st.show.copy()
 
     def _save_stats(self, save_root: str, tag: str) -> None:
-        if self.stats:
+        """A collective across processes: the stats merge to the global view,
+        then rank 0 alone writes them."""
+        if not self.stats:
+            return
+        self._merge_stats_global()
+        if self.rank == 0:
             self._write_stats_npz(os.path.join(save_root, f"{tag}_stats.npz"))
 
     def _load_stats(self, save_root: str, tag: str) -> None:
@@ -436,9 +506,11 @@ class OnlineTrainer(Trainer):
     def shrink(self) -> int:
         """Evict stale feature rows per table: zero the table's rows and
         its optimizer moments (matched by name, never by row count: two
-        tables may share one)."""
+        tables may share one).  A collective across processes: the stats
+        merge first, so every rank evicts the same rows."""
         if not self.stats:
             return 0
+        self._merge_stats_global()
         total = 0
         for name, st in self.stats.items():
             evict_rows = st.end_day()
@@ -446,13 +518,18 @@ class OnlineTrainer(Trainer):
                 continue
             total += len(evict_rows)
             self._zero_table_rows(name, evict_rows)
-            logger.info(f"shrink: evicted {len(evict_rows)} stale rows from {name}")
+            rank0_info(f"shrink: evicted {len(evict_rows)} stale rows from {name}")
         return total
 
     @torch.no_grad()
     def _zero_table_rows(self, name: str, evict_rows: np.ndarray) -> None:
-        rows = torch.as_tensor(evict_rows, dtype=torch.long, device=self.device)
         n_rows = len(self._touched[name])
+        if self._is_sharded(name):
+            # this rank's rows of the shard, and everything of it is a shard
+            n_rows //= self.mesh.mp
+            lo = self.mesh.mp_index * n_rows
+            evict_rows = evict_rows[(evict_rows >= lo) & (evict_rows < lo + n_rows)] - lo
+        rows = torch.as_tensor(evict_rows, dtype=torch.long, device=self.device)
         scope = name.rsplit("/", 1)[0]  # the module that owns the table
 
         def match(path: str, t: torch.Tensor) -> bool:
@@ -477,41 +554,74 @@ class OnlineTrainer(Trainer):
                         t[rows] = 0
 
     # -- delta publishing -----------------------------------------------------
+    def _union_touched(self, mask: np.ndarray) -> np.ndarray:
+        """The union of the dp rows' touched rows (each observed only its own
+        batches): a collective over the dp group that ships the row ids,
+        never the mask.  The mask itself at dp = 1."""
+        if self.mesh.dp <= 1:
+            return mask
+        g_rows, _ = _allgather_sparse(np.nonzero(mask)[0], None, self.mesh.dp_group,
+                                      self._comm_device)
+        union = np.zeros_like(mask)
+        for r in g_rows:
+            union[r] = True
+        return union
+
     @torch.no_grad()
-    def _gather_rows(self, table: torch.Tensor, rows: np.ndarray) -> np.ndarray:
-        """float32 values of ``rows`` of a table on the device, as a host
-        array: one K1 launch (clip mode; float32 out of a bfloat16 table)."""
-        idx = torch.from_numpy(rows.astype(np.int32)).to(self.device)
-        return take_rows(table.detach(), idx, out_dtype=torch.float32).cpu().numpy()
+    def _gather_rows(self, name: str, table: torch.Tensor, rows: np.ndarray) -> np.ndarray:
+        """float32 values of the ascending ``rows`` of a table on the device,
+        as a host array: one K1 launch (clip mode; float32 out of a bfloat16
+        table).  A sharded table's: each rank of the mesh row gathers the
+        rows of its shard, and the row's parts, padded to the largest, are
+        gathered in mp order (a collective over the row)."""
+        if not self._is_sharded(name):
+            idx = torch.from_numpy(rows.astype(np.int32)).to(self.device)
+            return take_rows(table.detach(), idx, out_dtype=torch.float32).cpu().numpy()
+        per, mp = table.shape[0], self.mesh.mp
+        bounds = np.searchsorted(rows, np.arange(mp + 1) * per)
+        cap = int(np.diff(bounds).max())
+        mine = rows[bounds[self.mesh.mp_index]:bounds[self.mesh.mp_index + 1]]
+        part = torch.zeros((cap, table.shape[1]), dtype=torch.float32, device=self.device)
+        if len(mine):
+            idx = torch.from_numpy((mine - self.mesh.mp_index * per).astype(np.int32))
+            part[:len(mine)] = take_rows(table.detach(), idx.to(self.device),
+                                         out_dtype=torch.float32)
+        parts = _all_gather(part, self.mesh).reshape(mp, cap, -1).cpu().numpy()
+        return np.concatenate([parts[k, :bounds[k + 1] - bounds[k]] for k in range(mp)])
 
     def save_delta(self, save_root: str, tag: str) -> str:
         """Mode-1 delta: publish only the rows touched since the last
         published artifact, as cube KV shards (logical id → vector) with
         ``delta_meta.json``; a table of another layout as
         ``<name>_delta.npz``.  The artifact's size is proportional to the
-        touched rows."""
+        touched rows.  A collective across processes (the union of the dp
+        rows' touched rows, the shards' gathers); rank 0 alone writes."""
         out_dir = os.path.join(save_root, tag)
         vocab = getattr(self.model_def, "vocab_size", None) or int(
             self.config.hyper("sparse_feature_number", 0))
         dim = int(getattr(self.model_def, "sparse_embed_logical_dim",
                           int(self.config.hyper("sparse_feature_dim", 9))))
-        os.makedirs(out_dir, exist_ok=True)
+        primary = self.rank == 0
+        if primary:
+            os.makedirs(out_dir, exist_ok=True)
         meta = {"rows_touched": 0, "vocab": int(vocab), "dim": dim, "tables": []}
         shards = int(self.config.runner("delta_cube_shards", 1))
         # every table publishes its own touched rows; tables without
         # bookkeeping were warned about when the batches were mapped
         for name, table in self._embedding_entries():
             mask = (self._touched or {}).get(name)
-            if mask is None or table.shape[0] != len(mask):
+            if mask is None or self._table_rows(name, table) != len(mask):
                 self._warn_untracked(name, "no touched mask at delta time")
                 continue
-            rows = np.nonzero(mask)[0]
+            rows = np.nonzero(self._union_touched(mask))[0]
             meta["rows_touched"] += int(len(rows))
             fname = name.replace("/", "_")
             if len(rows) == 0:
                 meta["tables"].append({"name": fname, "keys": 0})
                 continue
-            sub = self._gather_rows(table, rows)
+            sub = self._gather_rows(name, table, rows)
+            if not primary:
+                continue
             if sub.ndim == 2 and sub.shape[1] == 128 and vocab:
                 # packed physical rows → logical (id, vector) pairs
                 w = sub_width(dim)
@@ -529,9 +639,10 @@ class OnlineTrainer(Trainer):
                                     rows=rows, values=sub)
                 meta["tables"].append({"name": fname, "keys": int(len(rows)),
                                        "format": "npz"})
-        with open(os.path.join(out_dir, "delta_meta.json"), "w") as f:
-            json.dump(meta, f)
-        self._clear_touched()  # the next delta counts from here
+        if primary:
+            with open(os.path.join(out_dir, "delta_meta.json"), "w") as f:
+                json.dump(meta, f)
+        self._clear_touched()  # the next delta counts from here (every rank)
         return out_dir
 
     def _clear_touched(self) -> None:
@@ -542,11 +653,12 @@ class OnlineTrainer(Trainer):
     def _prepare_pass(self, dirs: List[str], seed: int):
         """Materialize a pass (the InMemoryDataset.load_into_memory analog).
 
-        With ``runner.global_shuffle`` every row of the pass's files is
-        loaded and permuted from ``seed`` (at one process the
-        redistribution across workers keeps every row); without it the
-        directories' datasets chain, and read their files as the feed
-        pulls them.  Reads files only: no device work."""
+        With ``runner.global_shuffle`` every dp row reads all the pass's
+        files and keeps their rows ``[dp_index::dp]`` (the dataset's
+        global_shuffle redistribution, decided alike everywhere), then
+        permutes them from ``seed + dp_index``; without it the directories'
+        datasets chain (the dp row's file shard), and read their files as the
+        feed pulls them.  Reads files only: no device work."""
         batch_size = int(self.config.runner("train_batch_size", 32))
         if not self.global_shuffle:
             return _ChainDataset([self.make_dataset(d, batch_size)
@@ -555,22 +667,23 @@ class OnlineTrainer(Trainer):
         from paddlerec_tpu_torch.data.slot_reader import list_data_files
 
         schema = schema_from_config(self.config)
+        rank, nproc = self._data_shard()
         labels, sparse, dense = [], [], []
         for d in dirs:
             if not get_fs(d).isdir(d):
                 continue
             for f in list_data_files(d):
                 la, sp, de = self._load_rows(f, schema)
-                labels.append(la)
-                sparse.append(sp)
-                dense.append(de)
+                labels.append(la[rank::nproc])
+                sparse.append(sp[rank::nproc])
+                dense.append(de[rank::nproc] if de is not None else None)
         if not labels:
             return _ChainDataset([])
         la = np.concatenate(labels)
         sp = np.concatenate(sparse)
         de = (np.concatenate([d for d in dense if d is not None])
               if any(d is not None for d in dense) else None)
-        perm = np.random.RandomState(seed).permutation(len(la))
+        perm = np.random.RandomState(seed + rank).permutation(len(la))
         return _ArrayDataset(la[perm], sp[perm], de[perm] if de is not None else None,
                              batch_size)
 
@@ -656,6 +769,18 @@ class OnlineTrainer(Trainer):
     def _phase(self, name: str, seconds: float) -> None:
         self.phase_times[name] = self.phase_times.get(name, 0.0) + seconds
 
+    def save_base(self, save_root: str, tag: str) -> Optional[str]:
+        """A mode-2 base (the parameters only) under save_root/tag.  Across
+        processes every rank takes part (the sharded tables gathered whole
+        over mp) and rank 0 writes; returns the path there, None on the
+        other ranks."""
+        params = self._whole(self.state.module.state_dict(), self._sharded)
+        path = (ckpt_lib.save_params_only(params, save_root, tag)
+                if self.rank == 0 else None)
+        if self.world > 1:
+            dist.barrier()  # the file is whole before any rank reads it
+        return path
+
     def train_pass(self, pass_dir, day: str, pass_id: int,
                    dataset=None) -> Dict[str, float]:
         dirs = [pass_dir] if isinstance(pass_dir, str) else list(pass_dir)
@@ -691,8 +816,8 @@ class OnlineTrainer(Trainer):
                         n_super += 1
                         if sync_every and n_super % sync_every == 0:
                             self._sync()
-                            logger.info(f"[day {day} pass {pass_id}] online eval "
-                                        f"staged superbatch {n_super}")
+                            rank0_info(f"[day {day} pass {pass_id}] online eval "
+                                       f"staged superbatch {n_super}")
                         if staged is not None:
                             staged_bytes += self._device_bytes(sb)
                             staged.append(("super", sb))
@@ -706,8 +831,8 @@ class OnlineTrainer(Trainer):
                     logger.warning("online pass exceeds resident_max_gb: the train "
                                    "leg restages over the link")
             m = self._compute_metrics(metric_state)
-            logger.info(f"[day {day} pass {pass_id}] "
-                        + metrics_lib.metrics_str(m, "online eval (pre-train)"))
+            rank0_info(f"[day {day} pass {pass_id}] "
+                       + metrics_lib.metrics_str(m, "online eval (pre-train)"))
             self._phase("infer", time.time() - t0)
 
         t0 = time.time()
@@ -732,8 +857,8 @@ class OnlineTrainer(Trainer):
         metrics = self._compute_metrics(metric_state) if self.use_auc else {}
         self._phase("train", time.time() - t0)
         if self.use_auc:
-            logger.info(f"[day {day} pass {pass_id}] "
-                        + metrics_lib.metrics_str(metrics, "train"))
+            rank0_info(f"[day {day} pass {pass_id}] "
+                       + metrics_lib.metrics_str(metrics, "train"))
         return metrics
 
     def run(self) -> Dict[str, float]:
@@ -747,7 +872,7 @@ class OnlineTrainer(Trainer):
         ckpts = [r for r in self._records() if r["kind"] == "checkpoint"]
         done = ckpts[-1] if ckpts else None
         if done:
-            logger.info(f"resuming state from {done['path']}")
+            rank0_info(f"resuming state from {done['path']}")
             tag = os.path.basename(done["path"])
             self.load_checkpoint(save_root, tag)
             self._load_stats(save_root, tag)
@@ -766,8 +891,7 @@ class OnlineTrainer(Trainer):
                 if not all(self.wait_for_data(d) for d in dirs):
                     continue  # no (complete) data for this pass
                 if first and self.save_first_base:
-                    path = ckpt_lib.save_params_only(
-                        self.state.module.state_dict(), save_root, f"base_{day}")
+                    path = self.save_base(save_root, f"base_{day}")
                     self.write_done(day, -1, path, "base")
                 first = False
 
@@ -786,9 +910,7 @@ class OnlineTrainer(Trainer):
                 t_pub = time.time()
                 if (pass_id + 1) % self.checkpoint_per_pass == 0:
                     tag = f"ckpt_{day}_{pass_id}"
-                    path = ckpt_lib.save_model(
-                        self.state.module.state_dict(), self.state.opt_state,
-                        save_root, tag, extra=self.state.extra)
+                    path = self.save_checkpoint(save_root, tag)
                     if self.stats is not None:
                         # the feature lifecycle survives restarts (the
                         # reference keeps show/click in the PS table)
@@ -803,12 +925,11 @@ class OnlineTrainer(Trainer):
             if not trained_this_day:
                 continue
             self.shrink()
-            path = ckpt_lib.save_params_only(
-                self.state.module.state_dict(), save_root, f"base_{day}")
+            path = self.save_base(save_root, f"base_{day}")
             self._clear_touched()  # deltas count from this base
             self.write_done(day, len(self.pass_intervals) - 1, path, "base")
         if self.phase_times:
-            logger.info("online loop phase breakdown: " + json.dumps(
+            rank0_info("online loop phase breakdown: " + json.dumps(
                 {k: round(v, 1) for k, v in sorted(self.phase_times.items())}))
             last_metrics = dict(last_metrics)
             for k, v in self.phase_times.items():

@@ -64,16 +64,32 @@ checkpoints; every rank takes part in every collective, the checkpoint's
 gather of each sharded table over mp among them.  The file holds the whole
 table at the engine's padded rows; loading cuts each rank's rows.
 
+**``runner.sync_mode: geo`` across processes** is the reference's PS-geo
+k-step local training: each process trains its own file shard (``shard_files``
+by rank) on a mesh of its own (1×1: no collective inside a step) for
+``runner.geo_k_steps`` steps, then every process joins a rendezvous that pushes
+the k-step diffs against the base all processes agreed on at the last one.
+The dense leaves' diffs are gathered whole and averaged over the workers that
+stepped; the tables' diffs only at the rows this process's batches touched
+(``train/touched.py``; read off the device with one K1 launch, ``take_rows``),
+summed into the base in worker order on the host, and the union of those rows
+written back (``index_copy_``).  A worker whose shard ran out keeps joining
+with zero steps until no worker has data, so the collective sequence never
+diverges.  Optimizer state stays local.  Table updates must stay on touched
+rows: geo refuses ``adamw`` and ``embedding_l2`` (at run time too) and turns
+Adam lazy.  ``train/fl.py`` ``FLTrainer`` runs FedAvg rounds on the same
+rendezvous with example-count weights.  The collectives are ``all_gather``s
+over the world group.  At one process geo trains as plain sync and ``fl``
+raises, as in the JAX package.
+
 The online day/pass loop (``train/online.py`` ``OnlineTrainer``) subclasses
 this trainer; the host-tiered pass loop (``train/host_loop.py``
-``HostTableTrainer``) drives one.  Not ported yet (``NotImplementedError``
-when the trainer is built): the geo and fl sync modes across processes and
-the online loop across processes.  At one process geo trains as plain sync
-and a 1×1 ``distributed_embedding`` mesh is accepted, as in the JAX package.
+``HostTableTrainer``) drives one.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import logging
 import os
@@ -132,13 +148,14 @@ def check_ported(config: Config, world: Optional[int] = None) -> Mesh:
     calls it).
 
     Every mesh that ``mesh_from_config`` resolves is accepted for sync
-    training.  At one process the reference's rules hold: ``runner.sync_mode:
-    geo`` trains as plain sync (it averages only across processes; one log
-    line says so) and ``sync_mode: fl`` raises its ``ValueError`` (a
-    federated run needs a client a process).  Still ``NotImplementedError``,
-    naming the key: geo and fl across processes; the online loop's
-    ``OnlineTrainer`` refuses more than one process itself.  Every optimizer
-    key of ``create_optimizer`` is ported."""
+    training.  ``runner.sync_mode: geo`` across processes gives each process
+    a local mesh (the config's at one process: 1×1 unless it asks for more,
+    which raises), as the JAX trainer's ``jax.local_devices()`` mesh.  At one
+    process the reference's rules hold: geo trains as plain sync (it
+    averages only across processes; one log line says so) and ``sync_mode:
+    fl`` raises its ``ValueError`` (a federated run needs a client a
+    process; ``train/fl.py`` runs it across processes).  Every optimizer key
+    of ``create_optimizer`` is ported."""
     world = world_size() if world is None else int(world)
     mode = str(config.runner("sync_mode", "") or "").lower()
     if mode == "fl" and world <= 1:
@@ -147,16 +164,23 @@ def check_ported(config: Config, world: Optional[int] = None) -> Mesh:
             "client with a private data shard); launch with tools/launch "
             "and torch.distributed"
         )
-    if mode in ("geo", "fl") and world > 1:
-        raise NotImplementedError(
-            f"runner.sync_mode: {mode} across processes is not ported to "
-            "paddlerec_tpu_torch yet"
-        )
+    if mode == "geo" and world > 1:
+        return mesh_from_config(config, 1)
     mesh = mesh_from_config(config, world)
     if mode == "geo":
         logger.info("sync_mode: geo at one process trains as plain sync "
                     "(parameters are averaged only across processes)")
     return mesh
+
+
+def all_gather_np(arr: np.ndarray, device: torch.device, group=None) -> np.ndarray:
+    """(members, *arr.shape): every member's array of the same shape and
+    dtype, in ``group``'s order (the world's by default), crossing on
+    ``device``."""
+    t = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.stack(parts).cpu().numpy()
 
 
 def _sum_over(tensors: List[torch.Tensor], group) -> None:
@@ -197,6 +221,19 @@ class Trainer:
         self.mesh = check_ported(config)
         self.world = world_size()
         self.rank = dist.get_rank() if self.world > 1 else 0
+        # runner.sync_mode: geo, k-step local training with a rendezvous
+        # that pushes the k-step diffs (reference PS-geo)
+        self.geo_k = 0
+        if str(config.runner("sync_mode", "") or "").lower() == "geo":
+            self.geo_k = int(config.runner("geo_k_steps", 100))
+        self._geo_local = bool(self.geo_k and self.world > 1)
+        if self._geo_local:
+            _geo_optimizer_keys(config)
+        self._geo_base: Optional[Dict[str, Dict[str, np.ndarray]]] = None
+        self._geo_touched: Dict[str, np.ndarray] = {}
+        self._geo_pending_rows: collections.deque = collections.deque()
+        self._geo_last_sync_bytes = self._geo_max_sync_bytes = 0
+        self._geo_untracked_warned: set = set()
         # host-side collectives (has-next flags, row ids) cross on the CPU
         # under gloo; NCCL takes only card tensors
         self._comm_device = (torch.device("cpu") if self.world <= 1
@@ -272,6 +309,15 @@ class Trainer:
         unknown = set(values) - set(hp)
         if unknown:
             raise KeyError(f"not injected hyperparams: {sorted(unknown)}")
+        if self._geo_local and float(values.get("embedding_l2", 0.0) or 0.0):
+            # the refusal at construction sees only the static config; a
+            # decay raised at run time would move every row each local step
+            # while the rendezvous ships touched-row diffs only
+            raise ValueError(
+                "sync_mode: geo does not compose with embedding_l2 "
+                "(runtime-injected or static) — untouched rows would "
+                "decay by different amounts on workers with uneven shards"
+            )
         hp.update({k: float(v) for k, v in values.items()})
 
     def load_checkpoint(self, root: str, tag, params_only: bool = False) -> None:
@@ -470,8 +516,7 @@ class Trainer:
                 return self.model_def.make_dataset(data_dir, batch_size,
                                                    shuffle)
         schema = schema_from_config(self.config)
-        # the ranks of a dp row read the same shard (one batch a row)
-        files = shard_files(list_data_files(data_dir), self.mesh.dp_index, self.mesh.dp)
+        files = shard_files(list_data_files(data_dir), *self._data_shard())
         reader_type = str(self.config.runner("reader_type", "")).lower()
         from paddlerec_tpu_torch.data.binary import BinarySlotDataset, is_slotbin
 
@@ -522,6 +567,14 @@ class Trainer:
             pipe_command=self.config.runner("pipe_command") or None,
         )
 
+    def _data_shard(self) -> tuple:
+        """(index, count) of this process's share of the files or rows: its
+        dp row's on a mesh (the ranks of a dp row read the same shard, one
+        batch a row), its own in geo (each worker a private shard)."""
+        if self._geo_local:
+            return self.rank, self.world
+        return self.mesh.dp_index, self.mesh.dp
+
     def _wire_encoder(self):
         """The compact wire encoding of a stream (runner.wire_format:
         compact; shrinks host→device bytes ~1.6x; decoded at the head of the
@@ -554,7 +607,9 @@ class Trainer:
                        for b in dataset)
         batches = self._rank_batches(self._wire_encode(dataset), allow_super,
                                      resident_key)
-        yield from (self._unanimous(batches) if self.world > 1 else batches)
+        # geo workers feed their own shard only: no global batches
+        global_batches = self.world > 1 and not self._geo_local
+        yield from (self._unanimous(batches) if global_batches else batches)
 
     def _all_have(self, has: bool) -> bool:
         """Whether every rank has a next batch: an all_reduce MIN over the
@@ -751,7 +806,7 @@ class Trainer:
         copies (the live state keeps counting this rank's).  A collective:
         every rank reads at the same steps.  The state itself at one
         process."""
-        if self.world <= 1 or not isinstance(metric_state, dict):
+        if self.world <= 1 or self._geo_local or not isinstance(metric_state, dict):
             return metric_state
         out = {k: v for k, v in metric_state.items() if k != "embedding_overflow"}
         copies = _clone_tree(out)
@@ -829,6 +884,208 @@ class Trainer:
             f"{k}={v:.6f}" for k, v in metrics.items()
         )
 
+    # -- geo (k-step local training with a touched-row diff push) ------------
+    def _geo_entries(self) -> Dict[str, torch.Tensor]:
+        """name → tensor of every leaf of the module's state (the flax-form
+        "/"-joined name; the tensors share the parameters' storage)."""
+        return {k.replace(".", "/"): v for k, v in self.state.module.state_dict().items()}
+
+    @torch.no_grad()
+    def _init_geo_state(self) -> None:
+        """The host-side base: the parameters every process agreed on at the
+        last rendezvous (the same everywhere: the same-seed start, then moved
+        in lockstep by ``_geo_sync``).  The diffs are taken against it."""
+        from paddlerec_tpu_torch.convert import is_embedding_path
+
+        self._geo_base = {"tables": {}, "dense": {}}
+        self._geo_touched = {}
+        for name, leaf in self._geo_entries().items():
+            if is_embedding_path(name) and leaf.dim() >= 2:
+                self._geo_base["tables"][name] = leaf.float().cpu().numpy().copy()
+                self._geo_touched[name] = np.zeros(leaf.shape[0], bool)
+            else:
+                self._geo_base["dense"][name] = _host(leaf).copy()
+        self._geo_last_sync_bytes = self._geo_max_sync_bytes = 0
+        self._geo_untracked_warned = set()
+
+    def _geo_observing(self, dataset):
+        """The rows each host batch touches, by table, queued in the feed's
+        thread and marked only when the loop takes the batch
+        (``_geo_mark_consumed``): the feed runs batches ahead, and marking
+        when a batch is read would let a rendezvous clear rows whose batch
+        is still queued, whose diffs would then never be pushed."""
+        from paddlerec_tpu_torch.train.touched import batch_rows_by_table
+
+        def warn(name, why):
+            if name not in self._geo_untracked_warned:
+                self._geo_untracked_warned.add(name)
+                logger.warning(
+                    f"geo: table {name!r} gets NO touched-row tracking "
+                    f"({why}) — its local updates will NEVER be pushed "
+                    "at rendezvous and workers WILL diverge on it; "
+                    "override ModelDef.touched_tables")
+
+        for batch in dataset:
+            rows_of = {}
+            if self._geo_touched:
+                rows_of = batch_rows_by_table(
+                    self.model_def, batch,
+                    {n: len(m) for n, m in self._geo_touched.items()}, warn=warn)
+            self._geo_pending_rows.append(rows_of)
+            yield batch
+
+    def _geo_mark_consumed(self) -> None:
+        """Mark the next queued batch's touched rows (FIFO, one entry a
+        batch)."""
+        if self._geo_pending_rows:
+            for name, rows in self._geo_pending_rows.popleft().items():
+                self._geo_touched[name][rows] = True
+
+    def _all_gather_np(self, arr: np.ndarray) -> np.ndarray:
+        return all_gather_np(arr, self._comm_device)
+
+    @torch.no_grad()
+    def _geo_sync(self, step_counts: np.ndarray,
+                  weights: Optional[np.ndarray] = None) -> None:
+        """One rendezvous: gather the k-step diffs, apply them to the base,
+        write the base back.  Every process calls it in lockstep.
+
+        * dense leaves: every worker's (current - base), gathered whole;
+          base += their mean over the workers that stepped (a worker with no
+          steps ships zeros and leaves the denominator).
+        * tables: only the rows this worker touched since the last
+          rendezvous, padded to the largest worker's count, (ids, diffs)
+          gathered; base += each worker's diffs in worker order on the host
+          (``np.add.at``, so that every process gets the same bits), and the
+          union of the rows written back to the device table.
+
+        ``weights`` (FedAvg, ``train/fl.py``): base += Σ w_k·Δ_k for the dense
+        leaves and the tables both."""
+        from paddlerec_tpu_torch.ops.embedding import take_rows
+
+        counts = np.asarray(step_counts)
+        n_active = int((counts > 0).sum())
+        self._geo_last_sync_bytes = 0
+        if n_active == 0:
+            return
+        if weights is None:
+            active = (counts > 0).astype(np.float32)
+            dense_w = active / n_active
+            table_w = np.ones_like(active)
+        else:
+            dense_w = table_w = np.asarray(weights, np.float32)
+        tables = self._geo_base["tables"]
+        entries = self._geo_entries()
+
+        # dense: one gather of the float diffs, concatenated
+        names = [n for n, b in self._geo_base["dense"].items()
+                 if np.issubdtype(b.dtype, np.floating)]
+        diffs = [_host(entries[n]).astype(np.float32)
+                 - self._geo_base["dense"][n].astype(np.float32) for n in names]
+        if names:
+            flat = np.concatenate([d.reshape(-1) for d in diffs])
+            gathered = self._all_gather_np(flat)
+            offset = 0
+            for n, d in zip(names, diffs):
+                stack = gathered[:, offset:offset + d.size].reshape((self.world,) + d.shape)
+                offset += d.size
+                self._geo_last_sync_bytes += stack.nbytes
+                upd = (self._geo_base["dense"][n].astype(np.float32)
+                       + np.tensordot(dense_w, stack, axes=1))
+                self._geo_base["dense"][n] = upd
+                leaf = entries[n]
+                leaf.copy_(torch.as_tensor(upd).reshape(leaf.shape).to(leaf.device, leaf.dtype))
+
+        # tables: the touched-row exchange, padded to the largest count
+        for name, base in tables.items():
+            leaf = entries[name]
+            mask = self._geo_touched[name]
+            rows = np.nonzero(mask)[0].astype(np.int64)
+            cnts = self._all_gather_np(np.asarray([len(rows)], np.int64)).reshape(-1)
+            cap = int(cnts.max())
+            mask[:] = False
+            if cap == 0:
+                continue
+            # the ids cross as int32, as the JAX package's allgather (without
+            # x64) ships them
+            rows_pad = np.zeros(cap, np.int32)
+            rows_pad[:len(rows)] = rows
+            diff_pad = np.zeros((cap,) + base.shape[1:], np.float32)
+            if len(rows):
+                idx = torch.from_numpy(rows).to(leaf.device)
+                vals = take_rows(leaf, idx, out_dtype=torch.float32).cpu().numpy()
+                diff_pad[:len(rows)] = vals - base[rows]
+            g_rows = self._all_gather_np(rows_pad)
+            g_diff = self._all_gather_np(diff_pad)
+            self._geo_last_sync_bytes += g_rows.nbytes + g_diff.nbytes
+            for w in range(self.world):
+                nw = int(cnts[w])
+                if nw and table_w[w]:
+                    # geo: each worker's k-step progress adds; fl: its
+                    # weighted FedAvg share
+                    np.add.at(base, g_rows[w, :nw], g_diff[w, :nw] * table_w[w])
+            union = np.unique(np.concatenate(
+                [g_rows[w, :int(cnts[w])] for w in range(self.world) if int(cnts[w])])
+                ).astype(np.int64)
+            idx = torch.from_numpy(union).to(leaf.device)
+            leaf.index_copy_(0, idx, torch.from_numpy(base[union]).to(leaf.device, leaf.dtype))
+        self._geo_max_sync_bytes = max(self._geo_max_sync_bytes, self._geo_last_sync_bytes)
+
+    def _geo_merge_metrics(self, metric_state):
+        """Every worker's metric state summed (the counts are additive), so
+        that the epoch's metrics cover all workers' data."""
+        if not isinstance(metric_state, dict):
+            return metric_state
+        merged = _clone_tree(metric_state)
+        _sum_over(_tensors(merged), None)
+        return merged
+
+    def _geo_rendezvous(self, has_more: bool, local_steps: int) -> bool:
+        """The k-step barrier: sync the parameters and learn whether any
+        worker still has data.  Every worker calls it in lockstep (an
+        exhausted one with ``has_more=False`` and zero steps)."""
+        flags = self._all_gather_np(
+            np.asarray([1 if has_more else 0, local_steps], np.int64)).reshape(-1, 2)
+        self._geo_sync(flags[:, 1])
+        return bool(flags[:, 0].max() > 0)
+
+    def _train_epoch_geo(self, dataset, metric_state, epoch: int, print_interval: int):
+        """One geo epoch: rounds of up to k local steps, each followed by a
+        rendezvous.  An exhausted worker keeps joining the rendezvous with
+        zero steps until every worker is done."""
+        if self._geo_base is None:
+            self._init_geo_state()
+        self._geo_pending_rows = collections.deque()
+        it = iter(self._device_batches(self._geo_observing(dataset), augment=True))
+        total = steps = 0
+        exhausted = False
+        round_begin = time.time()
+        while True:
+            done_in_round = 0
+            while done_in_round < self.geo_k and not exhausted:
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    exhausted = True
+                    break
+                self._geo_mark_consumed()
+                metric_state, loss = self.train_step(batch, metric_state)
+                total += self._batch_rows(batch)
+                steps += 1
+                done_in_round += 1
+                if steps % print_interval == 0:
+                    auc_str = self._auc_str(metric_state) if self.use_auc else ""
+                    logger.info(f"epoch: {epoch}, batch_id: {steps - 1}, {auc_str}"
+                                f"loss: {float(loss):.6f} (geo local, worker {self.rank})")
+            self._sync()
+            more = self._geo_rendezvous(not exhausted, done_in_round)
+            logger.info(f"geo sync: worker {self.rank} after {done_in_round} local steps "
+                        f"({time.time() - round_begin:.2f} s round)")
+            round_begin = time.time()
+            if not more:
+                break
+        return metric_state, total
+
     # -- loops ---------------------------------------------------------------------
     def train(self) -> Dict[str, float]:
         context.set_mesh(self.mesh)
@@ -871,6 +1128,23 @@ class Trainer:
         for epoch in range(start_epoch, epochs):
             metric_state = self._init_metric_state()
             epoch_begin = time.time()
+            if self._geo_local:
+                metric_state, total_samples = self._train_epoch_geo(
+                    dataset, metric_state, epoch, print_interval)
+                epoch_time = time.time() - epoch_begin
+                # the counts are additive: the workers' states summed
+                merged = self._geo_merge_metrics(metric_state)
+                last_metrics = self._compute_metrics(merged) if self.use_auc else {}
+                if self.use_auc:
+                    rank0_info("epoch: {} done (geo, k={}), {}, epoch time: {:.2f} s".format(
+                        epoch, self.geo_k, self._bundle_str(last_metrics, "train"),
+                        epoch_time))
+                if save_path:
+                    path = self.save_checkpoint(save_path, epoch)
+                    rank0_info(f"saved checkpoint to {path}")
+                last_metrics["epoch_time"] = epoch_time
+                last_metrics["ips"] = total_samples / max(epoch_time, 1e-9)
+                continue
             reader_start = time.time()
             reader_cost = train_cost = 0.0
             interval_samples = 0
@@ -1046,6 +1320,39 @@ def _dump_batch(out, batch_id: int, batch, aux, fields) -> None:
                "vars": {k: [float(x) for x in v[r].reshape(-1)]
                         for k, v in host.items()}}
         out.write(json.dumps(rec) + "\n")
+
+
+def _geo_optimizer_keys(config: Config) -> None:
+    """Refuse the optimizer keys geo cannot push, and turn Adam lazy.  The
+    rendezvous ships touched-row diffs only, so table updates must stay on
+    the rows with gradients: plain Adam's momentum moves every row once its
+    moments are non-zero (lazy Adam steps only the touched rows); adamw's
+    decay and embedding_l2 move every row every step."""
+    opt = str(config.hyper("optimizer.class", "Adam")).lower()
+    if opt == "adamw":
+        raise ValueError(
+            "sync_mode: geo needs update-on-touch table optimizers (touched-row "
+            "diff push); adamw's weight decay moves every row each step — use "
+            "adam (lazy), sgd, or adagrad")
+    if float(config.hyper("embedding_l2", 0.0) or 0.0):
+        raise ValueError(
+            "sync_mode: geo does not compose with embedding_l2 for the same "
+            "reason as adamw: the decoupled decay moves EVERY table row each "
+            "local step, but the rendezvous only ships touched-row diffs — "
+            "untouched rows would decay by different amounts on workers with "
+            "uneven shards and silently diverge")
+    if (opt == "adam" and not bool(config.hyper("optimizer.lazy_mode", False))
+            and not bool(config.hyper("sparse_update", False))):
+        config["hyper_parameters.optimizer.lazy_mode"] = True
+        logger.info("geo mode: forcing Adam lazy_mode so embedding updates stay "
+                    "confined to touched rows")
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a host array (bfloat16 as float32: numpy has no
+    bfloat16)."""
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 def _count_uniq(batch):

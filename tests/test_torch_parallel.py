@@ -318,8 +318,9 @@ class _Capture(logging.Handler):
 @pytest.mark.parametrize("flat,world,outcome", [
     ({"runner.sync_mode": "geo"}, 1, "plain sync"),
     ({"runner.sync_mode": "fl"}, 1, ValueError),
-    ({"runner.sync_mode": "geo"}, 2, NotImplementedError),
-    ({"runner.sync_mode": "fl"}, 2, NotImplementedError),
+    ({"runner.sync_mode": "geo"}, 2, (1, 1)),
+    ({"runner.sync_mode": "fl"}, 2, (2, 1)),
+    ({"runner.sync_mode": "geo", "runner.mesh_dp": 2}, 2, ValueError),
     ({"hyper_parameters.distributed_embedding": 1}, 1, (1, 1)),
     ({"runner.mesh_mp": -1, "runner.mesh_dp": 1}, 1, (1, 1)),
     ({"runner.mesh_mp": 2}, 1, ValueError),
@@ -333,7 +334,10 @@ def test_check_ported_at_one_process_and_across(flat, world, outcome):
     """At one process the reference's rules: geo trains as plain sync (one
     log line), fl raises its ValueError; every mesh that ``mesh_from_config``
     resolves is accepted (a grid that is not the world raises its
-    ValueError); geo or fl across processes still raise."""
+    ValueError).  Across processes geo gives each process a local 1×1 mesh
+    (a larger one raises), as the JAX trainer's mesh of its local devices;
+    a plain trainer of ``sync_mode: fl`` takes the world's mesh, as the JAX
+    trainer does (``train/fl.py`` runs the federated rounds)."""
     cfg = Config({"runner.model": "rank.dnn", **flat})
     if isinstance(outcome, type):
         with pytest.raises(outcome):

@@ -7,7 +7,7 @@ and Adam in float32; at (1,2) the bfloat16 table of ``config_bigdata.yaml``
 with stochastic rounding, also against the port's own one-device step.
 Then the CLI under the launcher at (2,1) (the feed's global dedup in the
 main thread), and the refusals across processes (the host-table loop's
-ValueError, the online loop's NotImplementedError).  One launch of dp·mp
+ValueError, the online loop's NotImplementedError of ``use_host_table``).  One launch of dp·mp
 ranks a mesh (``tests/test_torch_mesh_worker.py``)."""
 
 import os
@@ -303,7 +303,8 @@ def test_cli_trains_sparse_on_a_dp_mesh_under_the_launcher(tmp_path):
 
 def test_loops_across_processes_refuse(monkeypatch, tmp_path):
     """More than one process: the host-table loop raises the JAX package's
-    ValueError, word for word, and the online loop NotImplementedError."""
+    ValueError, word for word, and the online loop, which runs across
+    processes, still refuses ``use_host_table`` (fault 8) there."""
     monkeypatch.setattr(jax_host_loop.jax, "process_count", lambda: 2)
     with pytest.raises(ValueError) as want:
         jax_host_loop.HostTableTrainer(host_config(tmp_path))
@@ -311,9 +312,10 @@ def test_loops_across_processes_refuse(monkeypatch, tmp_path):
     with pytest.raises(ValueError) as got:
         port_host_loop.HostTableTrainer(Config(host_config(tmp_path).to_dict()), device="cpu")
     assert str(got.value) == str(want.value)
-    monkeypatch.setattr(port_online, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="OnlineTrainer across processes"):
-        port_online.OnlineTrainer(Config({**FLAT, "runner.days": "20240101"}), device="cpu")
+    monkeypatch.setattr(port_trainer_mod, "world_size", lambda: 2)
+    with pytest.raises(NotImplementedError, match="use_host_table"):
+        port_online.OnlineTrainer(Config({**FLAT, "runner.days": "20240101",
+                                          "runner.use_host_table": True}), device="cpu")
 
 
 def test_jax_dedup_reference_is_the_global_unique():
