@@ -1,0 +1,24 @@
+"""The benchmark's own tests: CPU tests, and tests marked ``cuda`` that run
+only on a card (``python -m pytest recbench/tests -m cuda`` there)."""
+
+import os
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: runs only on a CUDA device; skips without one")
+
+
+@pytest.fixture
+def card():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
